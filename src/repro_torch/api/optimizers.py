@@ -1,0 +1,192 @@
+"""Built-in optimizer adapters: the ported search methods behind one API.
+
+Port of the ``reinforce``, ``two_stage`` and ``ga`` adapters of
+``repro.api.optimizers``.  Each translates a ``SearchRequest`` into the
+engine's config, runs it on ``request.device`` and normalizes the result
+into ``SearchOutcome`` (trace length == eps, monotone best-so-far,
+per-layer (pe, kt, df) arrays).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from repro_torch.api import types
+from repro_torch.api.registry import register
+from repro_torch.api.types import SearchOutcome, SearchRequest, Trial
+from repro_torch.core import env as env_lib
+from repro_torch.core import ga as ga_lib
+from repro_torch.core import policy as policy_lib
+from repro_torch.core import reinforce
+from repro_torch.core import search as search_lib
+
+_outcome = types.build_outcome
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _policy_config(ecfg: env_lib.EnvConfig, opts) -> policy_lib.PolicyConfig:
+    pol = dict(opts.get("policy", {}))
+    return policy_lib.PolicyConfig(
+        obs_dim=ecfg.obs_dim, mix=ecfg.mix, levels=ecfg.levels,
+        hidden=pol.get("hidden", policy_lib.HIDDEN),
+        kind=pol.get("kind", "rnn"))
+
+
+def _ga_cfg(request: SearchRequest) -> ga_lib.GAConfig:
+    opts = request.options
+    pop = int(opts.get("population", 100))
+    gens = int(opts.get("generations", 0)) or max(request.eps // pop, 1)
+    return ga_lib.GAConfig(
+        population=pop, generations=gens,
+        mutation_rate=opts.get("mutation_rate", 0.05),
+        crossover_rate=opts.get("crossover_rate", 0.05),
+        seed=request.seed)
+
+
+@register("ga")
+class GeneticAlgorithmOptimizer:
+    """Baseline GA; ``eps`` buys population * generations individuals."""
+
+    name = "ga"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        cfg = _ga_cfg(request)
+        wl = request.resolve_workload()
+        env = env_lib.make_env(wl, request.env, request.device)
+        if request.on_progress is None:
+            chunk, on_chunk = None, None
+        else:
+            def on_chunk(state, hist, gens_done):
+                request.on_progress(Trial(
+                    min(gens_done * cfg.population, request.eps),
+                    float(np.min(hist)), float(state.best_val)))
+
+            chunk = max(request.progress_every // cfg.population, 1)
+        state, hist = ga_lib.run_ga_search(
+            wl, request.env, cfg, chunk=chunk, on_chunk=on_chunk, env=env)
+        pe, kt, df = ga_lib.ga_solution(env, request.env, state)
+        trace = types.expand_trace(hist, cfg.population)
+        return _outcome(request, self.name, float(state.best_val),
+                        _np(pe), _np(kt), _np(df), trace, t0,
+                        extras={"generations": cfg.generations,
+                                "population": cfg.population},
+                        streamed=request.on_progress is not None)
+
+
+# ---------------------------------------------------------------------------
+# RL family (chunked engines; stream live through on_chunk).
+# ---------------------------------------------------------------------------
+def _reinforce_cfg(request: SearchRequest):
+    opts = request.options
+    E = int(opts.get("episodes_per_epoch", 1))
+    epochs = max(request.eps // E, 1)
+    rcfg = reinforce.ReinforceConfig(
+        epochs=epochs, episodes_per_epoch=E,
+        lr=opts.get("lr", 3e-3),
+        discount=opts.get("discount", 0.9),
+        entropy_coef=opts.get("entropy_coef", 0.0),
+        seed=request.seed)
+    return rcfg, E
+
+
+def _chunk_args(request: SearchRequest, E: int):
+    """(chunk, on_chunk) for the stage-1 engine: stream live when asked."""
+    if request.on_progress is None:
+        return 500, None
+
+    def on_chunk(state, hist, epochs_done):
+        request.on_progress(Trial(
+            min(epochs_done * E, request.eps),
+            float(np.min(hist["best_value"])), float(state.best_value)))
+
+    return max(request.progress_every // E, 1), on_chunk
+
+
+@register("reinforce", aliases=("rl", "conx_global"))
+class ReinforceOptimizer:
+    """Stage-1 ConfuciuX: REINFORCE global search (no GA fine-tune)."""
+
+    name = "reinforce"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        wl = request.resolve_workload()
+        rcfg, E = _reinforce_cfg(request)
+        pcfg = _policy_config(request.env, request.options)
+        chunk, on_chunk = _chunk_args(request, E)
+        env = env_lib.make_env(wl, request.env, request.device)
+        state, hist = reinforce.run_search(wl, request.env, rcfg, pcfg,
+                                           chunk=chunk, on_chunk=on_chunk,
+                                           env=env)
+        pe, kt, df = reinforce.solution_arrays(state, env)
+        trace = types.expand_trace(hist["best_value"], E)
+        return _outcome(
+            request, self.name, float(state.best_value), _np(pe), _np(kt),
+            _np(df), trace, t0,
+            extras={"epochs": rcfg.epochs, "history": hist},
+            streamed=request.on_progress is not None)
+
+
+@register("two_stage", aliases=("conx", "confuciux"))
+class TwoStageOptimizer:
+    """The full ConfuciuX pipeline: RL global search -> local-GA fine-tune."""
+
+    name = "two_stage"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        wl = request.resolve_workload()
+        opts = request.options
+        rcfg, E = _reinforce_cfg(request)
+        ga = dict(opts.get("ga", {}))
+        gcfg = ga_lib.LocalGAConfig(
+            population=ga.get("population", 20),
+            generations=ga.get("generations", 2000),
+            mutation_rate=ga.get("mutation_rate", 0.05),
+            crossover_rate=ga.get("crossover_rate", 0.2),
+            mutation_step=ga.get("mutation_step", 4),
+            seed=request.seed)
+        pcfg = _policy_config(request.env, opts)
+        chunk, on_chunk = _chunk_args(request, E)
+        if request.on_progress is None:
+            ga_chunk, ga_on_chunk = None, None
+        else:
+            # Stage-2 evaluations run past the eps budget, so its Trials
+            # stay pinned at step == eps.
+            def ga_on_chunk(state, hist, gens_done):
+                request.on_progress(Trial(
+                    request.eps, float(np.min(hist)),
+                    min(float(state.best_val), seen_best[0])))
+
+            seen_best = [float("inf")]
+            user_on_chunk = on_chunk
+
+            def on_chunk(state, hist, epochs_done):  # noqa: F811
+                seen_best[0] = min(seen_best[0], float(state.best_value))
+                user_on_chunk(state, hist, epochs_done)
+
+            ga_chunk = max(request.progress_every // gcfg.population, 1)
+        res = search_lib.confuciux_search(
+            wl, request.env, rcfg, gcfg, pcfg,
+            fine_tune=opts.get("fine_tune", True),
+            chunk=chunk, on_chunk=on_chunk,
+            ga_chunk=ga_chunk, ga_on_chunk=ga_on_chunk,
+            device=request.device)
+        # Stage-2's gain is reflected at the trace's final sample so
+        # history[-1] equals the post-fine-tune best.
+        trace = types.expand_trace(res.history["best_value"], E)
+        if len(trace):
+            trace[-1] = min(trace[-1], float(res.best_value))
+        return _outcome(
+            request, self.name, res.best_value, res.pe, res.kt, res.df,
+            trace, t0,
+            extras={"stage1_value": float(res.stage1_value),
+                    "initial_valid_value": float(res.initial_valid_value),
+                    "ga_history": np.asarray(res.ga_history),
+                    "history": res.history, "epochs": rcfg.epochs},
+            streamed=request.on_progress is not None)

@@ -1,0 +1,183 @@
+"""Canonical request/outcome schema shared by every search method.
+
+Port of ``repro.api.types``.  One ``SearchRequest`` describes a search
+independently of the optimizer that runs it, plus the ``device`` it runs
+on (the CUDA card unless the caller asks for the CPU); one
+``SearchOutcome`` reports the result in the same shape for every method.
+
+Sample accounting: ``eps`` counts whole-model evaluations -- one RL
+episode, one GA individual each cost exactly one sample.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+
+from repro_torch.core import env as env_lib
+from repro_torch.costmodel import workloads as workloads_lib
+
+
+class Trial(NamedTuple):
+    """One streamed progress report from a running optimizer."""
+
+    step: int
+    value: float
+    best_value: float
+
+
+ProgressFn = Callable[[Trial], None]
+
+
+@dataclasses.dataclass
+class SearchRequest:
+    """Method-agnostic description of one resource-assignment search.
+
+    workload: a paper workload name (str), a list of LayerSpec, or an
+        (N, NUM_FIELDS) layer array.
+    env:     the environment config (objective/constraint/platform/dataflow).
+    eps:     sample budget in whole-model evaluations (paper: 5000).
+    seed:    RNG seed threaded to whichever method runs.
+    method:  registry name used by :func:`repro_torch.api.run_search`.
+    options: method-specific knobs; adapters ignore what they do not know.
+    on_progress / progress_every: optional streaming hook.
+    device:  where the search runs: "cuda" (default) or "cpu".  A CUDA
+        request without a card raises; nothing falls back to the CPU.
+    """
+
+    workload: Any
+    env: env_lib.EnvConfig = dataclasses.field(
+        default_factory=env_lib.EnvConfig)
+    eps: int = 5000
+    seed: int = 0
+    method: str = "two_stage"
+    options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    on_progress: Optional[ProgressFn] = None
+    progress_every: int = 100
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.eps < 1:
+            raise ValueError(f"eps must be >= 1, got {self.eps}")
+
+    def resolve_workload(self):
+        if isinstance(self.workload, str):
+            return workloads_lib.get_workload(self.workload)
+        return self.workload
+
+    @property
+    def num_layers(self) -> int:
+        wl = self.resolve_workload()
+        if isinstance(wl, (list, tuple)):
+            return len(wl)
+        return int(np.asarray(wl).shape[0])
+
+
+@dataclasses.dataclass
+class SearchOutcome:
+    """Unified search result: every registered optimizer returns this.
+
+    history is the best-so-far objective per sample: length == eps, monotone
+    non-increasing, +inf while nothing feasible has been seen (the paper's
+    "NAN").  pe/kt/df are the per-layer raw assignment of the best solution
+    (NaN-filled when the method never found a feasible point).
+    telemetry stays None: the port has no telemetry yet.
+    """
+
+    method: str
+    best_value: float
+    pe: np.ndarray
+    kt: np.ndarray
+    df: np.ndarray
+    history: np.ndarray
+    eps: int
+    seed: int
+    samples_to_convergence: int
+    wall_seconds: float
+    feasible: bool
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    telemetry: Optional[Dict[str, Any]] = None
+
+
+def samples_to_convergence(trace: np.ndarray, tol: float = 0.05) -> int:
+    """First sample index (1-based) within ``tol`` of the final best value."""
+    trace = np.asarray(trace, dtype=float)
+    finite = np.isfinite(trace)
+    if not finite.any():
+        return len(trace)
+    final = trace[finite][-1]
+    ok = finite & (trace <= final * (1 + tol))
+    return int(np.argmax(ok)) + 1 if ok.any() else len(trace)
+
+
+def expand_trace(per_span_best, span: int) -> np.ndarray:
+    """Expand a per-generation/per-epoch best-so-far trace to per-sample.
+
+    A span's best is credited to the span's *last* sample; earlier samples
+    inherit the previous span's best (inf for the first span).
+    """
+    per_span_best = np.asarray(per_span_best, dtype=float).ravel()
+    if span <= 1:
+        return per_span_best
+    t = np.full(len(per_span_best) * span, np.inf)
+    t[span - 1::span] = per_span_best
+    return np.minimum.accumulate(t)
+
+
+def fit_trace(trace, eps: int) -> np.ndarray:
+    """Normalize a raw trace to the outcome schema: (eps,) monotone best-so-
+    far, padded with its last value / truncated as needed."""
+    tr = np.asarray(trace, dtype=float).ravel()
+    if tr.size == 0:
+        tr = np.array([np.inf])
+    tr = np.minimum.accumulate(tr)
+    if len(tr) >= eps:
+        return tr[:eps]
+    return np.concatenate([tr, np.full(eps - len(tr), tr[-1])])
+
+
+def build_outcome(request: SearchRequest, method: str, best_value, pe, kt,
+                  df, trace, t0: float, extras=None,
+                  streamed: bool = False) -> SearchOutcome:
+    """Normalize a finished run into the unified schema.
+
+    ``pe``/``kt`` may be None (nothing feasible found -> NaN-filled arrays);
+    ``df`` may be None (fixed-dataflow method -> the env's dataflow id).
+    """
+    best_value = float(best_value)
+    N = request.num_layers
+    if pe is None or kt is None:
+        pe = np.full((N,), np.nan)
+        kt = np.full((N,), np.nan)
+    if df is None:
+        df = np.full((N,), request.env.dataflow, np.int32)
+    history = fit_trace(trace, request.eps)
+    if not streamed:
+        emit_trace(request, history)
+    return SearchOutcome(
+        method=method, best_value=best_value,
+        pe=np.asarray(pe), kt=np.asarray(kt),
+        df=np.broadcast_to(np.asarray(df), (N,)).copy(),
+        history=history, eps=request.eps, seed=request.seed,
+        samples_to_convergence=samples_to_convergence(history),
+        wall_seconds=time.time() - t0,
+        feasible=bool(np.isfinite(best_value)),
+        extras=dict(extras or {}))
+
+
+def emit_trace(request: SearchRequest, history: np.ndarray) -> None:
+    """Fire the request's progress callback over a finished trace at
+    ``progress_every`` granularity."""
+    cb = request.on_progress
+    if cb is None:
+        return
+    n = len(history)
+    every = max(int(request.progress_every), 1)
+    last = 0
+    for step in range(every, n + 1, every):
+        cb(Trial(step, float(history[step - 1]), float(history[step - 1])))
+        last = step
+    if last < n:
+        cb(Trial(n, float(history[-1]), float(history[-1])))

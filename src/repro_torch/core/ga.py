@@ -1,0 +1,293 @@
+"""Genetic algorithms: the stage-2 local fine-tuner (SIII-G) and the
+general-GA baseline (SIV-A3).
+
+Port of ``repro.core.ga`` (the in-graph path).  Both operate on genomes of
+per-layer (PE, Buf) genes plus a dataflow gene for MIX.  The baseline GA
+works in the coarse L-level space; the local fine-tuner works in the raw
+integer space around the stage-1 solution with the paper's conservative
+operators (local mutation within +-step, crossover that swaps the
+(PE, Buf) pairs of two layers inside one genome).
+
+Fitness = whole-model objective, +inf when the platform constraint is
+violated; one generation is one batched cost-kernel launch at (P, N).
+Sorting is stable, like ``jnp.argsort``, so the many +inf ties keep their
+order.  Random draws come from a ``torch.Generator`` on the population's
+device; every value of a generation stays there, and a chunk's history
+goes to the host once, at its end.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import chunk as chunk_lib
+from repro_torch.core import env as env_lib
+from repro_torch.costmodel import dataflows as dfl
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class GAConfig:
+    population: int = 100
+    generations: int = 50
+    mutation_rate: float = 0.05
+    crossover_rate: float = 0.05
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalGAConfig:
+    population: int = 20
+    generations: int = 2000
+    mutation_rate: float = 0.05
+    crossover_rate: float = 0.2
+    mutation_step: int = 4       # raw-space +-step (PE); kt uses step 1
+    seed: int = 0
+
+
+class GAState(NamedTuple):
+    """Everything a resumed GA run needs."""
+
+    pop: torch.Tensor             # (P, N, genes) int64
+    best_val: torch.Tensor        # () f32 best feasible objective so far
+    best_genome: torch.Tensor     # (N, genes) int64
+    generator: torch.Generator
+    generation: torch.Tensor      # () int64 generations completed
+
+
+class GAEngine(NamedTuple):
+    """Building blocks of one GA run:
+    ``gen_step(state) == evolve(state, fitness(state.pop))``."""
+
+    init_carry: Callable         # seed -> GAState
+    gen_step: Callable           # GAState -> (GAState, best_val)
+    decode: Callable             # genome -> (pe, kt, df) raw
+    fitness: Callable            # pop -> (P,) objective-or-inf
+    evolve: Callable             # (GAState, fit) -> (GAState, best_val)
+
+
+def _fitness(env, ecfg, pe, kt, df):
+    """(P,) objective of (P, N) assignments, +inf where infeasible."""
+    lat, en, area, pw = ops.table_cost(env.layers_t, pe, kt, df)
+    perf, _, feas = env_lib.aggregate_costs(lat, en, area, pw, ecfg,
+                                            env.budget)
+    return torch.where(feas, perf, torch.inf)
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _randint(gen, lo, hi, shape, device):
+    return torch.randint(lo, hi, shape, generator=gen, device=device)
+
+
+def _rand(gen, shape, device):
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def _select(state: GAState, fit):
+    """Sort by fitness (stable) and update the best-so-far."""
+    order = torch.argsort(fit, stable=True)
+    pop, fit = state.pop[order], fit[order]
+    better = fit[0] < state.best_val
+    best_val = torch.where(better, fit[0], state.best_val)
+    best_genome = torch.where(better, pop[0], state.best_genome)
+    return pop, best_val, best_genome
+
+
+# ---------------------------------------------------------------------------
+# Baseline GA (coarse level space).
+# ---------------------------------------------------------------------------
+def make_ga_engine(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
+                   cfg: GAConfig) -> GAEngine:
+    """The baseline GA's :class:`GAEngine` for one environment."""
+    N = env.num_layers
+    P = cfg.population
+    L = ecfg.levels
+    genes = 3 if ecfg.mix else 2
+    dev = env.device
+
+    def decode(genome):
+        pe = env.pe_table[genome[..., 0]]
+        kt = env.kt_table[genome[..., 1]]
+        df = (genome[..., 2].to(torch.float32) if ecfg.mix
+              else float(ecfg.dataflow))
+        return pe, kt, df
+
+    def fitness(pop):
+        return _fitness(env, ecfg, *decode(pop))   # (P,)
+
+    def evolve(state: GAState, fit):
+        pop, best_val, best_genome = _select(state, fit)
+        # Elitist half survives; children from random parent pairs.
+        half = P // 2
+        gen = state.generator
+        pa = _randint(gen, 0, half, (P - half,), dev)
+        pb = _randint(gen, 0, half, (P - half,), dev)
+        cx_mask = _rand(gen, (P - half, N, genes), dev) < cfg.crossover_rate
+        children = torch.where(cx_mask, pop[pb], pop[pa])
+        mut_mask = _rand(gen, children.shape, dev) < cfg.mutation_rate
+        rand = _randint(gen, 0, L, children.shape, dev)
+        if ecfg.mix:
+            rand[..., 2] = _randint(gen, 0, dfl.NUM_DATAFLOWS,
+                                    children.shape[:-1], dev)
+        children = torch.where(mut_mask, rand, children)
+        pop = torch.cat([pop[:half], children], dim=0)
+        return GAState(pop, best_val, best_genome, gen,
+                       state.generation + 1), best_val
+
+    def gen_step(state: GAState):
+        return evolve(state, fitness(state.pop))
+
+    def init_carry(seed) -> GAState:
+        gen = _generator(seed, dev)
+        pop = _randint(gen, 0, L, (P, N, genes), dev)
+        if ecfg.mix:
+            pop[..., 2] = _randint(gen, 0, dfl.NUM_DATAFLOWS, (P, N), dev)
+        return GAState(pop, torch.tensor(torch.inf, device=dev),
+                       torch.zeros((N, genes), dtype=torch.int64, device=dev),
+                       gen, torch.zeros((), dtype=torch.int64, device=dev))
+
+    return GAEngine(init_carry, gen_step, decode, fitness, evolve)
+
+
+def run_chunked_engine(engine: GAEngine, state: GAState, generations: int,
+                       chunk: Optional[int], on_chunk):
+    """Chunk loop of a population engine.  Returns (state, (gens,)
+    history of the best-so-far)."""
+    def run_chunk(state, n):
+        hist = []
+        for _ in range(n):
+            state, bv = engine.gen_step(state)
+            hist.append(bv)
+        return state, torch.stack(hist).cpu().numpy()
+
+    state, hist = chunk_lib.drive(state, generations, chunk, run_chunk,
+                                  on_chunk)
+    return state, chunk_lib.concat_hist(hist)
+
+
+def run_ga_search(workload, ecfg: env_lib.EnvConfig,
+                  cfg: GAConfig = GAConfig(),
+                  state: Optional[GAState] = None,
+                  chunk: Optional[int] = None,
+                  on_chunk=None,
+                  env: Optional[env_lib.EnvArrays] = None,
+                  device="cuda"):
+    """Chunked, resumable baseline GA.  Returns (GAState, (gens,) history).
+
+    Runs ``cfg.generations`` more generations from ``state`` (fresh run
+    when None), in chunks of ``chunk`` generations (default: one chunk).
+    """
+    if env is None:
+        env = env_lib.make_env(workload, ecfg, device)
+    engine = make_ga_engine(env, ecfg, cfg)
+    if state is None:
+        state = engine.init_carry(cfg.seed)
+    return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk)
+
+
+def ga_solution(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
+                state: GAState):
+    """Decode a baseline-GA state's best genome to raw (pe, kt, df)."""
+    pe = env.pe_table[state.best_genome[..., 0]]
+    kt = env.kt_table[state.best_genome[..., 1]]
+    df = (state.best_genome[..., 2] if ecfg.mix
+          else torch.full((env.num_layers,), ecfg.dataflow,
+                          dtype=torch.int64, device=env.device))
+    return pe, kt, df
+
+
+# ---------------------------------------------------------------------------
+# Stage-2 local GA (fine-grained raw space, seeded by the RL solution).
+# ---------------------------------------------------------------------------
+def make_local_ga_engine(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
+                         init_pe, init_kt, init_df,
+                         cfg: LocalGAConfig) -> GAEngine:
+    """The fine-tuner's :class:`GAEngine`: raw-space genomes, fixed df."""
+    N = env.num_layers
+    P = cfg.population
+    dev = env.device
+    as_i64 = lambda v: torch.as_tensor(v, device=dev).to(torch.int64)
+    init_genome = torch.stack([as_i64(init_pe), as_i64(init_kt)], dim=-1)
+    df = as_i64(init_df).expand(N).to(torch.float32)   # fixed in stage 2
+    lo = torch.tensor([dfl.PE_MIN, dfl.KT_MIN], device=dev)
+    hi = torch.tensor([dfl.PE_MAX, dfl.KT_MAX], device=dev)
+
+    def mutate(children, gen):
+        """Each gene moves by at most +-step (PE) / +-1 (kt) at the rate."""
+        C = children.shape[0]
+        mask = _rand(gen, children.shape, dev) < cfg.mutation_rate
+        step = torch.stack([
+            _randint(gen, -cfg.mutation_step, cfg.mutation_step + 1, (C, N),
+                     dev),
+            _randint(gen, -1, 2, (C, N), dev)], dim=-1)
+        out = torch.where(mask, children + step, children)
+        return torch.clamp(out, lo, hi)
+
+    def self_crossover(children, gen):
+        """Swap the (PE, Buf) pairs of two random layers (SIII-G)."""
+        C = children.shape[0]
+        i = _randint(gen, 0, N, (C,), dev)
+        j = _randint(gen, 0, N, (C,), dev)
+        do = _rand(gen, (C,), dev) < cfg.crossover_rate
+        rows = torch.arange(C, device=dev)
+        gi, gj = children[rows, i], children[rows, j]
+        swapped = children.clone()
+        swapped[rows, i] = gj
+        swapped[rows, j] = gi
+        return torch.where(do[:, None, None], swapped, children)
+
+    def decode(genome):
+        return (genome[..., 0].to(torch.float32),
+                genome[..., 1].to(torch.float32), df)
+
+    def fitness(pop):
+        pe, kt, _ = decode(pop)
+        return _fitness(env, ecfg, pe, kt, df)
+
+    def evolve(state: GAState, fit):
+        pop, best_val, best_genome = _select(state, fit)
+        half = P // 2
+        gen = state.generator
+        parents = pop[_randint(gen, 0, half, (P - half,), dev)]
+        children = mutate(self_crossover(parents, gen), gen)
+        pop = torch.cat([pop[:half], children], dim=0)
+        return GAState(pop, best_val, best_genome, gen,
+                       state.generation + 1), best_val
+
+    def gen_step(state: GAState):
+        return evolve(state, fitness(state.pop))
+
+    def init_carry(seed) -> GAState:
+        pop = init_genome.expand(P, N, 2).clone()
+        return GAState(pop, torch.tensor(torch.inf, device=dev),
+                       init_genome.clone(), _generator(seed, dev),
+                       torch.zeros((), dtype=torch.int64, device=dev))
+
+    return GAEngine(init_carry, gen_step, decode, fitness, evolve)
+
+
+def run_local_ga(workload, ecfg: env_lib.EnvConfig,
+                 init_pe, init_kt, init_df,
+                 cfg: LocalGAConfig = LocalGAConfig(),
+                 state: Optional[GAState] = None,
+                 chunk: Optional[int] = None,
+                 on_chunk=None,
+                 env: Optional[env_lib.EnvArrays] = None,
+                 device="cuda"):
+    """Chunked, resumable stage-2 fine-tune; same contract as run_ga_search.
+
+    The dataflow assignment is frozen at ``init_df``.
+    """
+    if env is None:
+        env = env_lib.make_env(workload, ecfg, device)
+    engine = make_local_ga_engine(env, ecfg, init_pe, init_kt, init_df, cfg)
+    if state is None:
+        state = engine.init_carry(cfg.seed)
+    return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk)

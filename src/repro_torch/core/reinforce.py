@@ -1,0 +1,310 @@
+"""ConfuciuX stage 1: REINFORCE global search (SIII-A..F).
+
+Port of ``repro.core.reinforce``.  Faithful elements (paper section in
+brackets):
+  * LSTM(128) policy, one (PE, Buf) action pair per layer [III-A2, III-C]
+  * observation Eq. (1), normalized to [-1, 1]                       [III-B]
+  * reward  R = P_t - P_min  with the global running minimum P_min
+    tracked across all time-steps and epochs (P = -objective)        [III-E]
+  * violation penalty = -(accumulated episode reward), episode ends  [III-E]
+  * discount d = 0.9; per-episode reward standardization             [III-E]
+  * MIX: optional third per-layer action choosing the dataflow style [IV-D]
+
+Episodes of one epoch run as a batch of E rows.  The rollout is a Python
+loop over the N layers whose every value -- ``alive``, ``budget_left``,
+``pmin``, the best-so-far -- stays a tensor on the device: nothing syncs
+with the host until a chunk's history goes to numpy.  Each step scores its
+E actions with one cost-kernel launch at shape (E, 1) and steps the policy
+with one LSTM-kernel launch.
+
+Unlike the reference, whose parameters are immutable, the policy module is
+updated in place by each epoch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import chunk as chunk_lib
+from repro_torch.core import env as env_lib
+from repro_torch.core import policy as policy_lib
+from repro_torch.kernels import ops
+from repro_torch.training import optim
+
+
+@dataclasses.dataclass(frozen=True)
+class ReinforceConfig:
+    epochs: int = 5000
+    episodes_per_epoch: int = 1   # 1 == the paper's setting
+    lr: float = 3e-3
+    discount: float = 0.9         # the paper's d
+    entropy_coef: float = 0.0     # 0.0 == faithful
+    seed: int = 0
+
+
+class SearchState(NamedTuple):
+    params: policy_lib.Policy
+    opt_state: optim.OptState
+    pmin: torch.Tensor        # () running min of P_t across steps & epochs
+    best_value: torch.Tensor  # () best feasible objective so far
+    best_pe_lvl: torch.Tensor  # (N,) int64
+    best_kt_lvl: torch.Tensor  # (N,) int64
+    best_df: torch.Tensor      # (N,) int64
+    generator: torch.Generator
+    epoch: torch.Tensor        # () int64
+
+
+class RolloutOut(NamedTuple):
+    rewards: torch.Tensor   # (E, N)
+    logps: torch.Tensor     # (E, N), carries the policy's graph
+    entropy: torch.Tensor   # (E, N)
+    mask: torch.Tensor      # (E, N) 1.0 while alive at step entry
+    perf: torch.Tensor      # (E, N) raw objective per layer (positive)
+    actions: torch.Tensor   # (E, N, 3) int64 (pe_lvl, kt_lvl, df)
+    feasible: torch.Tensor  # (E,) bool -- never violated
+    model_value: torch.Tensor  # (E,) sum of per-layer objective
+    pmin: torch.Tensor      # (E,) updated running min
+
+
+def make_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
+                 env: env_lib.EnvArrays):
+    """Build rollout(params, pmin, generator, E, actions=None) -> RolloutOut.
+
+    ``actions`` (E, N, 3), when given, replaces the sampled actions (the
+    tests replay the reference's draws through it); log-probs and entropies
+    are then those of the given actions under the policy.
+    """
+    if ecfg.objective == "blend":
+        raise ValueError("objective='blend' is a whole-model scalarization; "
+                         "the per-layer RL reward path cannot use it")
+    N = env.num_layers
+    dev = env.device
+    t_norm = 2.0 * torch.arange(N, dtype=torch.float32, device=dev) / max(
+        N - 1, 1) - 1.0
+    Lm1 = max(pcfg.levels - 1, 1)
+
+    def rollout(params, pmin, generator, E: int,
+                actions: Optional[torch.Tensor] = None) -> RolloutOut:
+        pstate = policy_lib.init_state(pcfg, (E,), dev)
+        minus1 = torch.full((E,), -1.0, device=dev)
+        prev_pe, prev_kt, prev_df = minus1, minus1, minus1
+        budget_left = env.budget.expand(E)
+        alive = torch.ones((E,), dtype=torch.bool, device=dev)
+        acc_r = torch.zeros((E,), device=dev)
+        pmin_run = pmin.expand(E)
+        fixed_df = torch.full((E,), ecfg.dataflow, dtype=torch.int64,
+                              device=dev)
+        zero = torch.zeros((E,), device=dev)
+        outs = []
+        for t in range(N):
+            dyn = [prev_pe, prev_kt] + ([prev_df] if ecfg.mix else [])
+            obs = torch.cat([env.static_obs[t].expand(E, 7),
+                             torch.stack(dyn, dim=-1),
+                             t_norm[t].expand(E, 1)], dim=-1)
+            logits, pstate = policy_lib.step(params, pcfg, obs, pstate)
+            if actions is None:
+                a_pe, lp_pe, ent_pe = policy_lib.sample_action(
+                    generator, logits[0])
+                a_kt, lp_kt, ent_kt = policy_lib.sample_action(
+                    generator, logits[1])
+                if ecfg.mix:
+                    a_df, lp_df, ent_df = policy_lib.sample_action(
+                        generator, logits[2])
+            else:
+                a_pe, a_kt = actions[:, t, 0], actions[:, t, 1]
+                lp_pe, ent_pe = policy_lib.log_prob_entropy(logits[0], a_pe)
+                lp_kt, ent_kt = policy_lib.log_prob_entropy(logits[1], a_kt)
+                if ecfg.mix:
+                    a_df = actions[:, t, 2]
+                    lp_df, ent_df = policy_lib.log_prob_entropy(logits[2],
+                                                                a_df)
+            if not ecfg.mix:
+                a_df, lp_df, ent_df = fixed_df, zero, zero
+            pe = env.pe_table[a_pe]
+            kt = env.kt_table[a_kt]
+            lat, en, area, pw = ops.table_cost(
+                env.layers[t][:, None], pe[:, None], kt[:, None],
+                a_df.to(torch.float32)[:, None])
+            perf_pos = (lat if ecfg.objective == "latency" else en)[:, 0]
+            cons = (area if ecfg.constraint == "area" else pw)[:, 0]
+            P_t = -perf_pos  # higher is better
+            if ecfg.scenario == "LP":
+                budget_left = budget_left - cons
+                viol = alive & (budget_left < 0)
+            else:  # LS: the single design must fit the budget at every layer
+                viol = alive & (cons > env.budget)
+            pmin_run = torch.where(alive, torch.minimum(pmin_run, P_t),
+                                   pmin_run)
+            r_ok = P_t - pmin_run                    # >= 0 by construction
+            alive_f = alive.to(torch.float32)
+            r = torch.where(viol, -acc_r, r_ok) * alive_f
+            acc_r = acc_r + torch.where(alive & ~viol, r, 0.0)
+            alive = alive & ~viol
+            prev_pe = 2.0 * a_pe / Lm1 - 1.0
+            prev_kt = 2.0 * a_kt / Lm1 - 1.0
+            prev_df = a_df.to(torch.float32) - 1.0
+            outs.append((r, lp_pe + lp_kt + lp_df, ent_pe + ent_kt + ent_df,
+                         alive_f, perf_pos,
+                         torch.stack([a_pe, a_kt, a_df], dim=-1)))
+        r, logps, ents, mask, perf, acts = (torch.stack(z, dim=1)
+                                            for z in zip(*outs))
+        return RolloutOut(
+            rewards=r, logps=logps, entropy=ents, mask=mask, perf=perf,
+            actions=acts, feasible=alive,
+            model_value=torch.sum(perf * mask, dim=1), pmin=pmin_run)
+
+    return rollout
+
+
+def _discounted_returns(rewards, discount):
+    """G_t = r_t + d * G_{t+1} along the last axis of (E, N) rewards."""
+    g = torch.zeros_like(rewards[..., 0])
+    G = []
+    for t in range(rewards.shape[-1] - 1, -1, -1):
+        g = rewards[..., t] + discount * g
+        G.append(g)
+    return torch.stack(G[::-1], dim=-1)
+
+
+def make_loss_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
+                 rcfg: ReinforceConfig, env: env_lib.EnvArrays):
+    """Build loss_fn(params, pmin, generator, actions=None)
+    -> (loss, rolls, returns): E episodes -> the policy-gradient loss."""
+    rollout = make_rollout(ecfg, pcfg, env)
+    E = rcfg.episodes_per_epoch
+
+    def loss_fn(params, pmin, generator, actions=None):
+        rolls = rollout(params, pmin, generator, E, actions)
+        G = _discounted_returns(rolls.rewards * rolls.mask, rcfg.discount)
+        n_valid = torch.clamp_min(rolls.mask.sum(dim=1), 1.0)
+        mean = (G * rolls.mask).sum(dim=1) / n_valid
+        var = (torch.square(G - mean[:, None]) * rolls.mask).sum(
+            dim=1) / n_valid
+        G_std = (G - mean[:, None]) / (torch.sqrt(var)[:, None] + 1e-8)
+        pg = -(rolls.logps * G_std.detach() * rolls.mask).sum(dim=1)
+        ent = (rolls.entropy * rolls.mask).sum(dim=1)
+        loss = torch.mean(pg) - rcfg.entropy_coef * torch.mean(ent)
+        return loss, rolls, G
+
+    return loss_fn
+
+
+def _pick(values, i):
+    """values[i] along dim 0 for a 0-d index tensor, without a host sync."""
+    return torch.index_select(values, 0, i.reshape(1))[0]
+
+
+def make_epoch_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
+                  rcfg: ReinforceConfig, env: env_lib.EnvArrays,
+                  opt: optim.Adam):
+    """Build epoch_fn(state, actions=None) -> (state', metrics): E episodes,
+    then one policy-gradient Adam step.  Metrics are 0-d device tensors."""
+    loss_fn = make_loss_fn(ecfg, pcfg, rcfg, env)
+
+    def epoch_fn(state: SearchState, actions=None):
+        named = dict(state.params.named_parameters())
+        loss, rolls, _ = loss_fn(state.params, state.pmin, state.generator,
+                                 actions)
+        grads = dict(zip(named, torch.autograd.grad(loss, list(
+            named.values()))))
+        new_params, opt_state = opt.update(
+            grads, state.opt_state, {k: p.detach() for k, p in named.items()})
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(new_params[k])
+        loss = loss.detach()
+        # Track the best feasible whole-model solution seen so far.
+        values = torch.where(rolls.feasible, rolls.model_value,
+                             torch.inf)
+        i = torch.argmin(values)        # the first minimum
+        best_i = _pick(values, i)
+        better = best_i < state.best_value
+        best_value = torch.where(better, best_i, state.best_value)
+        acts = _pick(rolls.actions, i)
+        pick = lambda new, old: torch.where(better, new, old)
+        new_state = SearchState(
+            params=state.params, opt_state=opt_state,
+            pmin=torch.amin(rolls.pmin),
+            best_value=best_value,
+            best_pe_lvl=pick(acts[:, 0], state.best_pe_lvl),
+            best_kt_lvl=pick(acts[:, 1], state.best_kt_lvl),
+            best_df=pick(acts[:, 2], state.best_df),
+            generator=state.generator, epoch=state.epoch + 1)
+        metrics = {
+            "loss": loss,
+            "best_value": best_value,
+            "mean_value": torch.mean(rolls.model_value),
+            "feasible_frac": torch.mean(rolls.feasible.to(torch.float32)),
+            "mean_return": torch.mean(
+                (rolls.rewards * rolls.mask).sum(dim=1)),
+        }
+        return new_state, metrics
+
+    return epoch_fn
+
+
+def init_search(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
+                pcfg: policy_lib.PolicyConfig, rcfg: ReinforceConfig,
+                opt: optim.Adam) -> SearchState:
+    dev = env.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rcfg.seed)
+    params = policy_lib.init_params(pcfg, gen, dev)
+    N = env.num_layers
+    return SearchState(
+        params=params,
+        opt_state=opt.init({k: p.detach()
+                            for k, p in params.named_parameters()}),
+        pmin=torch.tensor(torch.inf, device=dev),
+        best_value=torch.tensor(torch.inf, device=dev),
+        best_pe_lvl=torch.zeros((N,), dtype=torch.int64, device=dev),
+        best_kt_lvl=torch.zeros((N,), dtype=torch.int64, device=dev),
+        best_df=torch.full((N,), ecfg.dataflow, dtype=torch.int64,
+                           device=dev),
+        generator=gen, epoch=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def run_search(workload, ecfg: env_lib.EnvConfig,
+               rcfg: ReinforceConfig = ReinforceConfig(),
+               pcfg: Optional[policy_lib.PolicyConfig] = None,
+               state: Optional[SearchState] = None,
+               chunk: int = 500,
+               on_chunk=None,
+               device="cuda",
+               env: Optional[env_lib.EnvArrays] = None):
+    """Full stage-1 search.  Returns (state, history dict of (epochs,) arrays).
+
+    Runs in chunks of ``chunk`` epochs; ``on_chunk(state, chunk_history,
+    epochs_done)`` fires after each chunk.  The history of a chunk is read
+    back to the host once, at its end.
+    """
+    if env is None:
+        env = env_lib.make_env(workload, ecfg, device)
+    pcfg = pcfg or policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim, mix=ecfg.mix,
+                                           levels=ecfg.levels)
+    opt = optim.Adam(lr=rcfg.lr)
+    if state is None:
+        state = init_search(env, ecfg, pcfg, rcfg, opt)
+    epoch_fn = make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+
+    def run_chunk(state, n):
+        metrics = []
+        for _ in range(n):
+            state, m = epoch_fn(state)
+            metrics.append(m)
+        hist = {k: torch.stack([m[k] for m in metrics]).cpu().numpy()
+                for k in metrics[0]}
+        return state, hist
+
+    state, history = chunk_lib.drive(state, rcfg.epochs, chunk, run_chunk,
+                                     on_chunk)
+    return state, chunk_lib.concat_hist_dict(history)
+
+
+def solution_arrays(state: SearchState, env: env_lib.EnvArrays):
+    """Decode the best solution's raw (pe, kt, df) arrays."""
+    pe = env.pe_table[state.best_pe_lvl]
+    kt = env.kt_table[state.best_kt_lvl]
+    return pe, kt, state.best_df

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
+
+  costmodel_eval -- batched (design-point x layer) cost evaluation
+  lstm_cell      -- fused REINFORCE policy step, with its gradient
+
+``ops`` exposes the shape-flexible wrappers, ``ref`` the plain PyTorch
+versions, ``build`` compiles ``csrc/*.cu`` with nvcc on first use.
+Importing this package builds nothing.
+"""

@@ -1,0 +1,203 @@
+// Batched (design point x layer) evaluation of the hard cost model.
+//
+// Replaces the TPU kernel `cost_eval_padded` / `_cost_kernel` in
+// src/repro/kernels/costmodel_eval.py.  It computes the four outputs of the
+// hard `core_cost` (latency, energy, area, power) for every (b, n) of a
+// (B, N) batch of design points against an (NUM_FIELDS, N) layer table,
+// exactly as repro_torch/costmodel/maestro.py does (`core_cost` ->
+// `_gated_cost` -> `_dataflow_terms`), operation for operation and in the
+// same order.
+//
+// Bound on an H100: bytes.  Each point reads 3 x 4 B (pe, kt, df) and writes
+// 4 x 4 B; the layer table adds 32 B per column.  The arithmetic is some
+// two hundred float operations per point, far below the card's float32
+// rate for that traffic.  At the search's shapes ((20, 53), (100, 53),
+// (E, 1)) the bytes take tens of nanoseconds, so a launch costs more than
+// the work.  Design: one thread per point over a 1-D grid of B*N, no tiling
+// and no padding; each thread reads its column of the layer table through
+// the read-only cache, and the whole model stays in registers, so no
+// intermediate goes to device memory.
+//
+// Numbers: the library is built without --use_fast_math, so `/` and sqrtf
+// round the IEEE way (a division that feeds ceilf/floorf must not come out
+// one ulp above an integer, or a whole extra tile appears), and with
+// -fmad=false, so products stay unfused as in the plain version.  That
+// setting was kept: chip_smoke.py found the kernel bit-equal to the plain
+// version on an H100 (largest absolute and relative error 0 over 347,536
+// design points: every paper workload x 3 dataflows x the 12 x 12 level
+// grid, random points at (4096, 53) and ragged shapes).
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kNumFields = 8;
+constexpr float kDLA = 0.0f, kEYE = 1.0f, kSHI = 2.0f, kDWCONV = 1.0f;
+
+// Hardware constants, as in repro_torch/costmodel/maestro.py.
+constexpr float E_MAC = 1.0f, E_L1 = 1.0f, E_L2 = 6.0f, E_DRAM = 200.0f;
+constexpr float L1_ACC_PER_MAC = 3.0f;
+constexpr float P_MAC_MW = 1.0f, P_L1_MW_B = 0.005f, P_L2_MW_B = 0.002f;
+constexpr float P_NOC_MW_PE = 0.1f;
+constexpr float LEAK_PE_MW = 0.05f, LEAK_L1_MW_B = 0.001f;
+constexpr float A_MAC_UM2 = 2000.0f, A_L1_UM2_B = 50.0f, A_L2_UM2_B = 25.0f;
+constexpr float A_NOC_UM2_PE = 300.0f;
+constexpr float DRAM_BW = 16.0f, L2_BW_BASE = 8.0f, L2_BW_SQRT = 8.0f;
+constexpr float FILL_CYCLES = 20.0f;
+
+// The hard plateau ops (repro_torch/costmodel/primitives.py).
+__device__ __forceinline__ float cdiv(float a, float b) {
+  return ceilf(a / fmaxf(b, 1.0f));
+}
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float blend(float g, float a, float b) {
+  return g > 0.0f ? a : b;
+}
+__device__ __forceinline__ float gate(float x, float v) {
+  return x == v ? 1.0f : 0.0f;
+}
+
+// p1 = clip(pe, 1, max(d1, 1)); p2 = clip(floor(pe / p1), 1, max(d2, 1)).
+__device__ __forceinline__ void factorize(float pe, float d1, float d2,
+                                          float& p1, float& p2) {
+  p1 = clip(pe, 1.0f, fmaxf(d1, 1.0f));
+  p2 = clip(floorf(pe / p1), 1.0f, fmaxf(d2, 1.0f));
+}
+
+__device__ void core_cost(float K, float C, float Y, float X, float R,
+                          float S, float ltype, float repeat, float pe,
+                          float kt, float df, float& lat_out, float& en_out,
+                          float& area_out, float& pw_out) {
+  pe = fmaxf(pe, 1.0f);
+  kt = fmaxf(kt, 1.0f);
+  const float is_dla = gate(df, kDLA), is_eye = gate(df, kEYE),
+              is_shi = gate(df, kSHI);
+  const float is_dw = gate(ltype, kDWCONV);
+  // l1_bytes_formula: where(df == DLA, dla_b, where(df == EYE, eye_b, shi_b))
+  const float rs = R * S;
+  const float dla_b = kt * rs + rs + kt;
+  const float eye_b = kt * S + S + kt;
+  const float shi_b = rs + 2.0f * kt;
+  const float l1_bytes = df == kDLA ? dla_b : (df == kEYE ? eye_b : shi_b);
+
+  // _gated_cost
+  const float Yp = fmaxf(Y - R + 1.0f, 1.0f);
+  const float Xp = fmaxf(X - S + 1.0f, 1.0f);
+  const float C_red = blend(is_dw, 1.0f, C);
+  const float K_out = blend(is_dw, C, K);
+  const float macs = K_out * C_red * Yp * Xp * R * S;
+  const float W_u = K_out * C_red * R * S;
+  const float A_u = C * Y * X;
+  const float O_u = K_out * Yp * Xp;
+
+  // _dataflow_terms
+  const float Ku = cdiv(K_out, kt);
+  // dla: parallel (Ku, C_red)
+  float p1d, p2d;
+  factorize(pe, Ku, C_red, p1d, p2d);
+  const float t1d = cdiv(Ku, p1d);
+  const float t2d = cdiv(C_red, p2d);
+  const float kt_eff_d = fminf(kt, cdiv(K_out, p1d * t1d));
+  const float comp_dla = t1d * t2d * kt_eff_d * R * S * Yp * Xp;
+  const float a_passes_dla = blend(is_dw, 1.0f, t1d);
+  const float l2_dla = W_u + A_u * a_passes_dla + O_u * p2d;
+  // eye: parallel (Y', R)
+  float p1e, p2e;
+  factorize(pe, Yp, R, p1e, p2e);
+  const float t1e = cdiv(Yp, p1e);
+  const float t2e = cdiv(R, p2e);
+  const float kt_eff_e = fminf(kt, K_out);
+  const float comp_eye = t1e * t2e * C_red * Ku * kt_eff_e * S * Xp;
+  const float halo_e = (p1e + R - 1.0f) / fmaxf(p1e, 1.0f);
+  const float a_passes_eye = blend(is_dw, 1.0f, Ku);
+  const float l2_eye = W_u * t1e + A_u * a_passes_eye * halo_e + O_u * p2e;
+  // shi: parallel (Y', X')
+  float p1s, p2s;
+  factorize(pe, Yp, Xp, p1s, p2s);
+  const float t1s = cdiv(Yp, p1s);
+  const float t2s = cdiv(Xp, p2s);
+  const float kt_eff_s = fminf(kt, K_out);
+  const float comp_shi = t1s * t2s * C_red * Ku * kt_eff_s * R * S;
+  const float halo_s =
+      ((p1s + R - 1.0f) * (p2s + S - 1.0f)) / fmaxf(p1s * p2s, 1.0f);
+  const float l2_shi = W_u * t1s * t2s + A_u * halo_s + O_u;
+
+  const float comp = is_dla * comp_dla + is_eye * comp_eye + is_shi * comp_shi;
+  const float l2_traffic = is_dla * l2_dla + is_eye * l2_eye + is_shi * l2_shi;
+  const float passes_w = is_dla * 1.0f + is_eye * t1e + is_shi * (t1s * t2s);
+  const float passes_a =
+      is_dla * a_passes_dla + is_eye * a_passes_eye + is_shi * 1.0f;
+
+  // back in _gated_cost
+  const float l2_bytes = 2.0f * pe * l1_bytes;
+  const float spill_w = clip(1.0f - l2_bytes / fmaxf(W_u, 1.0f), 0.0f, 1.0f);
+  const float spill_a = clip(1.0f - l2_bytes / fmaxf(A_u, 1.0f), 0.0f, 1.0f);
+  const float dram_traffic = W_u * (1.0f + (passes_w - 1.0f) * spill_w) +
+                             A_u * (1.0f + (passes_a - 1.0f) * spill_a) + O_u;
+  const float sqrt_pe = sqrtf(pe);
+  const float l2_bw = L2_BW_BASE + L2_BW_SQRT * sqrt_pe;
+  const float lat =
+      fmaxf(fmaxf(comp, l2_traffic / l2_bw), dram_traffic / DRAM_BW) +
+      sqrt_pe + FILL_CYCLES;
+
+  const float leak_mw = LEAK_PE_MW * pe + LEAK_L1_MW_B * l1_bytes * pe;
+  const float energy_pj = E_MAC * macs +
+                          E_L1 * (L1_ACC_PER_MAC * macs + l2_traffic) +
+                          E_L2 * l2_traffic + E_DRAM * dram_traffic +
+                          leak_mw * lat;
+  const float area = A_MAC_UM2 * pe + A_L1_UM2_B * l1_bytes * pe +
+                     A_L2_UM2_B * l2_bytes + A_NOC_UM2_PE * pe;
+  const float power = P_MAC_MW * pe + P_L1_MW_B * l1_bytes * pe +
+                      P_L2_MW_B * l2_bytes + P_NOC_MW_PE * pe;
+
+  lat_out = lat * repeat;
+  en_out = (energy_pj * repeat) * 1e-3f;
+  area_out = area * repeat;
+  pw_out = power * repeat;
+}
+
+__global__ void cost_eval_kernel(const float* __restrict__ layers_t,
+                                 const float* __restrict__ pe,
+                                 const float* __restrict__ kt,
+                                 const float* __restrict__ df,
+                                 float* __restrict__ lat,
+                                 float* __restrict__ en,
+                                 float* __restrict__ area,
+                                 float* __restrict__ pw, long long total,
+                                 int N) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int n = static_cast<int>(idx % N);
+  float f[kNumFields];
+#pragma unroll
+  for (int i = 0; i < kNumFields; ++i) f[i] = __ldg(layers_t + i * N + n);
+  core_cost(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], __ldg(pe + idx),
+            __ldg(kt + idx), __ldg(df + idx), lat[idx], en[idx], area[idx],
+            pw[idx]);
+}
+
+}  // namespace
+
+// layers_t: (NUM_FIELDS, N); pe, kt, df and the four outputs: (B, N); all
+// float32, contiguous, on card `device`, where `stream` lives.  This
+// library carries its own CUDA runtime, so the launch selects the device
+// itself.  Returns cudaGetLastError().
+extern "C" int cost_eval_launch(const void* layers_t, const void* pe,
+                                const void* kt, const void* df, void* lat,
+                                void* en, void* area, void* pw, int B, int N,
+                                int device, void* stream) {
+  const long long total = static_cast<long long>(B) * N;
+  if (total == 0) return 0;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 128;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  cost_eval_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(layers_t), static_cast<const float*>(pe),
+      static_cast<const float*>(kt), static_cast<const float*>(df),
+      static_cast<float*>(lat), static_cast<float*>(en),
+      static_cast<float*>(area), static_cast<float*>(pw), total, N);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,80 @@
+"""Public, shape-flexible entry points for the port's kernels.
+
+A CPU tensor goes to the plain version in :mod:`repro_torch.kernels.ref`;
+a CUDA tensor launches the CUDA kernel, or the launch raises.  There is no
+fallback between the two.  The device is that of the tensors the caller
+passes (numbers and numpy arrays go to it); tensors on two devices raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import costmodel_eval, lstm_cell, ref
+
+
+def _device(*vals) -> torch.device:
+    """The one device of the tensors among ``vals`` (the CPU if none is)."""
+    devs = {v.device for v in vals if torch.is_tensor(v)}
+    if len(devs) > 1:
+        raise ValueError("inputs lie on more than one device: "
+                         f"{sorted(str(d) for d in devs)}")
+    return devs.pop() if devs else torch.device("cpu")
+
+
+def batched_cost(layers, pe, kt, df):
+    """Evaluate a (B, N) batch of per-layer assignments.
+
+    layers: (N, NUM_FIELDS); pe: (B, N); kt/df: broadcastable to (B, N)
+    (df may be a scalar).  Returns (latency, energy, area, power), each
+    (B, N) float32 on the inputs' device.
+    """
+    dev = _device(layers, pe, kt, df)
+    layers_t = torch.as_tensor(layers, dtype=torch.float32,
+                               device=dev).T.contiguous()
+    return table_cost(layers_t, pe, kt, df)
+
+
+def table_cost(layers_t, pe, kt, df):
+    """:func:`batched_cost` against a ready (NUM_FIELDS, N) layer table.
+
+    The searches keep that table on the environment
+    (``EnvArrays.layers_t``), or pass one layer's row as an
+    (NUM_FIELDS, 1) view, so no call copies it.
+    """
+    dev = _device(layers_t, pe, kt, df)
+    as_f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    layers_t, pe = as_f32(layers_t), as_f32(pe)
+    B, N = pe.shape[0], layers_t.shape[1]
+    pe, kt, df = (as_f32(v).expand(B, N).contiguous() for v in (pe, kt, df))
+    if dev.type == "cpu":
+        return ref.cost_eval_ref(layers_t, pe, kt, df)
+    return costmodel_eval.cost_eval(layers_t, pe, kt, df)
+
+
+def lstm_step(x, h, c, wx, wh, b):
+    """One LSTM cell step.  x: (B, I); h/c: (B, H); returns (h', c').
+
+    Differentiable on both paths: autograd through the plain version on
+    the CPU, :class:`~repro_torch.kernels.lstm_cell.LSTMCellFn` on CUDA.
+    """
+    b = b.reshape(-1)
+    if _device(x, h, c, wx, wh, b).type == "cpu":
+        return ref.lstm_cell_ref(x, h, c, wx, wh, b)
+    return lstm_cell.LSTMCellFn.apply(x.contiguous(), h.contiguous(),
+                                      c.contiguous(), wx.contiguous(),
+                                      wh.contiguous(), b.contiguous())
+
+
+def launch_counts():
+    """Kernel launches so far, by kernel."""
+    return {"cost_eval": costmodel_eval.launches,
+            "lstm_cell": lstm_cell.launches}
+
+
+def reset_launch_counts():
+    """Set every kernel's launch count, and the plain versions' count of
+    calls on CUDA tensors, to 0."""
+    costmodel_eval.launches = 0
+    lstm_cell.launches = 0
+    for k in ref.cuda_calls:
+        ref.cuda_calls[k] = 0

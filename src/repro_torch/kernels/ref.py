@@ -1,0 +1,82 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function is the ground truth its kernel is held against (on the card
+by ``chip_smoke.py``, and against the JAX package on the CPU by
+``tests/test_torch_*.py``).  The wrappers in :mod:`repro_torch.kernels.ops`
+use them only for tensors that lie on the CPU; ``cuda_calls`` counts the
+calls made with CUDA tensors, so a run can show that none of them was on
+its main path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.costmodel import maestro
+from repro_torch.costmodel.layers import NUM_FIELDS
+
+# Calls made with CUDA tensors, by function name.
+cuda_calls = {"cost_eval_ref": 0, "lstm_cell_ref": 0}
+
+
+def _count(name, t):
+    if t.is_cuda:
+        cuda_calls[name] += 1
+
+
+def cost_eval_ref(layers_t, pe, kt, df):
+    """Plain version of the cost kernel: (NUM_FIELDS, N) x (B, N) -> 4x(B, N).
+
+    Runs :func:`repro_torch.costmodel.maestro.core_cost`, the hard model
+    core, with plain broadcasting.
+    """
+    _count("cost_eval_ref", pe)
+    fields = [layers_t[i][None, :] for i in range(NUM_FIELDS)]
+    out = maestro.core_cost(*fields, pe, kt, df)
+    return out.latency, out.energy, out.area, out.power
+
+
+def _sig(x):
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _gates(x, h, wx, wh, b):
+    gates = x @ wx + h @ wh + b
+    H = h.shape[-1]
+    i = _sig(gates[..., 0 * H:1 * H])
+    f = _sig(gates[..., 1 * H:2 * H])
+    g = torch.tanh(gates[..., 2 * H:3 * H])
+    o = _sig(gates[..., 3 * H:4 * H])
+    return i, f, g, o
+
+
+def lstm_cell_ref(x, h, c, wx, wh, b):
+    """Plain version of the LSTM kernel: one LSTM step.
+
+    x: (B, I), h/c: (B, H), wx: (I, 4H), wh: (H, 4H), b: (4H,).
+    Gate order: i, f, g, o.  Returns (h', c').
+    """
+    _count("lstm_cell_ref", x)
+    i, f, g, o = _gates(x, h, wx, wh, b)
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def lstm_cell_bwd_ref(x, h, c, wx, wh, b, dh_new, dc_new):
+    """Gradient of :func:`lstm_cell_ref` by the LSTM formula.
+
+    Recomputes the gates from the saved inputs and returns
+    ``(dx, dh, dc, dwx, dwh, db)`` for upstream gradients ``dh_new`` and
+    ``dc_new`` of (h', c').  This is the backward of the CUDA LSTM kernel.
+    """
+    i, f, g, o = _gates(x, h, wx, wh, b)
+    c_new = f * c + i * g
+    tc = torch.tanh(c_new)
+    dc_tot = dc_new + dh_new * o * (1.0 - tc * tc)
+    d_i = dc_tot * g * i * (1.0 - i)
+    d_f = dc_tot * c * f * (1.0 - f)
+    d_g = dc_tot * i * (1.0 - g * g)
+    d_o = dh_new * tc * o * (1.0 - o)
+    dG = torch.cat([d_i, d_f, d_g, d_o], dim=-1)          # (B, 4H)
+    return (dG @ wx.T, dG @ wh.T, dc_tot * f,
+            x.T @ dG, h.T @ dG, dG.sum(dim=0))

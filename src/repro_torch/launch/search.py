@@ -1,0 +1,179 @@
+"""ConfuciuX search launcher of the PyTorch port: a registered optimizer
+as a CLI.
+
+    PYTHONPATH=src python -m repro_torch.launch.search \
+        --workload mobilenet_v2 --objective latency --constraint area \
+        --platform iot --dataflow dla --epochs 5000 --device cuda \
+        --out results/search_torch.json
+
+The flags and the last-line JSON are those of ``repro.launch.search`` for
+the methods this package has (two_stage, reinforce, ga), plus ``--device``
+(default ``cuda``; ``cpu`` runs the plain versions of the kernels).  The
+flags of methods and layers not ported yet are absent, and ``--arch``
+fails with a "not ported yet" error.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+from repro_torch import api
+from repro_torch.core import env as env_lib
+from repro_torch.costmodel import dataflows as dfl
+from repro_torch.costmodel import workloads as workloads_lib
+from repro_torch.costmodel.layers import total_macs
+
+
+def build_request(args) -> api.SearchRequest:
+    """Translate CLI flags into the canonical SearchRequest."""
+    wl = workloads_lib.get_workload(args.workload)
+    mix = args.dataflow == "mix"
+    ecfg = env_lib.EnvConfig(
+        objective=args.objective, constraint=args.constraint,
+        platform=args.platform, scenario=args.scenario,
+        dataflow=(dfl.DLA if mix
+                  else dfl.DATAFLOW_NAMES.index(args.dataflow)),
+        mix=mix, levels=args.levels,
+        blend_weight=args.blend_weight)
+    # GA flags feed both the two_stage fine-tuner (nested "ga" dict) and
+    # --method ga (top-level keys); unset flags keep each method's defaults.
+    ga_opts = {k: v for k, v in (("population", args.ga_population),
+                                 ("generations", args.ga_generations))
+               if v is not None}
+    options = {
+        "episodes_per_epoch": args.episodes,
+        "fine_tune": not args.no_finetune,
+        "ga": ga_opts,
+        **ga_opts,
+    }
+    if args.lr is not None:      # unset keeps each method's own default
+        options["lr"] = args.lr
+    # eps counts whole-model evaluations; --epochs keeps the paper's
+    # epoch semantics (one epoch = --episodes samples for the RL family).
+    return api.SearchRequest(
+        workload=wl, env=ecfg, eps=args.epochs * args.episodes,
+        seed=args.seed, method=args.method, options=options,
+        device=args.device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--workload", help="paper workload name "
+                     f"(one of {workloads_lib.workload_names()})")
+    src.add_argument("--arch", help="assigned architecture id (not ported "
+                     "yet in the PyTorch port)")
+    ap.add_argument("--tokens", type=int, default=256,
+                    help="tokens per forward for --arch lowering")
+    ap.add_argument("--method", default="two_stage",
+                    help="search method from the unified registry "
+                    f"(one of {', '.join(api.list_optimizers())})")
+    ap.add_argument("--objective", default="latency",
+                    choices=["latency", "energy", "blend"],
+                    help="whole-model objective; 'blend' scalarizes "
+                    "lat^w * en^(1-w) with --blend-weight (ga only)")
+    ap.add_argument("--blend-weight", type=float, default=0.5,
+                    help="--objective blend: latency weight w in [0, 1]")
+    ap.add_argument("--constraint", default="area",
+                    choices=["area", "power"])
+    ap.add_argument("--platform", default="iot",
+                    choices=["unlimited", "cloud", "iot", "iotx"])
+    ap.add_argument("--scenario", default="LP", choices=["LP", "LS"])
+    ap.add_argument("--dataflow", default="dla",
+                    choices=["dla", "eye", "shi", "mix"])
+    ap.add_argument("--levels", type=int, default=12, choices=[10, 12, 14])
+    ap.add_argument("--epochs", type=int, default=5000,
+                    help="sample budget Eps (in epochs of --episodes)")
+    ap.add_argument("--episodes", type=int, default=1,
+                    help="episodes per epoch (1 = the paper's setting)")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: 3e-3 for reinforce/two_stage")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-finetune", action="store_true",
+                    help="skip the stage-2 local GA (two_stage only)")
+    ap.add_argument("--ga-generations", type=int, default=None,
+                    help="default: 2000 for the two_stage fine-tuner, "
+                    "eps/population for --method ga")
+    ap.add_argument("--ga-population", type=int, default=None,
+                    help="default: 20 for the two_stage fine-tuner, "
+                    "100 for --method ga")
+    ap.add_argument("--progress-every", type=int, default=0,
+                    help="stream best-so-far every N samples (0 = off)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the search runs; cuda fails without a card")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+
+    if args.arch:
+        ap.error("--arch is not ported yet in the PyTorch port: "
+                 "assigned-architecture lowering is still to come; use "
+                 "--workload or the JAX package's launcher")
+    try:
+        api.get_optimizer(args.method)
+    except KeyError as e:
+        ap.error(e.args[0])
+
+    request = build_request(args)
+    wl = request.workload
+    target = args.workload
+    print(f"target={target} method={args.method} layers={len(wl)} "
+          f"macs={total_macs(wl)/1e6:.0f}M obj={args.objective} "
+          f"cstr={args.constraint}:{args.platform} df={args.dataflow} "
+          f"scenario={args.scenario} eps={request.eps} "
+          f"device={args.device}", flush=True)
+
+    if args.progress_every > 0:
+        request.progress_every = args.progress_every
+        request.on_progress = lambda t: print(
+            f"  [{t.step}/{request.eps}] best={t.best_value:.4e}",
+            flush=True)
+
+    out = api.run_search(request)
+
+    stage1 = out.extras.get("stage1_value")
+    initial = out.extras.get("initial_valid_value")
+    rec = {
+        "target": target, "method": out.method,
+        "objective": args.objective,
+        "constraint": args.constraint, "platform": args.platform,
+        "scenario": args.scenario, "dataflow": args.dataflow,
+        "eps": out.eps, "epochs": args.epochs, "seed": out.seed,
+        "device": args.device,
+        "best_value": out.best_value,
+        "feasible": out.feasible,
+        "stage1_value": stage1,
+        "initial_valid_value": initial,
+        "stage1_improvement_pct": (
+            100.0 * (1 - stage1 / initial)
+            if initial is not None and np.isfinite(initial) else None),
+        "stage2_improvement_pct": (
+            100.0 * (1 - out.best_value / stage1)
+            if stage1 is not None and np.isfinite(stage1) else None),
+        "samples_to_convergence": out.samples_to_convergence,
+        "wall_seconds": round(out.wall_seconds, 2),
+    }
+    if out.feasible:
+        rec["assignment"] = {
+            "pe": np.asarray(out.pe).astype(int).tolist(),
+            "kt": np.asarray(out.kt).astype(int).tolist(),
+            "dataflow": [dfl.DATAFLOW_NAMES[int(d)] for d in out.df],
+            "layers": [l.name or f"layer{i}" for i, l in enumerate(wl)],
+        }
+    print(json.dumps({k: rec[k] for k in
+                      ("method", "best_value", "stage1_value",
+                       "initial_valid_value", "samples_to_convergence",
+                       "wall_seconds")}), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"wrote {args.out}", flush=True)
+    return 0 if out.feasible else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,215 @@
+"""The port's cost model against the JAX package's, on the CPU.
+
+Same inputs, made with numpy from a seed, go through both packages.  The
+JAX side runs as its own tests run it: the Pallas kernel in interpret mode
+(``use_kernel=True``) and the jnp path (``use_kernel=False``).  Tolerance
+for per-point costs: rtol 1e-5, atol 1e-2, the bound the reference holds
+its own Pallas kernel to (tests/test_kernels.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import env as jenv
+from repro.costmodel import layers as jlayers
+from repro.costmodel import maestro as jmaestro
+from repro.costmodel import workloads as jworkloads
+from repro.kernels import ops as jops
+from repro_torch.core import env as tenv
+from repro_torch.costmodel import dataflows as tdfl
+from repro_torch.costmodel import layers as tlayers
+from repro_torch.costmodel import maestro as tmaestro
+from repro_torch.costmodel import workloads as tworkloads
+from repro_torch.kernels import ops as tops
+
+PAPER = ["gnmt", "mnasnet", "mobilenet_v2", "ncf", "resnet50", "transformer"]
+RTOL, ATOL = 1e-5, 1e-2
+
+
+def _arr(name):
+    return tlayers.layers_to_array(tworkloads.get_workload(name))
+
+
+def _rand_layers(rng, n):
+    """Random conv / dwconv / gemm rows, as tests/test_kernels.py draws."""
+    out = []
+    for _ in range(n):
+        t = rng.integers(0, 3)
+        if t == 2:
+            out.append(tlayers.LayerSpec.gemm(*(int(v) for v in
+                                                rng.integers(1, 512, 3))))
+        elif t == 1:
+            out.append(tlayers.LayerSpec.dwconv(
+                int(rng.integers(1, 256)), int(rng.integers(7, 64)),
+                int(rng.integers(7, 64)), 3, 3))
+        else:
+            out.append(tlayers.LayerSpec.conv(
+                int(rng.integers(1, 256)), int(rng.integers(1, 256)),
+                int(rng.integers(7, 64)), int(rng.integers(7, 64)), 3, 3))
+    return tlayers.layers_to_array(out)
+
+
+def _compare(layers, pe, kt, df, use_kernel):
+    got = tops.batched_cost(torch.from_numpy(layers), torch.from_numpy(pe),
+                            torch.from_numpy(kt), torch.from_numpy(df))
+    want = jops.batched_cost(layers, pe, kt, df, use_kernel=use_kernel)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("name", PAPER)
+def test_workload_arrays_equal_reference(name):
+    ref = jworkloads.get_workload(name)
+    got = tworkloads.get_workload(name)
+    np.testing.assert_array_equal(tlayers.layers_to_array(got),
+                                  jlayers.layers_to_array(ref))
+    assert [l.name for l in got] == [l.name for l in ref]
+    assert tlayers.total_macs(got) == jlayers.total_macs(ref)
+
+
+def test_workload_names_are_the_paper_six():
+    assert tworkloads.workload_names() == PAPER
+    with pytest.raises(ValueError, match="not ported yet"):
+        tworkloads.get_workload("qwen3-32b")
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("name", PAPER)
+def test_batched_cost_level_grid(name, use_kernel):
+    """Every paper workload x 3 dataflows x the L=12 level grid."""
+    layers = _arr(name)
+    N = layers.shape[0]
+    pe_g, kt_g = np.meshgrid(tdfl.pe_levels(12), tdfl.kt_levels(12),
+                             indexing="ij")
+    pe = np.tile(pe_g.reshape(-1, 1), (1, N)).astype(np.float32)
+    kt = np.tile(kt_g.reshape(-1, 1), (1, N)).astype(np.float32)
+    for df in range(3):
+        _compare(layers, pe, kt, np.full_like(pe, df), use_kernel)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("B,N", [(1, 1), (3, 7), (13, 53)])
+def test_batched_cost_random_raw_points(B, N, use_kernel):
+    """Random raw points: PE in 1..160, KT in 1..16, df in 0..2."""
+    rng = np.random.default_rng(B * 100 + N)
+    layers = _rand_layers(rng, N)
+    pe = rng.integers(1, 161, (B, N)).astype(np.float32)
+    kt = rng.integers(1, 17, (B, N)).astype(np.float32)
+    df = rng.integers(0, 3, (B, N)).astype(np.float32)
+    _compare(layers, pe, kt, df, use_kernel)
+
+
+@pytest.mark.parametrize("scenario", ["LP", "LS"])
+@pytest.mark.parametrize("name", ["mobilenet_v2", "ncf", "transformer"])
+def test_model_cost(name, scenario):
+    layers = _arr(name)
+    N = layers.shape[0]
+    rng = np.random.default_rng(7)
+    pe = rng.integers(1, 161, (4, N)).astype(np.float32)
+    kt = rng.integers(1, 17, (4, N)).astype(np.float32)
+    for df in range(3):
+        got = tmaestro.model_cost(torch.from_numpy(layers),
+                                  torch.from_numpy(pe), torch.from_numpy(kt),
+                                  df, scenario)
+        want = jmaestro.model_cost(layers, pe, kt, df, scenario)
+        for field in ("latency", "energy", "area", "power", "l1_bytes",
+                      "l2_bytes", "macs", "util"):
+            np.testing.assert_allclose(
+                getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+                rtol=RTOL, err_msg=field)
+
+
+@pytest.mark.parametrize("platform", ["unlimited", "cloud", "iot", "iotx"])
+@pytest.mark.parametrize("name", PAPER)
+def test_make_env_budget(name, platform):
+    """The Table II budget agrees within rtol 1e-6: both are an f32 sum over
+    the layers, taken in another order, so an ulp may differ."""
+    wl = tworkloads.get_workload(name)
+    for constraint, scenario in (("area", "LP"), ("power", "LS")):
+        kw = dict(platform=platform, constraint=constraint,
+                  scenario=scenario)
+        got = tenv.make_env(wl, tenv.EnvConfig(**kw), device="cpu")
+        want = jenv.make_env(jworkloads.get_workload(name),
+                             jenv.EnvConfig(**kw))
+        np.testing.assert_allclose(float(got.budget), float(want.budget),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(got.static_obs.numpy(),
+                                      np.asarray(want.static_obs))
+        np.testing.assert_array_equal(got.layers.numpy(),
+                                      np.asarray(want.layers))
+
+
+def test_genome_cost_and_feasibility_match_reference():
+    name = "mobilenet_v2"
+    ecfg = dict(platform="iot")
+    env_t = tenv.make_env(tworkloads.get_workload(name),
+                          tenv.EnvConfig(**ecfg), device="cpu")
+    env_j = jenv.make_env(jworkloads.get_workload(name),
+                          jenv.EnvConfig(**ecfg))
+    rng = np.random.default_rng(3)
+    pe = rng.integers(1, 40, (6, env_t.num_layers)).astype(np.float32)
+    kt = rng.integers(1, 8, (6, env_t.num_layers)).astype(np.float32)
+    got = tenv.genome_cost(env_t, tenv.EnvConfig(**ecfg),
+                           torch.from_numpy(pe), torch.from_numpy(kt), 0)
+    want = jenv.genome_cost(env_j, jenv.EnvConfig(**ecfg), pe, kt, 0)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=RTOL)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=RTOL)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(
+        tenv.feasibility_mask(env_t, tenv.EnvConfig(**ecfg),
+                              torch.from_numpy(pe), torch.from_numpy(kt),
+                              0).numpy(),
+        np.asarray(want[2]))
+
+
+def test_content_hash_is_the_ports_own():
+    h = tmaestro.content_hash()
+    assert len(h) == 16 and int(h, 16) >= 0
+    assert h != jmaestro.content_hash()
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tenv.make_env(tworkloads.get_workload("ncf"), tenv.EnvConfig())
+
+
+@pytest.mark.parametrize("other", ["layers", "kt", "df"])
+def test_batched_cost_rejects_tensors_on_two_devices(other):
+    """The wrapper takes one device from its tensors and never moves one of
+    them to another: a tensor elsewhere raises.  ("meta" stands in for a
+    second device here.)"""
+    args = dict(layers=torch.from_numpy(_arr("ncf")),
+                pe=torch.ones(2, 5), kt=torch.ones(2, 5),
+                df=torch.zeros(2, 5))
+    args[other] = args[other].to("meta")
+    with pytest.raises(ValueError, match="more than one device"):
+        tops.batched_cost(**args)
+
+
+def test_table_cost_on_env_table_and_row_view_matches_batched_cost():
+    """The searches' two ways into the kernel: the environment's stored
+    (NUM_FIELDS, N) table, and one layer's row as a (NUM_FIELDS, 1) view."""
+    env = tenv.make_env(tworkloads.get_workload("mobilenet_v2"),
+                        tenv.EnvConfig(), device="cpu")
+    torch.testing.assert_close(env.layers_t, env.layers.T, rtol=0, atol=0)
+    assert env.layers_t.is_contiguous()
+    rng = np.random.default_rng(11)
+    N = env.num_layers
+    pe = torch.from_numpy(rng.integers(1, 161, (5, N)).astype(np.float32))
+    kt = torch.from_numpy(rng.integers(1, 17, (5, N)).astype(np.float32))
+    want = tops.batched_cost(env.layers, pe, kt, 1.0)
+    got = tops.table_cost(env.layers_t, pe, kt, 1.0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    t = 17
+    row = env.layers[t][:, None]
+    assert row.is_contiguous() and row.shape == (tlayers.NUM_FIELDS, 1)
+    got = tops.table_cost(row, pe[:, t:t + 1].contiguous(),
+                          kt[:, t:t + 1].contiguous(), 1.0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w[:, t:t + 1], rtol=0, atol=0)

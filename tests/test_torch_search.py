@@ -1,0 +1,160 @@
+"""The port's GA fitness, per-layer sweep, searches and CLI against the JAX
+package, on the CPU.
+
+Random engines cannot match the reference seed for seed (JAX threefry and
+torch generators differ), so whole searches are held to the outcome
+schema, and their reported best is re-scored by the reference's own
+``genome_cost``: it must give ``best_value`` (rtol 1e-5) and be feasible
+under the reference's budget x (1 + 1e-6) -- the two budgets are f32 sums
+over the layers in different orders and may differ by an ulp.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import env as jenv
+from repro.core import ga as jga
+from repro.core import search as jsearch
+from repro.costmodel import workloads as jworkloads
+from repro_torch import api as tapi
+from repro_torch.core import env as tenv
+from repro_torch.core import ga as tga
+from repro_torch.core import search as tsearch
+from repro_torch.costmodel import workloads as tworkloads
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LAST_LINE_KEYS = ["method", "best_value", "stage1_value",
+                  "initial_valid_value", "samples_to_convergence",
+                  "wall_seconds"]
+
+
+def _envs(name, **kw):
+    return (tenv.make_env(tworkloads.get_workload(name), tenv.EnvConfig(**kw),
+                          device="cpu"),
+            jenv.make_env(jworkloads.get_workload(name),
+                          jenv.EnvConfig(**kw)))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("kw", [dict(platform="iot"),
+                                dict(platform="cloud", scenario="LS",
+                                     objective="energy", constraint="power")])
+def test_ga_fitness_matches_reference(kw, use_kernel):
+    env_t, env_j = _envs("mobilenet_v2", **kw)
+    N = env_t.num_layers
+    rng = np.random.default_rng(2)
+    for P, hi_pe, hi_kt in ((20, 161, 17), (100, 40, 8)):
+        pe = rng.integers(1, hi_pe, (P, N)).astype(np.float32)
+        kt = rng.integers(1, hi_kt, (P, N)).astype(np.float32)
+        df = rng.integers(0, 3, (N,)).astype(np.float32)
+        got = tga._fitness(env_t, tenv.EnvConfig(**kw), torch.from_numpy(pe),
+                           torch.from_numpy(kt), torch.from_numpy(df))
+        want = np.asarray(jga._fitness(env_j, jenv.EnvConfig(**kw), pe, kt,
+                                       jnp.asarray(df), use_kernel))
+        np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def test_per_layer_optima_match_reference():
+    ecfg = dict(platform="iot", scenario="LS")
+    got = tsearch.per_layer_optima("mobilenet_v2", tenv.EnvConfig(**ecfg),
+                                   device="cpu")
+    want = jsearch.per_layer_optima("mobilenet_v2", jenv.EnvConfig(**ecfg))
+    for k in ("latency", "energy", "area"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-2)
+    for k in ("optima_latency", "optima_energy", "pe_table", "kt_table"):
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def _check_outcome(out, eps, ecfg_kw):
+    assert len(out.history) == eps
+    assert np.all(out.history[1:] <= out.history[:-1])
+    assert out.history[-1] == out.best_value
+    assert out.feasible and np.isfinite(out.best_value)
+    env_j = jenv.make_env(jworkloads.get_workload("ncf"),
+                          jenv.EnvConfig(**ecfg_kw))
+    perf, cons, _ = jenv.genome_cost(
+        env_j, jenv.EnvConfig(**ecfg_kw), jnp.asarray(out.pe, jnp.float32),
+        jnp.asarray(out.kt, jnp.float32), jnp.asarray(out.df))
+    np.testing.assert_allclose(float(perf), out.best_value, rtol=1e-5)
+    assert float(cons) <= float(env_j.budget) * (1 + 1e-6)
+
+
+@pytest.mark.parametrize("method,options", [
+    ("two_stage", {"ga": {"generations": 60}}),
+    ("ga", {"population": 20}),
+    ("reinforce", {"episodes_per_epoch": 2}),
+])
+def test_run_search_on_cpu_holds_schema_and_rescores(method, options):
+    ecfg_kw = dict(platform="cloud")
+    eps = 60
+    trials = []
+    req = tapi.SearchRequest(workload="ncf", env=tapi.EnvConfig(**ecfg_kw),
+                             eps=eps, seed=1, method=method, options=options,
+                             device="cpu", on_progress=trials.append,
+                             progress_every=20)
+    out = tapi.run_search(req)
+    assert out.method == method and out.telemetry is None
+    _check_outcome(out, eps, ecfg_kw)
+    assert trials and all(t.step <= eps for t in trials)
+    assert trials[-1].best_value >= out.best_value
+
+
+def test_two_stage_fine_tune_never_worse_than_stage1():
+    out = tapi.run_search(tapi.SearchRequest(
+        workload="ncf", env=tapi.EnvConfig(platform="iot"), eps=50,
+        method="two_stage", options={"ga": {"generations": 80}},
+        device="cpu"))
+    assert out.best_value <= out.extras["stage1_value"]
+    assert len(out.extras["ga_history"]) == 80
+
+
+def test_ga_resumes_bit_identically_across_chunks():
+    env_t, _ = _envs("ncf", platform="cloud")
+    cfg = tga.GAConfig(population=16, generations=12, seed=3)
+    ecfg = tenv.EnvConfig(platform="cloud")
+    one, h1 = tga.run_ga_search(None, ecfg, cfg, env=env_t)
+    many, h2 = tga.run_ga_search(None, ecfg, cfg, env=env_t, chunk=5)
+    np.testing.assert_array_equal(h1, h2)
+    np.testing.assert_array_equal(one.best_genome.numpy(),
+                                  many.best_genome.numpy())
+
+
+def test_request_on_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapi.run_search(tapi.SearchRequest(workload="ncf", eps=10))
+
+
+def _cli(module, *args):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-m", module, *args], env=env,
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_cli_prints_the_reference_last_line_keys():
+    args = ("--workload", "ncf", "--epochs", "40", "--ga-generations", "50")
+    got = _cli("repro_torch.launch.search", *args, "--device", "cpu")
+    want = _cli("repro.launch.search", *args)
+    assert list(got) == list(want) == LAST_LINE_KEYS
+    assert got["method"] == "two_stage" and np.isfinite(got["best_value"])
+
+
+def test_cli_rejects_arch_as_not_ported():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.search", "--arch",
+         "qwen3-32b", "--device", "cpu"], env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and "not ported yet" in proc.stderr
