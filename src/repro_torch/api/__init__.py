@@ -7,7 +7,8 @@
         eps=5000, method="two_stage", device="cuda"))
     print(out.best_value, out.samples_to_convergence)
 
-Registered methods: reinforce, two_stage, ga.
+Registered methods: random, grid, sa, bo (alias bayes), ga, reinforce,
+two_stage.
 """
 from repro_torch.api.registry import (Optimizer, get_optimizer,
                                       list_optimizers, register, run_search)

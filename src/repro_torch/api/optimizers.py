@@ -1,10 +1,12 @@
 """Built-in optimizer adapters: the ported search methods behind one API.
 
-Port of the ``reinforce``, ``two_stage`` and ``ga`` adapters of
-``repro.api.optimizers``.  Each translates a ``SearchRequest`` into the
-engine's config, runs it on ``request.device`` and normalizes the result
-into ``SearchOutcome`` (trace length == eps, monotone best-so-far,
-per-layer (pe, kt, df) arrays).
+Port of the ``random``, ``grid``, ``sa``, ``bo``, ``ga``, ``reinforce`` and
+``two_stage`` adapters of ``repro.api.optimizers``.  Each translates a
+``SearchRequest`` into the engine's config, runs it on ``request.device``
+and normalizes the result into ``SearchOutcome`` (trace length == eps,
+monotone best-so-far, per-layer (pe, kt, df) arrays).  ``random``,
+``grid``, ``bo``, ``sa`` and ``ga`` pass ``options["eval_fn"]`` on to their
+engine: the search service's batcher comes in there.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 from repro_torch.api import types
 from repro_torch.api.registry import register
 from repro_torch.api.types import SearchOutcome, SearchRequest, Trial
+from repro_torch.core import baselines
 from repro_torch.core import env as env_lib
 from repro_torch.core import ga as ga_lib
 from repro_torch.core import policy as policy_lib
@@ -34,6 +37,94 @@ def _policy_config(ecfg: env_lib.EnvConfig, opts) -> policy_lib.PolicyConfig:
         obs_dim=ecfg.obs_dim, mix=ecfg.mix, levels=ecfg.levels,
         hidden=pol.get("hidden", policy_lib.HIDDEN),
         kind=pol.get("kind", "rnn"))
+
+
+# ---------------------------------------------------------------------------
+# Classic baselines (random/grid/bo: single-shot; sa: chunked).
+# ---------------------------------------------------------------------------
+@register("random")
+class RandomOptimizer:
+    name = "random"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        opts = request.options
+        res = baselines.random_search(
+            request.resolve_workload(), request.env, eps=request.eps,
+            seed=request.seed, batch=opts.get("batch", 512),
+            eval_fn=opts.get("eval_fn"), device=request.device)
+        return _outcome(request, self.name, res.best_value, res.best_pe,
+                        res.best_kt, None, res.history, t0)
+
+
+@register("grid")
+class GridOptimizer:
+    name = "grid"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        opts = request.options
+        res = baselines.grid_search(
+            request.resolve_workload(), request.env, eps=request.eps,
+            stride=opts.get("stride", 1), batch=opts.get("batch", 512),
+            eval_fn=opts.get("eval_fn"), device=request.device)
+        return _outcome(request, self.name, res.best_value, res.best_pe,
+                        res.best_kt, None, res.history, t0)
+
+
+@register("sa")
+class SimulatedAnnealingOptimizer:
+    """Chunked annealing: streams live, resumes, and accepts an injected
+    ``eval_fn`` so the search service batches its candidate evaluations."""
+
+    name = "sa"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        opts = request.options
+        cfg = baselines.SAConfig(
+            temperature=opts.get("temperature", 10.0),
+            step=opts.get("step", 1),
+            decay=opts.get("decay", 0.999),
+            seed=request.seed)
+        wl = request.resolve_workload()
+        env = env_lib.make_env(wl, request.env, request.device)
+        if request.on_progress is None:
+            chunk, on_chunk = None, None
+        else:
+            def on_chunk(state, hist, steps_done):
+                request.on_progress(Trial(
+                    min(steps_done, request.eps),
+                    float(np.min(hist)), float(state.best_fit)))
+
+            chunk = max(request.progress_every, 1)
+        state, hist = baselines.run_sa_search(
+            wl, request.env, eps=request.eps, cfg=cfg, chunk=chunk,
+            on_chunk=on_chunk, eval_fn=opts.get("eval_fn"), env=env)
+        pe, kt = baselines.sa_solution(env, state)
+        return _outcome(request, self.name, float(state.best_fit), pe, kt,
+                        None, hist, t0,
+                        extras={"steps": int(state.step)},
+                        streamed=request.on_progress is not None)
+
+
+@register("bo", aliases=("bayes",))
+class BayesOptOptimizer:
+    name = "bo"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        opts = request.options
+        res = baselines.bayes_opt(
+            request.resolve_workload(), request.env, eps=request.eps,
+            seed=request.seed,
+            n_candidates=opts.get("n_candidates", 64),
+            gamma=opts.get("gamma", 0.15),
+            init_random=opts.get("init_random", 64),
+            batch=opts.get("batch", 16),
+            eval_fn=opts.get("eval_fn"), device=request.device)
+        return _outcome(request, self.name, res.best_value, res.best_pe,
+                        res.best_kt, None, res.history, t0)
 
 
 def _ga_cfg(request: SearchRequest) -> ga_lib.GAConfig:
@@ -68,7 +159,8 @@ class GeneticAlgorithmOptimizer:
 
             chunk = max(request.progress_every // cfg.population, 1)
         state, hist = ga_lib.run_ga_search(
-            wl, request.env, cfg, chunk=chunk, on_chunk=on_chunk, env=env)
+            wl, request.env, cfg, chunk=chunk, on_chunk=on_chunk,
+            eval_fn=request.options.get("eval_fn"), env=env)
         pe, kt, df = ga_lib.ga_solution(env, request.env, state)
         trace = types.expand_trace(hist, cfg.population)
         return _outcome(request, self.name, float(state.best_val),

@@ -14,12 +14,21 @@ Sorting is stable, like ``jnp.argsort``, so the many +inf ties keep their
 order.  Random draws come from a ``torch.Generator`` on the population's
 device; every value of a generation stays there, and a chunk's history
 goes to the host once, at its end.
+
+The baseline GA takes an ``eval_fn(pe, kt, df) -> (P,) fitness`` that
+moves the fitness half of a generation to the host (the search service
+injects its cross-request batcher there): the population is decoded on
+the device, handed over as numpy arrays, and its fitness comes back to the
+same ``evolve``.  The loop is the same either way and draws the same
+numbers in the same order, so both paths give the same bytes when the
+fitness values are the same.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import chunk as chunk_lib
@@ -58,11 +67,10 @@ class GAState(NamedTuple):
 
 
 class GAEngine(NamedTuple):
-    """Building blocks of one GA run:
-    ``gen_step(state) == evolve(state, fitness(state.pop))``."""
+    """Building blocks of one GA run: a generation is
+    ``evolve(state, fitness(state.pop))``."""
 
     init_carry: Callable         # seed -> GAState
-    gen_step: Callable           # GAState -> (GAState, best_val)
     decode: Callable             # genome -> (pe, kt, df) raw
     fitness: Callable            # pop -> (P,) objective-or-inf
     evolve: Callable             # (GAState, fit) -> (GAState, best_val)
@@ -141,9 +149,6 @@ def make_ga_engine(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
         return GAState(pop, best_val, best_genome, gen,
                        state.generation + 1), best_val
 
-    def gen_step(state: GAState):
-        return evolve(state, fitness(state.pop))
-
     def init_carry(seed) -> GAState:
         gen = _generator(seed, dev)
         pop = _randint(gen, 0, L, (P, N, genes), dev)
@@ -153,17 +158,44 @@ def make_ga_engine(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
                        torch.zeros((N, genes), dtype=torch.int64, device=dev),
                        gen, torch.zeros((), dtype=torch.int64, device=dev))
 
-    return GAEngine(init_carry, gen_step, decode, fitness, evolve)
+    return GAEngine(init_carry, decode, fitness, evolve)
+
+
+def host_fitness(decode: Callable, eval_fn: Callable) -> Callable:
+    """``fitness(pop)`` through a host-side ``eval_fn(pe, kt, df) -> (P,)``.
+
+    The population is decoded on its device; ``eval_fn`` gets numpy arrays
+    (``df`` a float32 scalar when the dataflow is fixed) and its fitness
+    goes back to the population's device as float32.
+    """
+    def as_np(v):
+        return v.cpu().numpy() if torch.is_tensor(v) else np.float32(v)
+
+    def fitness(pop):
+        pe, kt, df = decode(pop)
+        fit = np.asarray(eval_fn(as_np(pe), as_np(kt), as_np(df)),
+                         np.float32)
+        return torch.as_tensor(fit, device=pop.device)
+
+    return fitness
 
 
 def run_chunked_engine(engine: GAEngine, state: GAState, generations: int,
-                       chunk: Optional[int], on_chunk):
+                       chunk: Optional[int], on_chunk, eval_fn=None):
     """Chunk loop of a population engine.  Returns (state, (gens,)
-    history of the best-so-far)."""
+    history of the best-so-far).
+
+    Each generation is ``evolve(state, fitness(state.pop))``; with
+    ``eval_fn`` the fitness goes through :func:`host_fitness`, and nothing
+    else changes.
+    """
+    fitness = (engine.fitness if eval_fn is None
+               else host_fitness(engine.decode, eval_fn))
+
     def run_chunk(state, n):
         hist = []
         for _ in range(n):
-            state, bv = engine.gen_step(state)
+            state, bv = engine.evolve(state, fitness(state.pop))
             hist.append(bv)
         return state, torch.stack(hist).cpu().numpy()
 
@@ -177,19 +209,23 @@ def run_ga_search(workload, ecfg: env_lib.EnvConfig,
                   state: Optional[GAState] = None,
                   chunk: Optional[int] = None,
                   on_chunk=None,
+                  eval_fn=None,
                   env: Optional[env_lib.EnvArrays] = None,
                   device="cuda"):
     """Chunked, resumable baseline GA.  Returns (GAState, (gens,) history).
 
     Runs ``cfg.generations`` more generations from ``state`` (fresh run
     when None), in chunks of ``chunk`` generations (default: one chunk).
+    ``eval_fn(pe, kt, df) -> (P,) fitness`` moves each generation's fitness
+    to the host (see :func:`run_chunked_engine`).
     """
     if env is None:
         env = env_lib.make_env(workload, ecfg, device)
     engine = make_ga_engine(env, ecfg, cfg)
     if state is None:
         state = engine.init_carry(cfg.seed)
-    return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk)
+    return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk,
+                              eval_fn)
 
 
 def ga_solution(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
@@ -261,16 +297,13 @@ def make_local_ga_engine(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
         return GAState(pop, best_val, best_genome, gen,
                        state.generation + 1), best_val
 
-    def gen_step(state: GAState):
-        return evolve(state, fitness(state.pop))
-
     def init_carry(seed) -> GAState:
         pop = init_genome.expand(P, N, 2).clone()
         return GAState(pop, torch.tensor(torch.inf, device=dev),
                        init_genome.clone(), _generator(seed, dev),
                        torch.zeros((), dtype=torch.int64, device=dev))
 
-    return GAEngine(init_carry, gen_step, decode, fitness, evolve)
+    return GAEngine(init_carry, decode, fitness, evolve)
 
 
 def run_local_ga(workload, ecfg: env_lib.EnvConfig,

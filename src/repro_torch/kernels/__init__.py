@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
-  costmodel_eval -- batched (design-point x layer) cost evaluation
+  costmodel_eval -- batched cost evaluation: against one layer table, or
+                    with a layer row per point (the search service's)
   lstm_cell      -- fused REINFORCE policy step, with its gradient
 
 ``ops`` exposes the shape-flexible wrappers, ``ref`` the plain PyTorch

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -32,6 +33,8 @@ EXTRA_FLAGS = {
 SOURCES = tuple(EXTRA_FLAGS)
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# Threads that launch a kernel for the first time at once build it once.
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -93,11 +96,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of source ``name``, built first if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _libs[name] = lib
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            _libs[name] = lib
     return lib
 
 

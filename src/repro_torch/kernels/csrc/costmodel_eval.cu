@@ -1,31 +1,45 @@
-// Batched (design point x layer) evaluation of the hard cost model.
+// Batched evaluation of the hard cost model: two kernels on one device
+// function.
 //
-// Replaces the TPU kernel `cost_eval_padded` / `_cost_kernel` in
-// src/repro/kernels/costmodel_eval.py.  It computes the four outputs of the
-// hard `core_cost` (latency, energy, area, power) for every (b, n) of a
-// (B, N) batch of design points against an (NUM_FIELDS, N) layer table,
-// exactly as repro_torch/costmodel/maestro.py does (`core_cost` ->
-// `_gated_cost` -> `_dataflow_terms`), operation for operation and in the
-// same order.
+// `cost_eval_kernel` replaces the TPU kernel `cost_eval_padded` /
+// `_cost_kernel` in src/repro/kernels/costmodel_eval.py.  It computes the
+// four outputs of the hard `core_cost` (latency, energy, area, power) for
+// every (b, n) of a (B, N) batch of design points against an
+// (NUM_FIELDS, N) layer table, exactly as repro_torch/costmodel/maestro.py
+// does (`core_cost` -> `_gated_cost` -> `_dataflow_terms`), operation for
+// operation and in the same order.
+//
+// `cost_eval_multi_kernel` replaces `cost_eval_multi_padded` /
+// `_cost_kernel_multi` in the same file: every point carries its own layer
+// descriptor, (M, NUM_FIELDS) row-major beside (M,) pe, kt and df.  This
+// is the search service's shape: one batcher dispatch fuses the fresh
+// points of many searches, of different workloads, into one flat list.
+// Both kernels call the one `core_cost` below, in one library built with
+// one set of flags, so a point gets the same bits from either kernel; that
+// is what keeps a search through the service byte-identical to the same
+// search run serially.
 //
 // Bound on an H100: bytes.  Each point reads 3 x 4 B (pe, kt, df) and writes
-// 4 x 4 B; the layer table adds 32 B per column.  The arithmetic is some
-// two hundred float operations per point, far below the card's float32
-// rate for that traffic.  At the search's shapes ((20, 53), (100, 53),
-// (E, 1)) the bytes take tens of nanoseconds, so a launch costs more than
-// the work.  Design: one thread per point over a 1-D grid of B*N, no tiling
-// and no padding; each thread reads its column of the layer table through
-// the read-only cache, and the whole model stays in registers, so no
-// intermediate goes to device memory.
+// 4 x 4 B; the layer table adds 32 B per column (per point in the per-row
+// kernel: 60 B a point).  The arithmetic is some two hundred float
+// operations per point, far below the card's float32 rate for that
+// traffic.  At the search's shapes ((20, 53), (100, 53), (E, 1); a GA
+// generation of 5,300 points through the service) the bytes take tens to
+// hundreds of nanoseconds, so a launch costs more than the work.  Design:
+// one thread per point over a 1-D grid, no tiling and no padding (the TPU
+// kernels' (8, 128) tiles are not carried over); each thread reads its
+// layer fields through the read-only cache, and the whole model stays in
+// registers, so no intermediate goes to device memory.  Rows with
+// repeat = 0 come out exactly 0: every output is multiplied by repeat.
 //
 // Numbers: the library is built without --use_fast_math, so `/` and sqrtf
 // round the IEEE way (a division that feeds ceilf/floorf must not come out
 // one ulp above an integer, or a whole extra tile appears), and with
 // -fmad=false, so products stay unfused as in the plain version.  That
-// setting was kept: chip_smoke.py found the kernel bit-equal to the plain
-// version on an H100 (largest absolute and relative error 0 over 347,536
-// design points: every paper workload x 3 dataflows x the 12 x 12 level
-// grid, random points at (4096, 53) and ragged shapes).
+// setting was kept: chip_smoke.py found the table kernel bit-equal to the
+// plain version on an H100 (largest absolute and relative error 0 over
+// 347,536 design points: every paper workload x 3 dataflows x the 12 x 12
+// level grid, random points at (4096, 53) and ragged shapes).
 #include <cuda_runtime.h>
 
 namespace {
@@ -178,6 +192,27 @@ __global__ void cost_eval_kernel(const float* __restrict__ layers_t,
             pw[idx]);
 }
 
+__global__ void cost_eval_multi_kernel(const float* __restrict__ layers,
+                                       const float* __restrict__ pe,
+                                       const float* __restrict__ kt,
+                                       const float* __restrict__ df,
+                                       float* __restrict__ lat,
+                                       float* __restrict__ en,
+                                       float* __restrict__ area,
+                                       float* __restrict__ pw,
+                                       long long total) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const float* row = layers + idx * kNumFields;
+  float f[kNumFields];
+#pragma unroll
+  for (int i = 0; i < kNumFields; ++i) f[i] = __ldg(row + i);
+  core_cost(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], __ldg(pe + idx),
+            __ldg(kt + idx), __ldg(df + idx), lat[idx], en[idx], area[idx],
+            pw[idx]);
+}
+
 }  // namespace
 
 // layers_t: (NUM_FIELDS, N); pe, kt, df and the four outputs: (B, N); all
@@ -199,5 +234,27 @@ extern "C" int cost_eval_launch(const void* layers_t, const void* pe,
       static_cast<const float*>(kt), static_cast<const float*>(df),
       static_cast<float*>(lat), static_cast<float*>(en),
       static_cast<float*>(area), static_cast<float*>(pw), total, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// layers: (M, NUM_FIELDS) row-major, one descriptor per point; pe, kt, df
+// and the four outputs: (M,); all float32, contiguous, on card `device`,
+// where `stream` lives.  Returns cudaGetLastError().
+extern "C" int cost_eval_multi_launch(const void* layers, const void* pe,
+                                      const void* kt, const void* df,
+                                      void* lat, void* en, void* area,
+                                      void* pw, long long M, int device,
+                                      void* stream) {
+  if (M == 0) return 0;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 128;
+  const unsigned blocks = static_cast<unsigned>((M + threads - 1) / threads);
+  cost_eval_multi_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(layers), static_cast<const float*>(pe),
+      static_cast<const float*>(kt), static_cast<const float*>(df),
+      static_cast<float*>(lat), static_cast<float*>(en),
+      static_cast<float*>(area), static_cast<float*>(pw), M);
   return static_cast<int>(cudaGetLastError());
 }

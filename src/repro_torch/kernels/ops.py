@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.costmodel.layers import NUM_FIELDS
 from repro_torch.kernels import costmodel_eval, lstm_cell, ref
 
 
@@ -51,6 +52,33 @@ def table_cost(layers_t, pe, kt, df):
     return costmodel_eval.cost_eval(layers_t, pe, kt, df)
 
 
+def batched_cost_multi(layers, pe, kt, df):
+    """Evaluate a (B, N) batch where every row has its own layer descriptors.
+
+    layers: (B, N, NUM_FIELDS); pe/kt/df: broadcastable to (B, N).  Returns
+    (latency, energy, area, power), each (B, N) float32 on the inputs'
+    device.  This is the search service's shape: one call evaluates points
+    of different workloads side by side (its batcher passes them as one
+    (1, M) row).  Rows with ``repeat = 0`` come out exactly 0, so a caller
+    may pad ragged workloads with them.
+    """
+    dev = _device(layers, pe, kt, df)
+    as_f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    layers = as_f32(layers)
+    if layers.dim() != 3 or layers.shape[-1] != NUM_FIELDS:
+        raise ValueError(f"layers: expected (B, N, {NUM_FIELDS}), got "
+                         f"{tuple(layers.shape)}")
+    B, N = layers.shape[:2]
+    flat = layers.reshape(B * N, NUM_FIELDS).contiguous()
+    pe, kt, df = (as_f32(v).expand(B, N).reshape(-1).contiguous()
+                  for v in (pe, kt, df))
+    if dev.type == "cpu":
+        outs = ref.cost_eval_multi_ref(flat, pe, kt, df)
+    else:
+        outs = costmodel_eval.cost_eval_multi(flat, pe, kt, df)
+    return tuple(o.reshape(B, N) for o in outs)
+
+
 def lstm_step(x, h, c, wx, wh, b):
     """One LSTM cell step.  x: (B, I); h/c: (B, H); returns (h', c').
 
@@ -68,6 +96,7 @@ def lstm_step(x, h, c, wx, wh, b):
 def launch_counts():
     """Kernel launches so far, by kernel."""
     return {"cost_eval": costmodel_eval.launches,
+            "cost_eval_multi": costmodel_eval.multi_launches,
             "lstm_cell": lstm_cell.launches}
 
 
@@ -75,6 +104,7 @@ def reset_launch_counts():
     """Set every kernel's launch count, and the plain versions' count of
     calls on CUDA tensors, to 0."""
     costmodel_eval.launches = 0
+    costmodel_eval.multi_launches = 0
     lstm_cell.launches = 0
     for k in ref.cuda_calls:
         ref.cuda_calls[k] = 0

@@ -15,7 +15,8 @@ from repro_torch.costmodel import maestro
 from repro_torch.costmodel.layers import NUM_FIELDS
 
 # Calls made with CUDA tensors, by function name.
-cuda_calls = {"cost_eval_ref": 0, "lstm_cell_ref": 0}
+cuda_calls = {"cost_eval_ref": 0, "cost_eval_multi_ref": 0,
+              "lstm_cell_ref": 0}
 
 
 def _count(name, t):
@@ -31,6 +32,19 @@ def cost_eval_ref(layers_t, pe, kt, df):
     """
     _count("cost_eval_ref", pe)
     fields = [layers_t[i][None, :] for i in range(NUM_FIELDS)]
+    out = maestro.core_cost(*fields, pe, kt, df)
+    return out.latency, out.energy, out.area, out.power
+
+
+def cost_eval_multi_ref(layers, pe, kt, df):
+    """Plain version of the per-row kernel: (M, NUM_FIELDS) x (M,) -> 4x(M,).
+
+    Every point carries its own layer row (the search service's fused
+    dispatch); the same :func:`~repro_torch.costmodel.maestro.core_cost`
+    as :func:`cost_eval_ref`, on the fields' columns.
+    """
+    _count("cost_eval_multi_ref", pe)
+    fields = [layers[:, i] for i in range(NUM_FIELDS)]
     out = maestro.core_cost(*fields, pe, kt, df)
     return out.latency, out.energy, out.area, out.power
 

@@ -1,0 +1,297 @@
+"""Cross-request cost-eval batcher: one dispatch stream for N searches.
+
+Port of ``repro.serving.batcher`` without its telemetry.  Concurrent
+searches running on worker threads each hand it batches of genome
+evaluations (random/grid/bo through their ``eval_fn``, GA populations and
+SA candidates through their raw ``eval_fn``).  Dispatcher threads take
+everything pending and:
+
+  1. flatten every pending item into per-layer *points* ``(layer fields,
+     pe, kt, df)`` -- the cost model is per point, so points from
+     different workloads concatenate freely;
+  2. dedupe identical points across and within items with one
+     ``np.unique`` pass;
+  3. look the unique points up in the
+     :class:`~repro_torch.serving.cost_cache.CostMemoCache` and evaluate
+     only the fresh ones in ONE call of the per-row cost kernel
+     (``ops.batched_cost_multi`` at (1, M); its plain version when the
+     batcher runs on the CPU);
+  4. reassemble each item's values to the ``(b, N)`` shape the serial
+     engine reduces over and aggregate them with the serial engine's own
+     :func:`repro_torch.core.env.aggregate_costs`, on the batcher's device.
+
+Exactness, by construction: the per-row kernel and the single-table kernel
+the serial engines launch share one ``core_cost`` device function built
+with one set of flags (on the CPU both plain versions run the same
+``maestro.core_cost``), so a point's four values are the same bits in any
+batch; and the reduction runs over (b, N) tensors laid out as the
+single-table kernel lays out its own output (one (4, b, N) block), with
+the budget as the same float32 value.  So a search through the batcher
+returns bit-identical fitness to the same search run serially, cache hits
+and cross-request fusion included.
+
+The batcher evaluates on one device: ``device="cuda"`` (the default) needs
+a card and raises without one; on a CUDA device the per-row kernel runs or
+the dispatch fails, and nothing falls back to the CPU.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import env as env_lib
+from repro_torch.costmodel.layers import NUM_FIELDS
+from repro_torch.kernels import ops
+from repro_torch.serving.cost_cache import CostMemoCache
+
+_PE_COL = NUM_FIELDS
+_KT_COL = NUM_FIELDS + 1
+_DF_COL = NUM_FIELDS + 2
+ROW_WIDTH = NUM_FIELDS + 3   # layer fields + pe + kt + df
+
+
+class _Item:
+    """One in-flight eval request: points + how to aggregate them."""
+
+    __slots__ = ("points", "shape", "ecfg", "budget", "event", "fit",
+                 "error")
+
+    def __init__(self, points, shape, ecfg, budget):
+        self.points = points          # (b*N, ROW_WIDTH) f32
+        self.shape = shape            # (b, N)
+        self.ecfg = ecfg              # the request's EnvConfig
+        self.budget = budget          # np.float32
+        self.event = threading.Event()
+        self.fit: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+
+
+class CostEvalBatcher:
+    """Fuses concurrent searches' cost evaluations into single dispatches.
+
+    ``window_ms`` is the accumulation window after the first pending item;
+    while a dispatch executes, new arrivals queue up, so fusion widths
+    track the number of concurrently evaluating searches.  ``device`` is
+    where points are evaluated and aggregated.
+
+    ``dispatch_workers`` sizes the dispatch pool: with N > 1, up to N fused
+    dispatches run at once (the kernel launch and the copies release the
+    GIL).  Fusion grouping never changes values -- the cost model is
+    elementwise per point and each item aggregates only its own points --
+    so pooled dispatch stays bit-identical to one dispatcher, cache races
+    included (two workers evaluating the same point store the same bytes).
+    """
+
+    def __init__(self, cache: Optional[CostMemoCache] = None,
+                 window_ms: float = 2.0,
+                 device="cuda",
+                 dispatch_workers: int = 1,
+                 join_timeout_s: float = 5.0):
+        self.device = env_lib.resolve_device(device)
+        self.cache = cache if cache is not None else CostMemoCache()
+        self._window_s = max(window_ms, 0.0) / 1e3
+        self._join_timeout_s = float(join_timeout_s)
+        self._pending: List[_Item] = []
+        self._cv = threading.Condition()
+        self._closed = False
+        self._stats_lock = threading.Lock()
+        self._active = 0
+        self._stats = {
+            "dispatches": 0, "fused_dispatches": 0, "items": 0,
+            "points": 0, "unique_points": 0, "fresh_points": 0,
+            "max_items_per_dispatch": 0, "max_points_per_dispatch": 0,
+            "dispatch_workers": max(int(dispatch_workers), 1),
+            "max_concurrent_dispatches": 0,
+            "leaked_dispatch_threads": 0,
+            "dispatch_seconds": 0.0,
+        }
+        self._threads = [
+            threading.Thread(target=self._loop,
+                             name=f"cost-eval-batcher-{i}", daemon=True)
+            for i in range(max(int(dispatch_workers), 1))]
+        for t in self._threads:
+            t.start()
+
+    # -- client side --------------------------------------------------------
+    def evaluate(self, layers, pe, kt, df, ecfg, budget) -> np.ndarray:
+        """Blocking genome-batch evaluation; safe from any thread.
+
+        layers: (N, NUM_FIELDS); pe/kt: (b, N) raw f32 values; df: scalar or
+        (b, N); ecfg: the request's EnvConfig; budget: the env's constraint
+        budget.  Returns (b,) f32 fitness (+inf = infeasible), bit-identical
+        to the serial engines' evaluation of the same genomes on the
+        batcher's device.
+        """
+        if self._closed:
+            raise RuntimeError("CostEvalBatcher is closed")
+        pe = np.asarray(pe, np.float32)
+        item = _Item(pack_point_rows(layers, pe, kt, df), pe.shape, ecfg,
+                     np.float32(budget))
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("CostEvalBatcher is closed")
+            self._pending.append(item)
+            self._cv.notify()
+        item.event.wait()
+        if item.error is not None:
+            raise item.error
+        return item.fit
+
+    def stats(self) -> Dict[str, float]:
+        with self._stats_lock:
+            s = dict(self._stats)
+        cache = {f"cache_{k}": v for k, v in self.cache.stats().items()}
+        # The cache_ prefix keeps the two families disjoint; a batcher key
+        # that started with cache_ would shadow a cache stat in the merge.
+        overlap = set(s) & set(cache)
+        if overlap:
+            raise RuntimeError(f"batcher/cache stats keys collide: {overlap}")
+        s.update(cache)
+        return s
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        leaked = 0
+        for t in self._threads:
+            t.join(timeout=self._join_timeout_s)
+            # join() returns whether or not the thread died.  A live worker
+            # is hung inside a dispatch and will never drain _pending, so
+            # every queued waiter would block forever if we stayed silent.
+            if t.is_alive():
+                leaked += 1
+        if leaked:
+            with self._cv:
+                stranded, self._pending = self._pending, []
+            err = RuntimeError(
+                f"CostEvalBatcher closed with {leaked} hung dispatch "
+                f"thread(s); pending evaluations abandoned")
+            for it in stranded:
+                if not it.event.is_set():
+                    it.error = err
+                    it.event.set()
+        with self._stats_lock:
+            self._stats["leaked_dispatch_threads"] = leaked
+
+    # -- dispatcher side ----------------------------------------------------
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._pending and not self._closed:
+                    self._cv.wait()
+                if self._closed and not self._pending:
+                    return
+            if self._window_s:
+                time.sleep(self._window_s)
+            with self._cv:
+                items, self._pending = self._pending, []
+            if not items:
+                continue
+            with self._stats_lock:
+                self._active += 1
+                self._stats["max_concurrent_dispatches"] = max(
+                    self._stats["max_concurrent_dispatches"], self._active)
+            try:
+                self._dispatch(items)
+            except Exception as e:  # noqa: BLE001 -- never stall waiters
+                for it in items:
+                    if not it.event.is_set():
+                        it.error = e
+                        it.event.set()
+            finally:
+                with self._stats_lock:
+                    self._active -= 1
+
+    def _dispatch(self, items: List[_Item]) -> None:
+        t0 = time.perf_counter()
+        rows = (items[0].points if len(items) == 1
+                else np.concatenate([it.points for it in items], axis=0))
+        uniq, inv = np.unique(rows, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        keys = [u.tobytes() for u in uniq]
+        values, miss_index = self.cache.get_many(keys)
+        if miss_index:
+            fresh = eval_point_rows(uniq[miss_index], self.device)
+            # Cache per-row COPIES: a row view would pin the whole dispatch's
+            # result array in memory for as long as any one point stays hot.
+            self.cache.put_many([keys[i] for i in miss_index],
+                                [f.copy() for f in fresh])
+            for i, v in zip(miss_index, fresh):
+                values[i] = v
+        per_point = np.stack(values)[inv]          # (P, 4)
+
+        off = 0
+        for it in items:
+            n = it.points.shape[0]
+            it.fit = aggregate_point_values(per_point[off:off + n], it.shape,
+                                            it.ecfg, it.budget, self.device)
+            off += n
+            it.event.set()
+
+        with self._stats_lock:
+            s = self._stats
+            s["dispatches"] += 1
+            s["fused_dispatches"] += len(items) > 1
+            s["items"] += len(items)
+            s["points"] += len(rows)
+            s["unique_points"] += len(uniq)
+            s["fresh_points"] += len(miss_index)
+            s["max_items_per_dispatch"] = max(
+                s["max_items_per_dispatch"], len(items))
+            s["max_points_per_dispatch"] = max(
+                s["max_points_per_dispatch"], len(rows))
+            s["dispatch_seconds"] += time.perf_counter() - t0
+
+
+def eval_point_rows(rows: np.ndarray, device) -> np.ndarray:
+    """Evaluate (M, ROW_WIDTH) fresh points on ``device`` -> (M, 4) f32.
+
+    One call of the per-row cost kernel at (1, M) (its plain version on
+    the CPU).  Per-point results do not depend on M or on the other rows,
+    so any caller packing the same row gets the same bytes -- the property
+    both the memo cache and serial == service-batched byte identity rest
+    on.
+    """
+    t = torch.as_tensor(np.asarray(rows, np.float32), device=device)[None]
+    out = ops.batched_cost_multi(t[..., :NUM_FIELDS], t[..., _PE_COL],
+                                 t[..., _KT_COL], t[..., _DF_COL])
+    return torch.stack(out, dim=-1)[0].cpu().numpy()
+
+
+def aggregate_point_values(vals: np.ndarray, shape, ecfg, budget,
+                           device) -> np.ndarray:
+    """(b*N, 4) per-point values -> (b,) f32 fitness, +inf where infeasible.
+
+    The serial engines' reduction (:func:`env.aggregate_costs`) over the
+    same (b, N) shape, on ``device``: the four (b, N) tensors are
+    contiguous views of one (4, b, N) block, as the cost kernel returns
+    them, and the budget is a float32 0-d tensor, as in ``EnvArrays``.
+    """
+    b, N = shape
+    block = torch.as_tensor(np.ascontiguousarray(vals.T), device=device)
+    lat, en, area, pw = block.reshape(4, b, N).unbind(0)
+    budget = torch.as_tensor(np.float32(budget), device=device)
+    perf, _, feas = env_lib.aggregate_costs(lat, en, area, pw, ecfg, budget)
+    return torch.where(feas, perf, torch.inf).cpu().numpy()
+
+
+def pack_point_rows(layers, pe, kt, df) -> np.ndarray:
+    """(N, NUM_FIELDS) layers x (b, N) assignments -> (b*N, ROW_WIDTH) rows
+    in the batcher/cache key format."""
+    layers = np.asarray(layers, np.float32)
+    pe = np.asarray(pe, np.float32)
+    b, N = pe.shape
+    kt = np.broadcast_to(np.asarray(kt, np.float32), (b, N))
+    df = np.broadcast_to(np.asarray(df, np.float32), (b, N))
+    points = np.empty((b * N, ROW_WIDTH), np.float32)
+    points[:, :NUM_FIELDS] = np.broadcast_to(
+        layers, (b, N, NUM_FIELDS)).reshape(-1, NUM_FIELDS)
+    points[:, _PE_COL] = pe.ravel()
+    points[:, _KT_COL] = kt.ravel()
+    points[:, _DF_COL] = df.ravel()
+    return points

@@ -213,3 +213,92 @@ def test_table_cost_on_env_table_and_row_view_matches_batched_cost():
                           kt[:, t:t + 1].contiguous(), 1.0)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w[:, t:t + 1], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The per-row cost model (the search service's fused dispatch).
+# ---------------------------------------------------------------------------
+def _ragged_paper_rows(rng, draws=2):
+    """The six paper workloads as ragged rows padded with repeat = 0 rows,
+    with random level points; also the mask of real positions."""
+    import dataclasses
+
+    packs = [_arr(n) for n in PAPER]
+    N = max(len(p) for p in packs)
+    pad = dataclasses.replace(tlayers.LayerSpec.gemm(1, 1, 1),
+                              repeat=0).as_row()
+    rows = np.stack([np.concatenate([p, np.tile(pad, (N - len(p), 1))])
+                     for p in packs]).astype(np.float32)
+    rows = np.tile(rows, (draws, 1, 1))
+    real = np.tile(np.arange(N)[None] < np.array([len(p) for p in packs])[
+        :, None], (draws, 1))
+    B = rows.shape[0]
+    pe = tdfl.pe_levels(12)[rng.integers(0, 12, (B, N))].astype(np.float32)
+    kt = tdfl.kt_levels(12)[rng.integers(0, 12, (B, N))].astype(np.float32)
+    df = rng.integers(0, 3, (B, N)).astype(np.float32)
+    return rows, pe, kt, df, real
+
+
+def _multi_inputs(B, N, seed):
+    rng = np.random.default_rng(seed)
+    layers = _rand_layers(rng, B * N).reshape(B, N, -1)
+    pe = rng.integers(1, 161, (B, N)).astype(np.float32)
+    kt = rng.integers(1, 17, (B, N)).astype(np.float32)
+    df = rng.integers(0, 3, (B, N)).astype(np.float32)
+    return layers, pe, kt, df
+
+
+def _compare_multi(layers, pe, kt, df, use_kernel):
+    got = tops.batched_cost_multi(*(torch.from_numpy(a)
+                                    for a in (layers, pe, kt, df)))
+    want = jops.batched_cost_multi(layers, pe, kt, df, use_kernel=use_kernel)
+    for g, w in zip(got, want):
+        assert g.shape == tuple(w.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    return got
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("B,N", [(1, 1), (3, 7), (9, 130), (16, 128)])
+def test_batched_cost_multi_random_rows_match_reference(B, N, use_kernel):
+    """Each point with its own random layer row, against the JAX package's
+    per-row Pallas kernel (interpret mode) and its jnp path."""
+    _compare_multi(*_multi_inputs(B, N, B * 1000 + N), use_kernel)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_batched_cost_multi_ragged_paper_rows_match_reference(use_kernel):
+    rows, pe, kt, df, real = _ragged_paper_rows(np.random.default_rng(4))
+    got = _compare_multi(rows, pe, kt, df, use_kernel)
+    for g in got:                       # repeat = 0 padding is exactly 0
+        assert np.all(g.numpy()[~real] == 0.0)
+
+
+def test_batched_cost_multi_one_workload_equals_batched_cost_bitwise():
+    """Rows that all carry one workload give the single-table path's bits:
+    what the service's byte identity with serial runs rests on."""
+    layers = _arr("mobilenet_v2")
+    rng = np.random.default_rng(8)
+    B, N = 12, layers.shape[0]
+    pe, kt, df = (torch.from_numpy(rng.integers(lo, hi, (B, N)).astype(
+        np.float32)) for lo, hi in ((1, 161), (1, 17), (0, 3)))
+    want = tops.batched_cost(torch.from_numpy(layers), pe, kt, df)
+    got = tops.batched_cost_multi(
+        torch.from_numpy(layers).expand(B, N, layers.shape[1]), pe, kt, df)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # A flat (1, B*N) call -- the batcher's shape -- gives the same bits.
+    flat = tops.batched_cost_multi(
+        torch.from_numpy(np.tile(layers, (B, 1)))[None], pe.reshape(1, -1),
+        kt.reshape(1, -1), df.reshape(1, -1))
+    for g, w in zip(flat, want):
+        assert torch.equal(g.reshape(B, N), w)
+
+
+def test_batched_cost_multi_rejects_bad_shapes_and_two_devices():
+    layers, pe, kt, df = (torch.from_numpy(a) for a in _multi_inputs(2, 3, 0))
+    with pytest.raises(ValueError, match="expected"):
+        tops.batched_cost_multi(layers[..., :7], pe, kt, df)
+    with pytest.raises(ValueError, match="more than one device"):
+        tops.batched_cost_multi(layers, pe, kt.to("meta"), df)

@@ -42,3 +42,5 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert set(res["imported"]) == expected
     assert "repro_torch.kernels.ops" in expected
     assert "repro_torch.launch.search" in expected
+    assert "repro_torch.serving.search_service" in expected
+    assert "repro_torch.launch.serve_search" in expected
