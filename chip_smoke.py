@@ -8,9 +8,9 @@ Phases, in order; the first failure stops the script with a non-zero exit
 and no result line:
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build both CUDA sources from ``src/repro_torch/kernels/csrc`` (nvcc, in
-   parallel; the cost library holds two kernels) and print the build
-   seconds.
+2. Build the three CUDA sources from ``src/repro_torch/kernels/csrc``
+   (nvcc, one process each, all started together; the cost library holds
+   two kernels) and print the build seconds.
 3. Cost kernel vs its plain version on the card (rtol 1e-5, atol 1e-2):
    every paper workload x 3 dataflows x the 12 x 12 level grid, random raw
    points at (4096, 53), ragged shapes (1, 1), (3, 7), (13, 130).
@@ -24,7 +24,12 @@ and no result line:
 4. LSTM kernel vs its plain version (atol 1e-5) at the repo's shapes, and
    the kernel's autograd Function against autograd through the plain
    version (atol 1e-5).
-5. Main path: ``api.run_search`` with method two_stage on mobilenet_v2 at
+5. Flash-decode kernel vs its plain version (atol 1e-4 in float32 and in
+   bfloat16: both read the same values and compute in float32), at the
+   LM path's shape (8, 16, 2, 128, T = 520), a 32k cache, the reference's
+   test shapes, ragged T, head dims 16 / 64 / 256, G up to 16, and views
+   ``cache[:, :L]`` of a longer cache.
+6. Main path: ``api.run_search`` with method two_stage on mobilenet_v2 at
    full width (LSTM(128), L=12, latency / area / iot / dla, local GA with
    population 20 and 2000 generations), then method ga (population 100,
    5000 generations).  Only the epoch count is cut (the paper uses 5000).
@@ -33,7 +38,7 @@ and no result line:
    version may have run on the card.  Each outcome must be feasible, have
    a monotone history of length eps, and its best re-scored by the plain
    version on the CPU must match best_value (rtol 1e-5).
-6. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
+7. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
    ``SERVICE_REQUESTS``) run serially through ``api.run_search`` on the
    card, then submitted together to
    ``SearchService(ServiceConfig(max_workers=8, window_ms=2.0,
@@ -43,7 +48,18 @@ and no result line:
    have fused dispatches and hit its cache; the per-row kernel must have
    launched at least once and at most once per dispatch; no plain version
    may have run on the card.
-7. Kernel timings with CUDA events at the paths' shapes, printed as one
+8. LM serving path: qwen2.5-3b at full width (36 layers, d_model 2048,
+   GQA 16 / 2, vocab 151,936; random weights from a seed).  (a) float32
+   weights, 8 greedy decode steps of 4 requests through the kernel and
+   again through the plain version: equal tokens, logits within atol /
+   rtol 1e-4.  (b) bfloat16 weights: ``serving.Engine`` serves 16
+   ``synthetic_requests`` (prompt lengths 16 and 520, 16 new tokens,
+   max_len 1024, max_batch 8), counters set to 0 just before and read
+   just after: flash_decode must have launched 36 times per
+   ``decode_step`` and no plain version may have run on the card.
+   (c) tokens/s, ms per decode step against the step's byte bound, and a
+   profiler trace of a few steps (device busy share).
+9. Kernel timings with CUDA events at the paths' shapes, printed as one
    ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
@@ -80,6 +96,25 @@ BASELINE_GA_GENERATIONS = 5000
 # Bytes the per-row cost kernel moves per point: 8 layer fields, pe, kt,
 # df in, four costs out, all float32.
 MULTI_BYTES_PER_POINT = 4 * (8 + 3 + 4)
+BF16_FLOP_PER_S = 989e12
+# Flash-decode shapes (B, Hq, Hkv, D, T) checked against the plain version:
+# the LM path's (qwen2.5-3b, 8 requests, a 520-token prompt), a 32k cache,
+# the reference's test shapes, ragged T, head dims 16 / 64 / 256 and G = 16.
+FLASH_SHAPES = ((8, 16, 2, 128, 520), (8, 16, 2, 128, 32768),
+                (1, 4, 4, 128, 512), (2, 8, 2, 128, 1024),
+                (2, 16, 2, 128, 2048), (1, 8, 1, 256, 512),
+                (2, 8, 2, 128, 1), (3, 8, 2, 128, 37), (2, 8, 2, 128, 700),
+                (2, 4, 4, 16, 37), (2, 16, 16, 64, 65), (1, 32, 2, 256, 129))
+# ... and timed: the path's shape, a decode-32k shape, and the reference's
+# largest test shape.
+FLASH_TIMED = (((8, 16, 2, 128, 520), "bfloat16"),
+               ((8, 16, 2, 128, 32768), "bfloat16"),
+               ((2, 16, 2, 128, 2048), "float32"))
+# The LM serving path: the model, the float32 route check, the engine run.
+LM_ARCH = "qwen2p5_3b"
+LM_F32_BATCH, LM_F32_STEPS = 4, 8
+LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW = 16, (16, 520), 16
+LM_MAX_LEN, LM_MAX_BATCH = 1024, 8
 # The service path: (method, workload, eps, seed, options), all at
 # latency / area / iot / dla, LP.  Requests 1 and 2 are the same query
 # from two users.
@@ -108,21 +143,28 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, iters, warmup=20):
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+def time_ms_cycle(fn, arg_sets, iters, warmup=10):
+    """Mean milliseconds per call of ``fn(*args)`` on the card (CUDA
+    events), cycling through ``arg_sets`` so that the inputs do not stay
+    in the 50 MB L2 cache from one call to the next."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    for i in range(warmup):
+        fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters, warmup=20):
+    """Mean milliseconds per call of ``fn()`` on the card (CUDA events)."""
+    return time_ms_cycle(fn, [()], iters, warmup)
 
 
 def phase_device():
@@ -387,6 +429,53 @@ def phase_lstm_kernel(dev):
     return worst
 
 
+def _attn_inputs(shape, dt, dev, seed):
+    import torch
+
+    B, Hq, Hkv, D, T = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)
+    return f(B, Hq, D), f(B, T, Hkv, D), f(B, T, Hkv, D)
+
+
+def phase_flash_kernel(dev):
+    """Flash-decode kernel vs its plain version; returns the worst errors.
+
+    atol 1e-4 in both types: the kernel and the plain version read the same
+    bf16 (or f32) values and both compute in float32, so only the order of
+    the sums differs."""
+    import torch
+
+    from repro_torch.kernels import flash_decode, ref
+
+    worst = {"float32": 0.0, "bfloat16": 0.0, "cases": 0}
+
+    def compare(q, k, v, what):
+        got = flash_decode.flash_decode(q, k, v)
+        want = ref.flash_decode_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(got.isfinite().all()) and err <= 1e-4,
+              f"flash-decode kernel disagrees on {what}: max abs {err}")
+        key = str(q.dtype).split(".")[-1]
+        worst[key] = max(worst[key], err)
+        worst["cases"] += 1
+
+    for i, shape in enumerate(FLASH_SHAPES):
+        for dt in (torch.float32, torch.bfloat16):
+            compare(*_attn_inputs(shape, dt, dev, i), f"{shape} {dt}")
+    # Views cache[:, :L] of a longer cache, as the decode step passes them.
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _attn_inputs((8, 16, 2, 128, 1024), dt, dev, 99)
+        for L in (1, 300, 520, 1024):
+            compare(q, k[:, :L], v[:, :L], f"view [:, :{L}] {dt}")
+    log(f"[flash] kernel == plain on {worst['cases']} cases: max abs err "
+        f"float32 {worst['float32']:.3g}, bfloat16 {worst['bfloat16']:.3g} "
+        "(atol 1e-4)")
+    return worst
+
+
 def _rescore_on_cpu(out, ecfg, wl):
     """Re-score an outcome's best with the plain version on the CPU."""
     from repro_torch.core import env as env_lib
@@ -570,6 +659,249 @@ def phase_service(dev, specs=SERVICE_REQUESTS):
     return counts, timing
 
 
+def _greedy(model, cfg, first, steps, dev):
+    """``steps`` greedy decode steps from the tokens ``first``: the tokens
+    and the logits of every step."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cache = lm.init_cache(cfg, first.shape[0], steps, device=dev)
+    tok, toks, logits = first, [], []
+    for _ in range(steps):
+        out, cache = lm.decode_step(model, cfg, cache, tok)
+        tok = torch.argmax(out, dim=-1)
+        toks.append(tok)
+        logits.append(out)
+    return torch.stack(toks), torch.stack(logits)
+
+
+def _step_bound(model, cfg, B, T):
+    """The least time (ms) and its limit for one decode step of B tokens
+    at cache length T: every weight read once (the token embedding only
+    for its B rows), the KV cache read once and one row written; against
+    the matrix products' operations at the bf16 tensor-core rate."""
+    size = lambda p: p.numel() * p.element_size()
+    tok = model.embed.tok
+    weights = sum(size(p) for p in model.parameters()) - size(tok)
+    kv = cfg.num_layers * B * cfg.num_kv_heads * cfg.hd() * tok.element_size()
+    nbytes = weights + B * cfg.d_model * tok.element_size() + 2 * kv * (T + 1)
+    matrix = sum(p.numel() for p in model.parameters() if p.dim() == 2)
+    ops = (2 * B * (matrix - tok.numel())
+           + 4 * cfg.num_layers * B * cfg.num_heads * T * cfg.hd())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def _device_busy(fn, steps):
+    """Device time per call of ``fn`` from a profiler trace of ``steps``
+    calls, the wall time per call, and the three kernels that took most;
+    None where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd
+              .DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        return None
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    return {"device_ms_per_step": device_us / 1e3 / steps,
+            "wall_ms_per_step": 1e3 * wall / steps,
+            "device_busy_share": device_us / 1e6 / wall,
+            "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3
+                             / steps, e.count // steps] for e in top]}
+
+
+def phase_lm(dev):
+    """The LM serving path at qwen2.5-3b's full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine, ServeConfig, synthetic_requests
+
+    base = configs.get(LM_ARCH)
+    gen = torch.Generator(device=dev)
+
+    # (a) float32 weights: the kernel route against the plain route.  Both
+    # run the same float32 products; only the attention's order of sums
+    # differs, hence atol / rtol 1e-4.
+    cfg32 = dataclasses.replace(base, param_dtype="float32",
+                                compute_dtype="float32")
+    gen.manual_seed(0)
+    model = lm.init_params(cfg32, gen, device=dev)
+    first = torch.randint(0, cfg32.vocab_size, (LM_F32_BATCH,),
+                          generator=gen, device=dev)
+    toks_k, logits_k = _greedy(model, cfg32, first, LM_F32_STEPS, dev)
+    kernel_route = ops.decode_attention
+    ops.decode_attention = ref.flash_decode_ref      # the plain route
+    try:
+        toks_p, logits_p = _greedy(model, cfg32, first, LM_F32_STEPS, dev)
+    finally:
+        ops.decode_attention = kernel_route
+    torch.cuda.synchronize()
+    f32_err = float((logits_k - logits_p).abs().max())
+    check(bool(logits_k.isfinite().all()), "LM f32 logits not finite")
+    check(torch.equal(toks_k, toks_p), "LM f32: the kernel route's tokens "
+          f"{toks_k.T.tolist()} differ from the plain route's "
+          f"{toks_p.T.tolist()}")
+    check(torch.allclose(logits_k, logits_p, rtol=1e-4, atol=1e-4),
+          f"LM f32: logits differ between the routes by {f32_err}")
+    log(f"[lm] f32, {LM_F32_BATCH} requests x {LM_F32_STEPS} steps: "
+        f"tokens equal, logits max abs diff {f32_err:.3g} (atol / rtol "
+        "1e-4)")
+    del model, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    # (b) bfloat16 weights through the engine.
+    cfg = base
+    gen.manual_seed(0)
+    model = lm.init_params(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = Engine(cfg, model, ServeConfig(max_len=LM_MAX_LEN,
+                                         max_batch=LM_MAX_BATCH))
+    eng.serve(synthetic_requests(1, cfg.vocab_size, prompt_lens=(4,),
+                                 max_new=2, seed=1))          # warm-up
+    reqs = synthetic_requests(LM_REQUESTS, cfg.vocab_size,
+                              prompt_lens=LM_PROMPT_LENS,
+                              max_new=LM_MAX_NEW, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps0 = eng.decode_steps
+    ops.reset_launch_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    plain_on_card = dict(ref.cuda_calls)
+    steps = eng.decode_steps - steps0
+    lens = [len(r.prompt) for r in reqs]
+    want_steps = sum(-(-lens.count(n) // LM_MAX_BATCH) * (n + LM_MAX_NEW)
+                     for n in set(lens))
+    check(steps == want_steps, f"LM engine made {steps} decode steps, the "
+          f"run implies {want_steps}")
+    check(counts["flash_decode"] == cfg.num_layers * steps,
+          f"flash_decode launched {counts['flash_decode']} times in {steps} "
+          f"decode steps of {cfg.num_layers} layers")
+    check(all(v == 0 for v in plain_on_card.values()),
+          f"a plain version ran on the card: {plain_on_card}")
+    check(all(r.done and len(r.output) == LM_MAX_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.output)
+              for r in reqs), "LM engine: a request is short or out of range")
+
+    # (c) one step at the path's shape (8 requests, cache at 520): host
+    # clock, profiler, and the byte bound.
+    B, T = LM_MAX_BATCH, max(LM_PROMPT_LENS)
+    cache = lm.init_cache(cfg, B, LM_MAX_LEN, device=dev)._replace(pos=T)
+    tok = torch.zeros(B, dtype=torch.int64, device=dev)
+    step = lambda: lm.decode_step(model, cfg, cache, tok)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t0) / 20
+    busy = _device_busy(step, 5)
+    check(busy is not None, "the profiler trace of the LM step shows no "
+          "device time")
+    # The profiler slows the host; the share against the unprofiled step
+    # is the one to read.
+    busy["device_busy_share_unprofiled"] = (busy["device_ms_per_step"]
+                                            / steady_ms)
+    bound_ms, bound_by, step_bytes = _step_bound(model, cfg, B, T)
+    timing = {
+        "arch": cfg.name, "params": n_params, "dtype": cfg.compute_dtype,
+        "requests": stats["requests"], "tokens": stats["tokens"],
+        "wall_s": stats["wall_s"], "tok_per_s": stats["tok_per_s"],
+        "buckets": stats["buckets"], "decode_steps": steps,
+        "ms_per_decode_step": 1e3 * stats["wall_s"] / steps,
+        "step_ms_at_T520_B8": steady_ms, "step_bound_ms": bound_ms,
+        "step_bound_by": bound_by, "step_bytes": step_bytes,
+        "profile": busy,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "f32_route_max_abs_diff": f32_err}
+    log(f"[lm] launches {json.dumps(counts)}; plain versions on the card "
+        f"{json.dumps(plain_on_card)}; {json.dumps(timing)}")
+    del model, cache
+    torch.cuda.empty_cache()
+    return counts, timing
+
+
+def _flash_entry(dev, counts, flash_err):
+    """The flash-decode kernel's line: ms, plain and library ms and the
+    bound at each timed shape, cycling through enough input copies that
+    each call finds its inputs outside the L2 cache, as a decode step
+    does."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode, ref
+
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True)
+    by_shape = {}
+    for i, (shape, dt_name) in enumerate(FLASH_TIMED):
+        B, Hq, Hkv, D, T = shape
+        dt = getattr(torch, dt_name)
+        el = torch.finfo(dt).bits // 8
+        nbytes = el * (B * Hq * D + 2 * B * T * Hkv * D) + 4 * B * Hq * D
+        nops = 4 * B * Hq * T * D + 5 * B * Hq * T      # products, softmax
+        copies = max(1, -(-120_000_000 // nbytes))
+        sets = [_attn_inputs(shape, dt, dev, 1000 * i + c)
+                for c in range(copies)]
+        q, k, v = sets[0]
+        lib_err = float((sdpa(q, k, v)[:, :, 0].float()
+                         - flash_decode.flash_decode(q, k, v)).abs().max())
+        check(lib_err <= 1e-2, f"scaled_dot_product_attention disagrees "
+              f"with the kernel at {shape}: {lib_err}")
+        iters = 50 if T > 4096 else 500
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S
+        by_shape[f"{shape} {dt_name}"] = {
+            "ms": time_ms_cycle(flash_decode.flash_decode, sets, iters),
+            "plain_ms": time_ms_cycle(ref.flash_decode_ref, sets,
+                                      max(20, iters // 5)),
+            "library_ms": time_ms_cycle(sdpa, sets, iters),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_max_abs_diff": lib_err}
+        del sets
+    main = by_shape[f"{FLASH_TIMED[0][0]} {FLASH_TIMED[0][1]}"]
+    return {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:66",
+        "tpu_kernel": "repro/kernels/flash_decode.py::flash_decode_padded",
+        "shape": list(FLASH_TIMED[0][0]), "dtype": FLASH_TIMED[0][1],
+        "launches": counts["flash_decode"],
+        "launches_per_run": counts["flash_decode"],
+        "max_abs_err": max(flash_err["float32"], flash_err["bfloat16"]),
+        "max_err": max(flash_err["float32"], flash_err["bfloat16"]),
+        "max_abs_err_f32": flash_err["float32"],
+        "max_abs_err_bf16": flash_err["bfloat16"],
+        "ms": main["ms"], "kernel_ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention"
+                   "(enable_gqa=True)",
+        "by_shape": by_shape}
+
+
 def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
     import numpy as np
     import torch
@@ -697,17 +1029,31 @@ def main(argv=None):
         dev = torch.device("cuda", 0)
         from repro_torch.core import env as env_lib
         env_lib.resolve_device(dev)     # float32 products, TF32 off
-        build_s = phase_build()
-        cost_err = phase_cost_kernel(dev)
-        multi_err = phase_multi_kernel(dev)
-        lstm_err = phase_lstm_kernel(dev)
-        counts, timing = phase_main_path(EPOCHS, GA_GENERATIONS)
-        service_counts, service = phase_service(dev)
-        kernels = phase_timings(dev, counts, cost_err, lstm_err,
-                                service_counts, multi_err)
+        phase_s = {}
+
+        def timed(name, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            phase_s[name] = time.perf_counter() - t0
+            return out
+
+        build_s = timed("build", phase_build)
+        cost_err = timed("cost", phase_cost_kernel, dev)
+        multi_err = timed("cost_multi", phase_multi_kernel, dev)
+        lstm_err = timed("lstm", phase_lstm_kernel, dev)
+        flash_err = timed("flash", phase_flash_kernel, dev)
+        counts, timing = timed("main", phase_main_path, EPOCHS,
+                               GA_GENERATIONS)
+        service_counts, service = timed("service", phase_service, dev)
+        lm_counts, lm = timed("lm", phase_lm, dev)
+        kernels = timed("timings", phase_timings, dev, counts, cost_err,
+                        lstm_err, service_counts, multi_err)
+        kernels.append(timed("flash_timings", _flash_entry, dev, lm_counts,
+                             flash_err))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    log(f"[phases] seconds {json.dumps(phase_s)}")
     log(json.dumps({"kernels": kernels}))
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -717,6 +1063,7 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "main_path": timing,
              "service_path": service, "service_launches": service_counts,
+             "lm_path": lm, "lm_launches": lm_counts, "phase_s": phase_s,
              "kernels": kernels, **result}, indent=1))
     log(json.dumps(result))
     return 0

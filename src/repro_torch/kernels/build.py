@@ -29,6 +29,7 @@ EXTRA_FLAGS = {
     # Unfused products, as in the plain version (see the source's note).
     "costmodel_eval": ["-fmad=false"],
     "lstm_cell": [],
+    "flash_decode": [],
 }
 SOURCES = tuple(EXTRA_FLAGS)
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.costmodel.layers import NUM_FIELDS
-from repro_torch.kernels import costmodel_eval, lstm_cell, ref
+from repro_torch.kernels import (costmodel_eval, flash_decode, lstm_cell,
+                                 ref)
 
 
 def _device(*vals) -> torch.device:
@@ -93,11 +94,26 @@ def lstm_step(x, h, c, wx, wh, b):
                                       wh.contiguous(), b.contiguous())
 
 
+def decode_attention(q, k, v):
+    """Single-token GQA attention over a KV cache.
+
+    q: (B, Hq, D); k/v: (B, T, Hkv, D), any T >= 1; a view
+    ``cache[:, :T]`` of a longer cache is read in place.  Returns
+    (B, Hq, D) float32.  On CUDA tensors the flash-decode kernel runs for
+    every T (it raises on a shape or type it does not take); the
+    reference's oracle path for T % 512 != 0 has no counterpart here.
+    """
+    if _device(q, k, v).type == "cpu":
+        return ref.flash_decode_ref(q, k, v)
+    return flash_decode.flash_decode(q.contiguous(), k, v)
+
+
 def launch_counts():
     """Kernel launches so far, by kernel."""
     return {"cost_eval": costmodel_eval.launches,
             "cost_eval_multi": costmodel_eval.multi_launches,
-            "lstm_cell": lstm_cell.launches}
+            "lstm_cell": lstm_cell.launches,
+            "flash_decode": flash_decode.launches}
 
 
 def reset_launch_counts():
@@ -106,5 +122,6 @@ def reset_launch_counts():
     costmodel_eval.launches = 0
     costmodel_eval.multi_launches = 0
     lstm_cell.launches = 0
+    flash_decode.launches = 0
     for k in ref.cuda_calls:
         ref.cuda_calls[k] = 0

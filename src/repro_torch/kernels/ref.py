@@ -9,6 +9,8 @@ its main path.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.costmodel import maestro
@@ -16,7 +18,7 @@ from repro_torch.costmodel.layers import NUM_FIELDS
 
 # Calls made with CUDA tensors, by function name.
 cuda_calls = {"cost_eval_ref": 0, "cost_eval_multi_ref": 0,
-              "lstm_cell_ref": 0}
+              "lstm_cell_ref": 0, "flash_decode_ref": 0}
 
 
 def _count(name, t):
@@ -94,3 +96,21 @@ def lstm_cell_bwd_ref(x, h, c, wx, wh, b, dh_new, dc_new):
     dG = torch.cat([d_i, d_f, d_g, d_o], dim=-1)          # (B, 4H)
     return (dG @ wx.T, dG @ wh.T, dc_tot * f,
             x.T @ dG, h.T @ dG, dG.sum(dim=0))
+
+
+def flash_decode_ref(q, k, v):
+    """Plain version of the flash-decode kernel: single-token GQA attention.
+
+    q: (B, Hq, D), k/v: (B, T, Hkv, D) with Hq % Hkv == 0; any float type,
+    computed in float32 (as the reference wrapper casts).  Query head
+    h*G + g attends KV head h, G = Hq / Hkv.  Returns (B, Hq, D) float32.
+    """
+    _count("flash_decode_ref", q)
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bhgd,bthd->bhgt", qg, k) / math.sqrt(D)
+    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    w = w / w.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhgt,bthd->bhgd", w, v).reshape(B, Hq, D)

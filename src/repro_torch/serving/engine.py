@@ -1,0 +1,133 @@
+"""Batched LM serving engine: bucketed prefill + lockstep greedy decode.
+
+The counterpart of the JAX package's ``serving/engine.py``, for the dense
+family:
+
+* **Bucketed batching.** Requests are grouped by prompt length, so each
+  batch prefills and decodes in lockstep with one cache position.
+* **Prefill via the decode path.** The prompt is teacher-forced through
+  ``decode_step`` in a Python loop (the reference scans it with
+  ``lax.scan``); this fills the KV cache token by token.  The prefill
+  never reads a value back to the host.
+* **Early-stop masking.** Finished requests (``stop_token`` or their token
+  budget) keep decoding in lockstep with their outputs masked; the batch
+  retires when all are done.
+* **Fixed cache.** One cache of (batch, max_len) per batch, written in
+  place by every step.  A batch decodes at most ``max_len - prompt - 1``
+  new tokens, as in the reference; a prompt longer than ``max_len``
+  raises (the reference's cache update would clamp it silently).
+
+The engine runs on the device its parameters live on.  ``decode_steps``
+counts the ``decode_step`` calls it has made (prefill and decode).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models import lm
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int = 512           # cache capacity (prompt + generation)
+    max_batch: int = 8           # requests per bucket batch
+    stop_token: int = -1         # -1: never stop early
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    latency_s: float = 0.0
+
+
+class Engine:
+    """Batched greedy-decode engine over a fixed parameter set."""
+
+    def __init__(self, cfg, params: lm.LM, scfg: ServeConfig = ServeConfig()):
+        self.cfg = cfg
+        self.params = params
+        self.scfg = scfg
+        self.device = params.embed.tok.device
+        self.decode_steps = 0
+
+    def _step(self, cache, token):
+        self.decode_steps += 1
+        return lm.serve_step(self.params, cache, token, self.cfg)
+
+    def run_batch(self, requests: Sequence[Request]) -> None:
+        """Prefill + decode one equal-prompt-length batch, in place."""
+        assert len({len(r.prompt) for r in requests}) == 1, "bucket invariant"
+        t0 = time.time()
+        B = len(requests)
+        Tp = len(requests[0].prompt)
+        if Tp > self.scfg.max_len:
+            raise ValueError(f"prompt of {Tp} tokens exceeds the cache "
+                             f"capacity max_len={self.scfg.max_len}")
+        prompts = torch.tensor([r.prompt for r in requests],
+                               dtype=torch.int64, device=self.device)
+        cache = lm.init_cache(self.cfg, B, self.scfg.max_len,
+                              device=self.device)
+        for t in range(Tp):
+            token, cache = self._step(cache, prompts[:, t])
+
+        budget = max(r.max_new_tokens for r in requests)
+        budget = min(budget, self.scfg.max_len - Tp - 1)
+        alive = np.ones(B, bool)
+        for _ in range(budget):
+            token, cache = self._step(cache, token)
+            ids = token.cpu().numpy()
+            for i, r in enumerate(requests):
+                if not alive[i]:
+                    continue
+                r.output.append(int(ids[i]))
+                if (len(r.output) >= r.max_new_tokens
+                        or int(ids[i]) == self.scfg.stop_token):
+                    alive[i] = False
+            if not alive.any():
+                break
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - t0
+        for r in requests:
+            r.done = True
+            r.latency_s = dt
+
+    def serve(self, requests: Sequence[Request]) -> Dict[str, float]:
+        """Bucket by prompt length, run every bucket, return stats."""
+        buckets: Dict[int, List[Request]] = {}
+        for r in requests:
+            buckets.setdefault(len(r.prompt), []).append(r)
+        t0 = time.time()
+        for _, bucket in sorted(buckets.items()):
+            for i in range(0, len(bucket), self.scfg.max_batch):
+                self.run_batch(bucket[i:i + self.scfg.max_batch])
+        wall = time.time() - t0
+        toks = sum(len(r.output) for r in requests)
+        return {"requests": len(requests), "tokens": toks,
+                "wall_s": wall,
+                "tok_per_s": toks / wall if wall else 0.0,
+                "buckets": len(buckets)}
+
+
+def synthetic_requests(n: int, vocab: int, *, prompt_lens=(8, 16),
+                       max_new: int = 16, seed: int = 0) -> List[Request]:
+    """The reference's synthetic stream: the same numpy draws, so both
+    packages make the same requests for the same seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        plen = int(rng.choice(prompt_lens))
+        out.append(Request(
+            uid=i,
+            prompt=rng.integers(0, vocab, size=plen).tolist(),
+            max_new_tokens=max_new))
+    return out

@@ -15,7 +15,8 @@ import torch
 from repro_torch import api
 from repro_torch.costmodel import layers as layers_lib
 from repro_torch.costmodel import workloads
-from repro_torch.kernels import costmodel_eval, lstm_cell, ops, ref
+from repro_torch.kernels import (costmodel_eval, flash_decode, lstm_cell, ops,
+                                 ref)
 from repro_torch.serving import SearchService, ServiceConfig
 
 pytestmark = pytest.mark.cuda
@@ -187,3 +188,99 @@ def test_service_on_card_byte_identical_to_serial(dev):
         assert got.kt.tobytes() == want.kt.tobytes()
     assert 1 <= ops.launch_counts()["cost_eval_multi"] <= dispatches
     assert all(v == 0 for v in ref.cuda_calls.values())
+
+
+# ---------------------------------------------------------------------------
+# Flash-decode kernel and the LM decode step.
+# ---------------------------------------------------------------------------
+def _attn_inputs(B, Hq, Hkv, D, T, dt, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed + T + D)
+    f = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)
+    return f(B, Hq, D), f(B, T, Hkv, D), f(B, T, Hkv, D)
+
+
+# Both versions read the same bf16 (or f32) values and compute in float32,
+# so the one tolerance, atol 1e-4 (the reference's own), holds for both.
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,D,T", [
+    (1, 4, 4, 128, 512), (2, 8, 2, 128, 1024), (2, 16, 2, 128, 2048),
+    (1, 8, 1, 256, 512),                       # the reference's shapes
+    (8, 16, 2, 128, 520), (2, 8, 2, 128, 1), (3, 8, 2, 128, 37),
+    (2, 8, 2, 128, 700),                       # ragged T
+    (2, 4, 4, 16, 37), (2, 16, 16, 64, 65), (1, 32, 2, 256, 129),
+])
+def test_flash_decode_kernel_matches_plain(dev, dt, B, Hq, Hkv, D, T):
+    q, k, v = _attn_inputs(B, Hq, Hkv, D, T, dt, dev)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, k, v)
+    assert ops.launch_counts()["flash_decode"] == 1
+    assert ref.cuda_calls["flash_decode_ref"] == 0
+    want = ref.flash_decode_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, D)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_decode_reads_a_strided_cache_view(dev, dt):
+    """cache[:, :L] of a longer cache is read in place and gives the result
+    of its contiguous copy."""
+    B, Hq, Hkv, D, Tmax = 4, 16, 2, 128, 1024
+    q, k, v = _attn_inputs(B, Hq, Hkv, D, Tmax, dt, dev, seed=1)
+    for L in (1, 300, 513):
+        got = flash_decode.flash_decode(q, k[:, :L], v[:, :L])
+        want = flash_decode.flash_decode(q, k[:, :L].contiguous(),
+                                         v[:, :L].contiguous())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        torch.testing.assert_close(
+            got, ref.flash_decode_ref(q, k[:, :L], v[:, :L]), rtol=0,
+            atol=1e-4)
+
+
+def test_flash_decode_wrapper_rejects_bad_inputs(dev):
+    q, k, v = _attn_inputs(2, 8, 2, 64, 10, torch.float32, dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_decode.flash_decode(q.cpu(), k, v)
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        flash_decode.flash_decode(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_decode.flash_decode(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode.flash_decode(*_attn_inputs(2, 8, 2, 32, 10,
+                                                torch.float32, dev))
+    with pytest.raises(ValueError, match="whole number"):
+        flash_decode.flash_decode(*_attn_inputs(1, 34, 2, 64, 10,
+                                                torch.float32, dev))
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        flash_decode.flash_decode(q, k.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), v)
+    with pytest.raises(ValueError, match="more than one device"):
+        ops.decode_attention(q, k.cpu(), v)
+
+
+def test_decode_step_on_card_matches_cpu(dev):
+    """Six f32 decode steps of the qwen2.5 smoke model on the card (every
+    attention through the kernel) against the same steps on the CPU (the
+    plain version): logits within atol/rtol 1e-4."""
+    from repro_torch import configs
+    from repro_torch.core import env as env_lib
+    from repro_torch.models import lm
+
+    env_lib.resolve_device(dev)               # float32 products, TF32 off
+    cfg = dataclasses.replace(configs.get_smoke("qwen2p5_3b"),
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    cpu_model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    card_model = lm.init_params(cfg, torch.Generator().manual_seed(0)
+                                ).to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (6, 3),
+                           generator=torch.Generator().manual_seed(1))
+    c_cpu = lm.init_cache(cfg, 3, 8)
+    c_dev = lm.init_cache(cfg, 3, 8, device=dev)
+    ops.reset_launch_counts()
+    for t in range(6):
+        want, c_cpu = lm.decode_step(cpu_model, cfg, c_cpu, tokens[t])
+        got, c_dev = lm.decode_step(card_model, cfg, c_dev, tokens[t].to(dev))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert ops.launch_counts()["flash_decode"] == 6 * cfg.num_layers
+    assert ref.cuda_calls["flash_decode_ref"] == 0

@@ -1,0 +1,143 @@
+"""The port's LM serving engine and CLI, on the CPU.
+
+The port's ``Engine`` and the JAX package's serve the same
+``synthetic_requests`` (same numpy draws) with the same weights
+(``params_from_jax``) in float32, and must emit the same tokens.  The
+rest are the port's counterparts of the reference's engine tests
+(tests/test_serving.py).
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import lm as jlm
+from repro.serving import Engine as JEngine
+from repro.serving import ServeConfig as JServeConfig
+from repro.serving.engine import synthetic_requests as jsynthetic
+from repro_torch import configs
+from repro_torch.models import lm
+from repro_torch.serving import (Engine, Request, ServeConfig,
+                                 synthetic_requests)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _engine(arch="qwen1p5_0p5b", **scfg):
+    cfg = _f32(configs.get_smoke(arch))
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, Engine(cfg, model, ServeConfig(**{"max_len": 64,
+                                                  "max_batch": 4, **scfg}))
+
+
+@pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "qwen2p5_3b"])
+def test_engine_tokens_equal_reference_engine(arch):
+    jcfg = _f32(jconfigs.get_smoke(arch))
+    cfg = _f32(configs.get_smoke(arch))
+    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    model = lm.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    scfg = dict(max_len=24, max_batch=3)
+    jreqs = jsynthetic(7, cfg.vocab_size, prompt_lens=(4, 9), max_new=6,
+                       seed=3)
+    reqs = synthetic_requests(7, cfg.vocab_size, prompt_lens=(4, 9),
+                              max_new=6, seed=3)
+    assert [r.prompt for r in reqs] == [r.prompt for r in jreqs]
+    jstats = JEngine(jcfg, jparams, JServeConfig(**scfg)).serve(jreqs)
+    eng = Engine(cfg, model, ServeConfig(**scfg))
+    stats = eng.serve(reqs)
+    for a, b in zip(reqs, jreqs):
+        assert a.output == b.output, (a.uid, a.output, b.output)
+        assert a.done and len(a.output) == 6
+    assert set(stats) == set(jstats)
+    assert {k: stats[k] for k in ("requests", "tokens", "buckets")} == {
+        k: jstats[k] for k in ("requests", "tokens", "buckets")}
+    # Per batch: one step per prompt token, then max_new decode steps.
+    # Buckets of 4 and 9 tokens, batches of at most 3 requests.
+    lens = [len(r.prompt) for r in reqs]
+    batches = {n: -(-lens.count(n) // 3) for n in set(lens)}
+    assert eng.decode_steps == sum(b * (n + 6) for n, b in batches.items())
+
+
+def test_generates_requested_tokens():
+    cfg, eng = _engine("qwen3_32b")
+    reqs = synthetic_requests(5, cfg.vocab_size, prompt_lens=(4, 7),
+                              max_new=6)
+    stats = eng.serve(reqs)
+    assert stats["requests"] == 5 and stats["buckets"] == 2
+    assert all(r.done and len(r.output) == 6 for r in reqs)
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.output)
+
+
+def test_batched_matches_single_request():
+    """Lockstep batching must not change any request's greedy output."""
+    cfg, eng = _engine()
+    reqs = synthetic_requests(4, cfg.vocab_size, prompt_lens=(5,), max_new=5)
+    solo = [Request(uid=r.uid, prompt=list(r.prompt),
+                    max_new_tokens=r.max_new_tokens) for r in reqs]
+    eng.serve(reqs)
+    _, eng2 = _engine(max_batch=1)
+    eng2.serve(solo)
+    for a, b in zip(reqs, solo):
+        assert a.output == b.output, (a.uid, a.output, b.output)
+
+
+def test_stop_token_retires_request():
+    cfg, eng = _engine()
+    probe = synthetic_requests(1, cfg.vocab_size, prompt_lens=(4,),
+                               max_new=3, seed=7)
+    eng.serve(probe)
+    stop = probe[0].output[0]
+    _, eng2 = _engine(stop_token=stop)
+    reqs = synthetic_requests(1, cfg.vocab_size, prompt_lens=(4,),
+                              max_new=8, seed=7)
+    eng2.serve(reqs)
+    assert reqs[0].output == [stop]
+
+
+def test_engine_respects_cache_capacity():
+    cfg, eng = _engine(max_len=12)
+    reqs = [Request(uid=0, prompt=[1] * 8, max_new_tokens=100)]
+    eng.serve(reqs)
+    # 8 prompt + generation must stay within max_len - 1.
+    assert len(reqs[0].output) == 12 - 8 - 1
+    with pytest.raises(ValueError, match="max_len"):
+        eng.serve([Request(uid=1, prompt=[1] * 13, max_new_tokens=1)])
+
+
+def _cli(*args):
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args], env=env,
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+
+
+def test_serve_cli_on_cpu_prints_stats():
+    proc = _cli("--arch", "qwen2p5_3b", "--smoke", "--device", "cpu",
+                "--requests", "5", "--max-new", "4", "--prompt-lens", "3,6")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(stats) == {"requests", "tokens", "wall_s", "tok_per_s",
+                          "buckets"}
+    assert stats["requests"] == 5 and stats["tokens"] == 20
+
+
+@pytest.mark.parametrize("args,msg", [
+    (("--mesh", "1x1"), "not ported yet"),
+    (("--arch", "mamba2_130m"), "not ported yet"),
+])
+def test_serve_cli_rejects_what_is_not_ported(args, msg):
+    proc = _cli("--smoke", "--device", "cpu", *args)
+    assert proc.returncode == 2
+    assert msg in proc.stderr

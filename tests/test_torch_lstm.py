@@ -87,7 +87,9 @@ def test_cpu_path_uses_plain_versions_and_counts_no_launch():
     tops.lstm_step(*args)
     tops.batched_cost(torch.ones(3, 8), torch.ones(2, 3), 1.0, 0.0)
     tops.batched_cost_multi(torch.ones(2, 3, 8), torch.ones(2, 3), 1.0, 0.0)
+    tops.decode_attention(torch.ones(1, 4, 16), torch.ones(1, 5, 2, 16),
+                          torch.ones(1, 5, 2, 16))
     assert tops.launch_counts() == {"cost_eval": 0, "cost_eval_multi": 0,
-                                    "lstm_cell": 0}
+                                    "lstm_cell": 0, "flash_decode": 0}
     assert tref.cuda_calls == {"cost_eval_ref": 0, "cost_eval_multi_ref": 0,
-                               "lstm_cell_ref": 0}
+                               "lstm_cell_ref": 0, "flash_decode_ref": 0}
