@@ -27,8 +27,13 @@ and no result line:
 5. Flash-decode kernel vs its plain version (atol 1e-4 in float32 and in
    bfloat16: both read the same values and compute in float32), at the
    LM path's shape (8, 16, 2, 128, T = 520), a 32k cache, the reference's
-   test shapes, ragged T, head dims 16 / 64 / 256, G up to 16, and views
-   ``cache[:, :L]`` of a longer cache.
+   test shapes, ragged T, head dims 16 / 64 / 256, G up to 16, the split
+   plan's edges (a split of one key, one tile + 1 key, T just over a
+   whole number of splits, B * Hkv large enough for one split), the
+   reference's decode_32k batch and length (128, 16, 2, 128, 32768), and
+   views ``cache[:, :L]`` of a longer cache.  A second call on the same
+   inputs must give the same bits, and the combine kernel must launch
+   exactly when the plan has more than one split.
 6. Main path: ``api.run_search`` with method two_stage on mobilenet_v2 at
    full width (LSTM(128), L=12, latency / area / iot / dla, local GA with
    population 20 and 2000 generations), then method ga (population 100,
@@ -58,7 +63,11 @@ and no result line:
    just after: flash_decode must have launched 36 times per
    ``decode_step`` and no plain version may have run on the card.
    (c) tokens/s, ms per decode step against the step's byte bound, and a
-   profiler trace of a few steps (device busy share).
+   profiler trace of a few steps (device busy share, flash-decode device
+   time per attention).  (d) one decode step of B = 8 with the cache at
+   position 32,767 (``init_cache(cfg, 8, 32768)``, no prefill: the
+   kernel reads every byte whatever the cache holds): host ms per step
+   against the step's bound, and flash decode's device ms per step.
 9. Kernel timings with CUDA events at the paths' shapes, printed as one
    ``{"kernels": [...]}`` line.
 
@@ -99,22 +108,31 @@ MULTI_BYTES_PER_POINT = 4 * (8 + 3 + 4)
 BF16_FLOP_PER_S = 989e12
 # Flash-decode shapes (B, Hq, Hkv, D, T) checked against the plain version:
 # the LM path's (qwen2.5-3b, 8 requests, a 520-token prompt), a 32k cache,
-# the reference's test shapes, ragged T, head dims 16 / 64 / 256 and G = 16.
+# the reference's test shapes, ragged T, head dims 16 / 64 / 256, G = 16
+# and G = 12; the split plan's edges on one H100 (132 SMs): T = 513 leaves
+# a last split of one key, T = 33 is one tile + 1 key, T = 2049 is one key
+# over 32 splits of 64 keys, B * Hkv = 288 gives one split; and the
+# reference's decode_32k batch and length (4.3 GB of bf16 cache).
 FLASH_SHAPES = ((8, 16, 2, 128, 520), (8, 16, 2, 128, 32768),
                 (1, 4, 4, 128, 512), (2, 8, 2, 128, 1024),
                 (2, 16, 2, 128, 2048), (1, 8, 1, 256, 512),
                 (2, 8, 2, 128, 1), (3, 8, 2, 128, 37), (2, 8, 2, 128, 700),
-                (2, 4, 4, 16, 37), (2, 16, 16, 64, 65), (1, 32, 2, 256, 129))
-# ... and timed: the path's shape, a decode-32k shape, and the reference's
-# largest test shape.
+                (2, 4, 4, 16, 37), (2, 16, 16, 64, 65), (1, 32, 2, 256, 129),
+                (2, 24, 2, 128, 300), (8, 16, 2, 128, 513),
+                (2, 8, 2, 128, 33), (8, 16, 2, 128, 2049),
+                (144, 8, 2, 64, 100), (128, 16, 2, 128, 32768))
+# ... and timed: the path's shape, a decode-32k length at the path's batch
+# and at the reference's, and the reference's largest test shape.
 FLASH_TIMED = (((8, 16, 2, 128, 520), "bfloat16"),
                ((8, 16, 2, 128, 32768), "bfloat16"),
+               ((128, 16, 2, 128, 32768), "bfloat16"),
                ((2, 16, 2, 128, 2048), "float32"))
 # The LM serving path: the model, the float32 route check, the engine run.
 LM_ARCH = "qwen2p5_3b"
 LM_F32_BATCH, LM_F32_STEPS = 4, 8
 LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW = 16, (16, 520), 16
 LM_MAX_LEN, LM_MAX_BATCH = 1024, 8
+LM_LONG_CACHE = 32768        # phase 8 (d): one step with the cache full
 # The service path: (method, workload, eps, seed, options), all at
 # latency / area / iot / dla, LP.  Requests 1 and 2 are the same query
 # from two users.
@@ -449,30 +467,43 @@ def phase_flash_kernel(dev):
 
     from repro_torch.kernels import flash_decode, ref
 
-    worst = {"float32": 0.0, "bfloat16": 0.0, "cases": 0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "cases": 0, "split_cases": 0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def compare(q, k, v, what):
+        S, _ = flash_decode.plan_splits(q.shape[0], k.shape[2], k.shape[1],
+                                        sms)
+        combines = flash_decode.combine_launches
         got = flash_decode.flash_decode(q, k, v)
+        check(flash_decode.combine_launches - combines == int(S > 1),
+              f"flash-decode on {what}: {S} splits, combine launched "
+              f"{flash_decode.combine_launches - combines} times")
+        again = flash_decode.flash_decode(q, k, v)
         want = ref.flash_decode_ref(q, k, v)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(bool(got.isfinite().all()) and err <= 1e-4,
               f"flash-decode kernel disagrees on {what}: max abs {err}")
+        check(torch.equal(got, again), f"flash-decode on {what}: two calls "
+              "on the same inputs differ")
         key = str(q.dtype).split(".")[-1]
         worst[key] = max(worst[key], err)
         worst["cases"] += 1
+        worst["split_cases"] += S > 1
 
     for i, shape in enumerate(FLASH_SHAPES):
         for dt in (torch.float32, torch.bfloat16):
             compare(*_attn_inputs(shape, dt, dev, i), f"{shape} {dt}")
+            torch.cuda.empty_cache()
     # Views cache[:, :L] of a longer cache, as the decode step passes them.
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = _attn_inputs((8, 16, 2, 128, 1024), dt, dev, 99)
         for L in (1, 300, 520, 1024):
             compare(q, k[:, :L], v[:, :L], f"view [:, :{L}] {dt}")
-    log(f"[flash] kernel == plain on {worst['cases']} cases: max abs err "
-        f"float32 {worst['float32']:.3g}, bfloat16 {worst['bfloat16']:.3g} "
-        "(atol 1e-4)")
+    log(f"[flash] kernel == plain on {worst['cases']} cases "
+        f"({worst['split_cases']} split): max abs err float32 "
+        f"{worst['float32']:.3g}, bfloat16 {worst['bfloat16']:.3g} (atol "
+        "1e-4); two calls bit-equal; combine launched iff split")
     return worst
 
 
@@ -696,8 +727,9 @@ def _step_bound(model, cfg, B, T):
 
 def _device_busy(fn, steps):
     """Device time per call of ``fn`` from a profiler trace of ``steps``
-    calls, the wall time per call, and the three kernels that took most;
-    None where the trace shows no device time."""
+    calls, the wall time per call, the three kernels that took most, and
+    the flash-decode kernels' device time and launches per call (split and
+    combine together); None where the trace shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -716,7 +748,12 @@ def _device_busy(fn, steps):
     if device_us <= 0:
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    flash = [e for e in events if "flash_decode" in e.key]
     return {"device_ms_per_step": device_us / 1e3 / steps,
+            "flash_decode_device_ms_per_step": sum(
+                e.self_device_time_total for e in flash) / 1e3 / steps,
+            "flash_decode_kernels_per_step": sum(e.count for e in flash)
+            / steps,
             "wall_ms_per_step": 1e3 * wall / steps,
             "device_busy_share": device_us / 1e6 / wall,
             "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3
@@ -824,6 +861,10 @@ def phase_lm(dev):
     busy["device_busy_share_unprofiled"] = (busy["device_ms_per_step"]
                                             / steady_ms)
     bound_ms, bound_by, step_bytes = _step_bound(model, cfg, B, T)
+    busy["flash_decode_device_us_per_attention"] = (
+        1e3 * busy["flash_decode_device_ms_per_step"] / cfg.num_layers)
+    del cache
+    long = _long_cache_step(model, cfg, dev)
     timing = {
         "arch": cfg.name, "params": n_params, "dtype": cfg.compute_dtype,
         "requests": stats["requests"], "tokens": stats["tokens"],
@@ -832,14 +873,65 @@ def phase_lm(dev):
         "ms_per_decode_step": 1e3 * stats["wall_s"] / steps,
         "step_ms_at_T520_B8": steady_ms, "step_bound_ms": bound_ms,
         "step_bound_by": bound_by, "step_bytes": step_bytes,
-        "profile": busy,
+        "profile": busy, "long_cache": long,
         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "f32_route_max_abs_diff": f32_err}
     log(f"[lm] launches {json.dumps(counts)}; plain versions on the card "
         f"{json.dumps(plain_on_card)}; {json.dumps(timing)}")
-    del model, cache
+    del model
     torch.cuda.empty_cache()
     return counts, timing
+
+
+def _long_cache_step(model, cfg, dev):
+    """Phase 8 (d): decode steps of B = 8 with the cache at its last
+    position of ``LM_LONG_CACHE``, against the step's bound, and flash
+    decode's device time from a profiler trace."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    B, T = LM_MAX_BATCH, LM_LONG_CACHE - 1
+    cache = lm.init_cache(cfg, B, LM_LONG_CACHE, device=dev)._replace(pos=T)
+    tok = torch.zeros(B, dtype=torch.int64, device=dev)
+    step = lambda: lm.decode_step(model, cfg, cache, tok)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        logits, _ = step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 5
+    counts = ops.launch_counts()
+    check(counts["flash_decode"] == 5 * cfg.num_layers
+          and counts["flash_decode_combine"] == 5 * cfg.num_layers,
+          f"long-cache step: flash-decode launches {counts}")
+    check(bool(logits.isfinite().all()), "long-cache step: logits not "
+          "finite")
+    busy = _device_busy(step, 3)
+    check(busy is not None, "the profiler trace of the long-cache step "
+          "shows no device time")
+    bound_ms, bound_by, step_bytes = _step_bound(model, cfg, B, T)
+    out = {"batch": B, "cache_pos": T, "step_ms": step_ms,
+           "step_bound_ms": bound_ms, "step_bound_by": bound_by,
+           "step_bytes": step_bytes,
+           "cache_gb": 2 * cache.attn_k.numel() * cache.attn_k.element_size()
+           / 1e9,
+           "flash_decode_device_ms_per_step":
+               busy["flash_decode_device_ms_per_step"],
+           "device_ms_per_step": busy["device_ms_per_step"],
+           "device_busy_share_unprofiled": busy["device_ms_per_step"]
+           / step_ms, "top_kernels": busy["top_kernels"]}
+    log(f"[lm] one step at B = {B}, cache at {T}: {step_ms:.3f} ms against "
+        f"a bound of {bound_ms:.3f} ms ({bound_by}); flash decode "
+        f"{out['flash_decode_device_ms_per_step']:.3f} ms of device time "
+        "per step")
+    del cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def _flash_entry(dev, counts, flash_err):
@@ -855,6 +947,7 @@ def _flash_entry(dev, counts, flash_err):
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(
         q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
         enable_gqa=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     by_shape = {}
     for i, (shape, dt_name) in enumerate(FLASH_TIMED):
         B, Hq, Hkv, D, T = shape
@@ -877,10 +970,12 @@ def _flash_entry(dev, counts, flash_err):
             "plain_ms": time_ms_cycle(ref.flash_decode_ref, sets,
                                       max(20, iters // 5)),
             "library_ms": time_ms_cycle(sdpa, sets, iters),
+            "splits": flash_decode.plan_splits(B, Hkv, T, sms)[0],
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_max_abs_diff": lib_err}
         del sets
+        torch.cuda.empty_cache()
     main = by_shape[f"{FLASH_TIMED[0][0]} {FLASH_TIMED[0][1]}"]
     return {
         "name": "flash_decode", "route": "cuda",
@@ -890,6 +985,7 @@ def _flash_entry(dev, counts, flash_err):
         "shape": list(FLASH_TIMED[0][0]), "dtype": FLASH_TIMED[0][1],
         "launches": counts["flash_decode"],
         "launches_per_run": counts["flash_decode"],
+        "combine_launches": counts["flash_decode_combine"],
         "max_abs_err": max(flash_err["float32"], flash_err["bfloat16"]),
         "max_err": max(flash_err["float32"], flash_err["bfloat16"]),
         "max_abs_err_f32": flash_err["float32"],

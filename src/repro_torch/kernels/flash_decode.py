@@ -2,12 +2,18 @@
 
 Replaces the TPU kernel ``repro/kernels/flash_decode.py::flash_decode_padded``
 (body ``_flash_decode_kernel``).  The kernel (``csrc/flash_decode.cu``)
-walks the cache in tiles with the online-softmax recurrence, one thread
-block per (batch row, KV head); its source note says what bounds it on the
-card and what its design does about that.  Unlike the TPU kernel it takes
-any T >= 1: the ragged last tile is cut in the kernel.
+splits the cache across thread blocks (flash-decoding): each block walks
+its share of T in tiles with the online-softmax recurrence and writes a
+partial (acc, m, l) per query row, and a second kernel combines the
+partials in a fixed order.  :func:`plan_splits` chooses how many splits;
+with one split the first kernel writes the output itself.  Its source
+note says what bounds it on the card and what its design does about
+that.  Unlike the TPU kernel it takes any T >= 1: the ragged last tile is
+cut in the kernel.
 
-``launches`` counts the kernel launches made through :func:`flash_decode`.
+``launches`` counts the calls of :func:`flash_decode` that launched the
+kernel (one per attention); ``combine_launches`` counts the combine
+kernel's launches (one per call with more than one split).
 """
 from __future__ import annotations
 
@@ -18,19 +24,54 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+combine_launches = 0
 _fn = None
 
 HEAD_DIMS = (16, 64, 128, 256)
 MAX_GROUP = 16
+TILE = 32            # keys per tile, kTile in csrc/flash_decode.cu
+MAX_SPLITS = 256     # kMaxSplits there
+# Blocks per SM the plan aims for: at (8, 16, 2, 128) bf16 five blocks fit
+# on one SM at once (tools/tune_flash_decode.py times other choices), and
+# the most tiles a split walks when the cache is long.
+BLOCKS_PER_SM = 4
+MAX_SPLIT_TILES = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Checked shapes and their plans, by (dtype, device, shape, stride) of
+# q, k and v; alignment is checked on every call.
+_plans: dict = {}
+_sm_counts: dict = {}
+
+
+def plan_splits(B, Hkv, T, sms):
+    """How to split T keys across blocks: ``(splits, tiles_per_split)``.
+
+    Split s takes keys ``[s * K, min(T, (s + 1) * K))`` with
+    ``K = tiles_per_split * TILE``: the splits cover [0, T) in order,
+    start on a tile, and each has at least one key.  Enough splits to make
+    about ``BLOCKS_PER_SM * sms`` blocks, none when the B * Hkv blocks
+    alone fill ~2 waves of ``sms`` SMs; and, however large B * Hkv, enough
+    that no split walks more than ``MAX_SPLIT_TILES`` tiles, so that a
+    long cache ends in many short blocks and not in a long last wave.  At
+    most one split per tile and at most ``MAX_SPLITS``.
+    """
+    if T < 1 or B * Hkv < 1:
+        raise ValueError(f"plan_splits: needs T >= 1 and B * Hkv >= 1, got "
+                         f"T={T}, B={B}, Hkv={Hkv}")
+    tiles = -(-T // TILE)
+    bh = B * Hkv
+    fill = 1 if bh >= 2 * sms else -(-BLOCKS_PER_SM * sms // bh)
+    want = min(tiles, MAX_SPLITS, max(fill, -(-tiles // MAX_SPLIT_TILES)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("flash_decode").flash_decode_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -49,8 +90,6 @@ def _check(q, k, v):
         if t.dtype != q.dtype:
             raise ValueError(f"flash_decode: {name} is {t.dtype}, q is "
                              f"{q.dtype}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_decode: {name} is not 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_decode: dtype {q.dtype}, expected float32 "
                          "or bfloat16")
@@ -83,22 +122,53 @@ def _check(q, k, v):
     return B, T, Hq, Hkv, D, strides
 
 
+def _plan(q, k, v):
+    """The checked shape and split plan of (q, k, v), from the cache when
+    their dtypes, devices, shapes and strides were seen before."""
+    try:
+        key = tuple((t.dtype, t.device, t.shape, t.stride())
+                    for t in (q, k, v))
+    except AttributeError:          # not a tensor: _check says so
+        key = None
+    plan = _plans.get(key)
+    if plan is None:
+        B, T, Hq, Hkv, D, strides = _check(q, k, v)
+        dev = q.device
+        sms = _sm_counts.get(dev.index)
+        if sms is None:
+            sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        S, per = plan_splits(B, Hkv, T, sms) if B else (1, 1)
+        plan = (B, T, Hq, Hkv, D, strides, S, per * TILE)
+        if len(_plans) > 4096:
+            _plans.clear()
+        _plans[key] = plan
+    return plan
+
+
 def flash_decode(q, k, v):
     """Launch the kernel.  q (B, Hq, D); k, v (B, T, Hkv, D), rows
     contiguous (a view ``cache[:, :T]`` of a longer cache is read in
     place); all float32 or all bfloat16, on one CUDA device.
     Returns (B, Hq, D) float32."""
-    global launches
-    B, T, Hq, Hkv, D, (k_bstride, v_bstride) = _check(q, k, v)
+    global launches, combine_launches
+    B, T, Hq, Hkv, D, (k_bstride, v_bstride), S, keys = _plan(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_decode: {name} is not 16-byte aligned")
     dev = q.device
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    ws = (torch.empty((B, Hq, S, D + 2), dtype=torch.float32, device=dev)
+          if S > 1 else None)
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, T, Hq, Hkv, D, k_bstride, v_bstride,
+                     None if ws is None else ws.data_ptr(),
+                     B, T, Hq, Hkv, D, k_bstride, v_bstride, S, keys,
                      _DTYPES[q.dtype], dev.index,
                      torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: error {rc}")
     launches += 1
+    combine_launches += int(S > 1)
     return out

@@ -109,11 +109,14 @@ def decode_attention(q, k, v):
 
 
 def launch_counts():
-    """Kernel launches so far, by kernel."""
+    """Kernel launches so far, by kernel (``flash_decode`` counts the
+    attention calls, ``flash_decode_combine`` the combine kernel's
+    launches among them)."""
     return {"cost_eval": costmodel_eval.launches,
             "cost_eval_multi": costmodel_eval.multi_launches,
             "lstm_cell": lstm_cell.launches,
-            "flash_decode": flash_decode.launches}
+            "flash_decode": flash_decode.launches,
+            "flash_decode_combine": flash_decode.combine_launches}
 
 
 def reset_launch_counts():
@@ -123,5 +126,6 @@ def reset_launch_counts():
     costmodel_eval.multi_launches = 0
     lstm_cell.launches = 0
     flash_decode.launches = 0
+    flash_decode.combine_launches = 0
     for k in ref.cuda_calls:
         ref.cuda_calls[k] = 0

@@ -114,3 +114,48 @@ def flash_decode_ref(q, k, v):
     w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     w = w / w.sum(dim=-1, keepdim=True)
     return torch.einsum("bhgt,bthd->bhgd", w, v).reshape(B, Hq, D)
+
+
+def flash_decode_partials_ref(q, k, v, keys_per_split):
+    """Plain version of the split kernel's partials: split s takes keys
+    ``[s * keys_per_split, (s + 1) * keys_per_split)`` cut at T and gives,
+    per query row, its unnormalised ``acc`` (D values), its max logit ``m``
+    and its sum of ``exp(logit - m)``, ``l``.  Returns (B, Hq, S, D + 2)
+    float32, the layout of the kernel's workspace.  For tests and
+    ``chip_smoke.py`` only."""
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    B, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    parts = []
+    for t0 in range(0, T, keys_per_split):
+        ks, vs = k[:, t0:t0 + keys_per_split], v[:, t0:t0 + keys_per_split]
+        logits = torch.einsum("bhgd,bthd->bhgt", qg, ks) / math.sqrt(D)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        acc = torch.einsum("bhgt,bthd->bhgd", p, vs)
+        parts.append(torch.cat([acc, m, p.sum(dim=-1, keepdim=True)], -1)
+                     .reshape(B, Hq, 1, D + 2))
+    return torch.cat(parts, dim=2)
+
+
+def flash_decode_combine_ref(parts):
+    """Plain version of the combine kernel: (B, Hq, S, D + 2) partials ->
+    (B, Hq, D), each split rescaled by ``exp(m_s - M)`` and summed in the
+    order s = 0, 1, ..., then divided by the total ``l``."""
+    D = parts.shape[-1] - 2
+    m = parts[..., D]
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))      # (B, Hq, S)
+    acc = torch.zeros_like(parts[:, :, 0, :D])
+    total = torch.zeros_like(m[:, :, 0])
+    for s in range(parts.shape[2]):
+        acc = acc + w[:, :, s, None] * parts[:, :, s, :D]
+        total = total + w[:, :, s] * parts[:, :, s, D + 1]
+    return acc / total[..., None]
+
+
+def flash_decode_split_ref(q, k, v, keys_per_split):
+    """Split-and-combine in plain PyTorch: the kernel's algorithm, equal to
+    :func:`flash_decode_ref` up to the order of the sums."""
+    return flash_decode_combine_ref(
+        flash_decode_partials_ref(q, k, v, keys_per_split))

@@ -208,16 +208,42 @@ def _attn_inputs(B, Hq, Hkv, D, T, dt, dev, seed=0):
     (8, 16, 2, 128, 520), (2, 8, 2, 128, 1), (3, 8, 2, 128, 37),
     (2, 8, 2, 128, 700),                       # ragged T
     (2, 4, 4, 16, 37), (2, 16, 16, 64, 65), (1, 32, 2, 256, 129),
+    # Split edges: a split of one key (T = 513), one tile + 1 key, T just
+    # over a whole number of splits, and B * Hkv large enough for S = 1.
+    (8, 16, 2, 128, 513), (2, 8, 2, 128, 33), (8, 16, 2, 128, 2049),
+    (144, 8, 2, 64, 100), (2, 24, 2, 128, 300),
 ])
 def test_flash_decode_kernel_matches_plain(dev, dt, B, Hq, Hkv, D, T):
     q, k, v = _attn_inputs(B, Hq, Hkv, D, T, dt, dev)
+    S, per = flash_decode.plan_splits(
+        B, Hkv, T, torch.cuda.get_device_properties(dev).multi_processor_count)
     ops.reset_launch_counts()
     got = ops.decode_attention(q, k, v)
     assert ops.launch_counts()["flash_decode"] == 1
+    assert ops.launch_counts()["flash_decode_combine"] == int(S > 1)
     assert ref.cuda_calls["flash_decode_ref"] == 0
     want = ref.flash_decode_ref(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (B, Hq, D)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(
+        got, ref.flash_decode_split_ref(q, k, v, per * flash_decode.TILE),
+        rtol=0, atol=1e-5)
+    assert torch.equal(got, ops.decode_attention(q, k, v))   # same bits
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_at_decode_32k_batch(dev, dt):
+    """The reference's decode_32k batch and length (128, 32768): 4.3 GB of
+    bf16 cache; the split plan still holds the result to the plain
+    version, and two calls give the same bits."""
+    B, Hq, Hkv, D, T = 128, 16, 2, 128, 32768
+    q, k, v = _attn_inputs(B, Hq, Hkv, D, T, dt, dev, seed=5)
+    got = flash_decode.flash_decode(q, k, v)
+    again = flash_decode.flash_decode(q, k, v)
+    want = ref.flash_decode_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 

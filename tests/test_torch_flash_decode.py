@@ -5,7 +5,10 @@ tensors the port runs the kernel's plain version
 (``ref.flash_decode_ref``); the JAX side runs its Pallas flash-decode
 kernel in interpret mode where it takes the shape (T % 512 == 0) and its
 jnp reference elsewhere.  Tolerance: atol 1e-4, the bound the reference
-holds its own kernel to (tests/test_kernels.py).
+holds its own kernel to (tests/test_kernels.py).  The CUDA kernel's split
+plan (``flash_decode.plan_splits``) and its split-and-combine algorithm
+(``ref.flash_decode_split_ref``) are held to the same references here;
+the kernel itself runs only on the card (tests/test_torch_cuda.py).
 """
 import numpy as np
 import pytest
@@ -95,3 +98,103 @@ def test_decode_attention_rejects_mixed_devices():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 16, 5))
     with pytest.raises(ValueError, match="more than one device"):
         tops.decode_attention(q, k.to("meta"), v)
+
+
+# ---------------------------------------------------------------------------
+# The split plan and the split-and-combine algorithm of the CUDA kernel.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("B,Hkv", [(1, 1), (8, 2), (2, 16), (128, 2),
+                                   (144, 2), (300, 4)])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 100, 513, 520, 2049, 32768,
+                               10**6])
+def test_plan_splits_covers_the_cache_in_tiles(B, Hkv, T, sms):
+    S, per = flash_decode.plan_splits(B, Hkv, T, sms)
+    keys = per * flash_decode.TILE
+    tiles = -(-T // flash_decode.TILE)
+    bh = B * Hkv
+    starts = [s * keys for s in range(S)]
+    ends = [min(T, st + keys) for st in starts]
+    # In order, tile-aligned, each split non-empty, together exactly [0, T).
+    assert starts[0] == 0 and ends[-1] == T
+    assert all(e == s2 for e, s2 in zip(ends, starts[1:]))
+    assert all(st % flash_decode.TILE == 0 for st in starts)
+    assert all(e > st for st, e in zip(starts, ends))
+    # Bounded: at most one split per tile and MAX_SPLITS; a split walks at
+    # most MAX_SPLIT_TILES tiles unless MAX_SPLITS splits cannot hold T so;
+    # the blocks stay within ~BLOCKS_PER_SM waves, or within that cap's count.
+    assert 1 <= S <= min(tiles, flash_decode.MAX_SPLITS)
+    assert per <= max(flash_decode.MAX_SPLIT_TILES,
+                      -(-tiles // flash_decode.MAX_SPLITS))
+    assert bh * S <= max(flash_decode.BLOCKS_PER_SM * sms + bh,
+                         bh * -(-tiles // flash_decode.MAX_SPLIT_TILES))
+    if T <= flash_decode.TILE:
+        assert S == 1
+    if bh >= 2 * sms and tiles <= flash_decode.MAX_SPLIT_TILES:
+        assert S == 1
+
+
+def test_plan_splits_at_the_paths_shapes():
+    """One H100 (132 SMs): one tile per split at the LM path's cache of
+    520 keys, and 32 splits of 1,024 keys at a 32k cache."""
+    assert flash_decode.plan_splits(8, 2, 520, 132) == (17, 1)
+    assert flash_decode.plan_splits(8, 2, 32768, 132) == (32, 32)
+    assert flash_decode.plan_splits(128, 2, 32768, 132) == (32, 32)
+    assert flash_decode.plan_splits(144, 2, 100, 132) == (1, 4)
+    with pytest.raises(ValueError, match="T >= 1"):
+        flash_decode.plan_splits(1, 2, 0, 132)
+
+
+def _split_ref(q, k, v, keys_per_split):
+    return tref.flash_decode_split_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)), keys_per_split)
+
+
+# The reference kernel's own test shapes, against its Pallas kernel.
+@pytest.mark.parametrize("B,Hq,Hkv,D,T", [
+    (1, 4, 4, 128, 512), (2, 8, 2, 128, 1024), (2, 16, 2, 128, 2048),
+    (1, 8, 1, 256, 512),
+])
+def test_split_and_combine_matches_reference_kernel(B, Hq, Hkv, D, T):
+    q, k, v = _inputs(B, Hq, Hkv, D, T)
+    want = np.asarray(jops.decode_attention(q, k, v, use_kernel=True))
+    S, per = flash_decode.plan_splits(B, Hkv, T, 132)
+    for keys in {per * flash_decode.TILE, flash_decode.TILE, 96, T}:
+        got = _split_ref(q, k, v, keys)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("T", [1, 33, 37, 513, 700])
+@pytest.mark.parametrize("B,Hq,Hkv,D", [(2, 8, 2, 64), (1, 16, 1, 16),
+                                        (3, 12, 1, 64)])
+def test_split_and_combine_ragged_matches_reference_oracle(B, Hq, Hkv, D, T):
+    q, k, v = _inputs(B, Hq, Hkv, D, T, seed=4)
+    want = np.asarray(jref.flash_decode_ref(q, k, v))
+    _, per = flash_decode.plan_splits(B, Hkv, T, 132)
+    got = _split_ref(q, k, v, per * flash_decode.TILE)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    # A last split of one key (T - 1 keys before it) changes nothing.
+    if T > 1:
+        got1 = _split_ref(q, k, v, T - 1)
+        np.testing.assert_allclose(got1.numpy(), want, atol=1e-4)
+
+
+def test_partials_hold_each_splits_max_and_sum():
+    """One split's partial is the whole softmax's: acc / l is the output,
+    m the largest scaled logit, l the sum of exp(logit - m)."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 8, 2, 64, 50, seed=5))
+    parts = tref.flash_decode_partials_ref(q, k, v, 64)
+    assert parts.shape == (2, 8, 1, 66) and parts.dtype == torch.float32
+    D = 64
+    logits = torch.einsum("bhgd,bthd->bhgt", q.reshape(2, 2, 4, D), k) / 8.0
+    m = logits.amax(-1).reshape(2, 8)
+    torch.testing.assert_close(parts[:, :, 0, D], m)
+    torch.testing.assert_close(
+        parts[:, :, 0, D + 1],
+        torch.exp(logits - logits.amax(-1, keepdim=True)).sum(-1)
+        .reshape(2, 8))
+    torch.testing.assert_close(parts[:, :, 0, :D] / parts[:, :, 0, D + 1:],
+                               tref.flash_decode_ref(q, k, v), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(tref.flash_decode_combine_ref(parts),
+                       tref.flash_decode_combine_ref(parts.clone()))

@@ -90,6 +90,7 @@ def test_cpu_path_uses_plain_versions_and_counts_no_launch():
     tops.decode_attention(torch.ones(1, 4, 16), torch.ones(1, 5, 2, 16),
                           torch.ones(1, 5, 2, 16))
     assert tops.launch_counts() == {"cost_eval": 0, "cost_eval_multi": 0,
-                                    "lstm_cell": 0, "flash_decode": 0}
+                                    "lstm_cell": 0, "flash_decode": 0,
+                                    "flash_decode_combine": 0}
     assert tref.cuda_calls == {"cost_eval_ref": 0, "cost_eval_multi_ref": 0,
                                "lstm_cell_ref": 0, "flash_decode_ref": 0}
