@@ -13,7 +13,10 @@ and no result line:
    two kernels) and print the build seconds.
 3. Cost kernel vs its plain version on the card (rtol 1e-5, atol 1e-2):
    every paper workload x 3 dataflows x the 12 x 12 level grid, random raw
-   points at (4096, 53), ragged shapes (1, 1), (3, 7), (13, 130).
+   points at (4096, 53), ragged shapes (1, 1), (3, 7), (13, 130); each
+   case also with the kernel reading its operands broadcast ((144, 1)
+   columns and a dataflow by value) or strided (a column slice and
+   transposed arrays) against the plain version on the dense inputs.
    Then the per-row cost kernel vs its plain version (rtol 1e-5, atol
    1e-2): the six paper workloads as ragged rows padded with repeat = 0
    rows x 3 dataflows x random level points, random raw points at
@@ -21,9 +24,12 @@ and no result line:
    batch of 512 on mobilenet_v2), ragged (1, 1), (3, 7), (13, 130);
    padding rows exactly 0, and rows of one workload bit-equal to the
    single-table kernel.
-4. LSTM kernel vs its plain version (atol 1e-5) at the repo's shapes, and
-   the kernel's autograd Function against autograd through the plain
-   version (atol 1e-5).
+4. LSTM kernels vs their plain versions (atol 1e-5) at ``LSTM_SHAPES``:
+   the forward's h', c' and the gates it saves for the backward, the
+   backward kernel from those gates (against the plain version in its
+   signature and against the one that recomputes the gates; a second
+   call must give the same bits), and the autograd Function against
+   autograd through the plain version.
 5. Flash-decode kernel vs its plain version (atol 1e-4 in float32 and in
    bfloat16: both read the same values and compute in float32), at the
    LM path's shape (8, 16, 2, 128, T = 520), a 32k cache, the reference's
@@ -39,10 +45,14 @@ and no result line:
    population 20 and 2000 generations), then method ga (population 100,
    5000 generations).  Only the epoch count is cut (the paper uses 5000).
    Every launch counter is set to 0 just before and read just after; each
-   kernel must have launched as often as the run implies, and no plain
-   version may have run on the card.  Each outcome must be feasible, have
-   a monotone history of length eps, and its best re-scored by the plain
-   version on the CPU must match best_value (rtol 1e-5).
+   kernel must have launched as often as the run implies (the LSTM
+   backward kernel once per forward step), and no plain version may have
+   run on the card.  Each outcome must be feasible, have a monotone
+   history of length eps, and its best re-scored by the plain version on
+   the CPU must match best_value (rtol 1e-5).  Then, outside the counted
+   run, profiler traces of 3 stage-1 epochs and 20 local-GA generations
+   (``search_traces``): the device's busy share, device events per epoch
+   and per generation, and device time by kernel.
 7. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
    ``SERVICE_REQUESTS``) run serially through ``api.run_search`` on the
    card, then submitted together to
@@ -68,8 +78,14 @@ and no result line:
    position 32,767 (``init_cache(cfg, 8, 32768)``, no prefill: the
    kernel reads every byte whatever the cache holds): host ms per step
    against the step's bound, and flash decode's device ms per step.
-9. Kernel timings with CUDA events at the paths' shapes, printed as one
-   ``{"kernels": [...]}`` line.
+9. Kernel timings at the paths' shapes: CUDA-event ms per call, and
+   device µs per launch from a profiler trace of back-to-back calls
+   (``search_kernel_times`` for the search path's calls: the cost kernel
+   at the rollout's (1, 1) and at (20, 53), the LSTM forward, and its
+   backward both alone and under autograd), printed as one
+   ``{"kernels": [...]}`` line.  ``tools/profile_search_kernels.py`` runs
+   the same search-path measurements on another tree, such as a parent
+   commit.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the JAX package.
@@ -96,6 +112,14 @@ COST_OPS_PER_POINT = 224
 # Float32 operations per hidden unit in the LSTM tail (3 sigmoids at 4,
 # 2 tanh at 1, 4 bias adds, 2 sums of partial products, c' and h').
 LSTM_TAIL_OPS_PER_UNIT = 24
+# ... and per hidden unit in the backward's elementwise pass (dc_tot, the
+# four gate derivatives, dc), counted from csrc/lstm_cell.cu.
+LSTM_BWD_TAIL_OPS_PER_UNIT = 24
+# LSTM shapes (B, I, H) checked against the plain versions: the search's
+# step, a batch of 64 (several forward blocks, several backward chunks),
+# a ragged I, a wide I, H = 256.
+LSTM_SHAPES = ((1, 10, 128), (64, 10, 128), (8, 11, 128), (16, 130, 128),
+               (3, 10, 256))
 # The main path's size: stage-1 epochs (= eps; the paper uses 5000, this
 # is the only cut), local-GA generations of the two-stage run, and the
 # baseline GA's generations at population 100.
@@ -232,8 +256,11 @@ def phase_cost_kernel(dev):
 
     worst = {"abs": 0.0, "rel": 0.0, "points": 0}
 
-    def compare(layers_t, pe, kt, df, what):
-        got = costmodel_eval.cost_eval(layers_t, pe, kt, df)
+    def compare(layers_t, pe, kt, df, what, forms=None):
+        """The kernel on ``forms`` (the same values broadcast, strided or
+        by value; default the dense inputs) against the plain version on
+        the dense (B, N) inputs."""
+        got = costmodel_eval.cost_eval(layers_t, *(forms or (pe, kt, df)))
         want = ref.cost_eval_ref(layers_t, pe, kt, df)
         torch.cuda.synchronize()
         for g, w, field in zip(got, want, ("lat", "en", "area", "pw")):
@@ -258,8 +285,12 @@ def phase_cost_kernel(dev):
         kt = torch.tensor(np.tile(kt_g.reshape(-1, 1), (1, N)),
                           dtype=torch.float32, device=dev)
         for df in range(3):
-            compare(lt, pe, kt, torch.full_like(pe, float(df)),
-                    f"{name} df={df}")
+            dense = (pe, kt, torch.full_like(pe, float(df)))
+            compare(lt, *dense, f"{name} df={df}")
+            # The level grid's pe and kt are constant along N: (144, 1)
+            # columns and a dataflow by value, as the searches pass them.
+            compare(lt, *dense, f"{name} df={df} broadcast",
+                    forms=(pe[:, :1], kt[:, :1], float(df)))
 
     rng = np.random.default_rng(0)
     mobilenet = layers_lib.layers_to_array(workloads.get_workload(
@@ -269,11 +300,17 @@ def phase_cost_kernel(dev):
         arr = _rand_layers(rng, N) if arr is None else arr
         f = lambda lo, hi: torch.tensor(rng.integers(lo, hi, (B, N)),
                                         dtype=torch.float32, device=dev)
-        compare(_layers_table(arr, dev), f(1, 161), f(1, 17), f(0, 3),
-                f"random ({B}, {N})")
-    log(f"[cost] kernel == plain on {worst['points']} points: max abs err "
-        f"{worst['abs']:.6g}, max rel err {worst['rel']:.3g} "
-        "(rtol 1e-5, atol 1e-2)")
+        dense = (f(1, 161), f(1, 17), f(0, 3))
+        compare(_layers_table(arr, dev), *dense, f"random ({B}, {N})")
+        # Strided: every other column of a wider array, and transposes.
+        wide = dense[0].repeat_interleave(2, dim=1)
+        compare(_layers_table(arr, dev), *dense,
+                f"random ({B}, {N}) strided",
+                forms=(wide[:, ::2], dense[1].T.contiguous().T,
+                       dense[2].T.contiguous().T))
+    log(f"[cost] kernel == plain on {worst['points']} points (half of them "
+        f"read broadcast or strided): max abs err {worst['abs']:.6g}, max "
+        f"rel err {worst['rel']:.3g} (rtol 1e-5, atol 1e-2)")
     return worst
 
 
@@ -411,39 +448,56 @@ def _lstm_inputs(B, I, H, dev, seed):
 
 
 def phase_lstm_kernel(dev):
+    """The LSTM forward and backward kernels against their plain versions
+    (atol 1e-5) at ``LSTM_SHAPES``: the forward's h', c' and its saved
+    gates, the backward from those gates (against the plain version in its
+    signature and the one that recomputes the gates), two backward calls
+    bit-equal, and the autograd Function against autograd through the
+    plain version."""
     import torch
 
     from repro_torch.kernels import lstm_cell, ref
 
-    worst = {"fwd": 0.0, "grad": 0.0}
-    for k, (B, I, H) in enumerate(((1, 10, 128), (64, 10, 128),
-                                   (8, 11, 128), (16, 130, 128),
-                                   (3, 10, 256))):
-        args = _lstm_inputs(B, I, H, dev, seed=k)
-        got = lstm_cell.lstm_cell(*args)
-        want = ref.lstm_cell_ref(*args)
+    worst = {"fwd": 0.0, "gates": 0.0, "bwd": 0.0, "grad": 0.0}
+
+    def err(got, want, what, key):
         for g, w in zip(got, want):
-            err = float((g - w).abs().max())
-            check(err <= 1e-5, f"LSTM kernel disagrees at {(B, I, H)}: {err}")
-            worst["fwd"] = max(worst["fwd"], err)
-        leaves = [a.clone().requires_grad_() for a in args]
-        leaves_ref = [a.clone().requires_grad_() for a in args]
-        h2, c2 = lstm_cell.LSTMCellFn.apply(*leaves)
-        h3, c3 = ref.lstm_cell_ref(*leaves_ref)
+            e = float((g - w).abs().max()) if g.numel() else 0.0
+            check(bool(g.isfinite().all()) and e <= 1e-5,
+                  f"LSTM {what} disagrees: max abs {e}")
+            worst[key] = max(worst[key], e)
+
+    for k, (B, I, H) in enumerate(LSTM_SHAPES):
+        args = _lstm_inputs(B, I, H, dev, seed=k)
+        out = lstm_cell.lstm_cell(*args)
+        h2, c2, gates = out[0], out[1], out[2:]
+        err((h2, c2), ref.lstm_cell_ref(*args), f"forward at {(B, I, H)}",
+            "fwd")
+        err((gates,), ref.lstm_cell_saved_ref(*args)[2:],
+            f"saved gates at {(B, I, H)}", "gates")
         gen = torch.Generator(device=dev)
         gen.manual_seed(100 + k)
         dh, dc = (torch.randn((B, H), generator=gen, device=dev)
                   for _ in range(2))
-        g_kernel = torch.autograd.grad((h2, c2), leaves, (dh, dc))
-        g_plain = torch.autograd.grad((h3, c3), leaves_ref, (dh, dc))
-        for name, g, w in zip(("x", "h", "c", "wx", "wh", "b"), g_kernel,
-                              g_plain):
-            err = float((g - w).abs().max())
-            check(err <= 1e-5, f"LSTM gradient d{name} disagrees at "
-                  f"{(B, I, H)}: {err}")
-            worst["grad"] = max(worst["grad"], err)
-    log(f"[lstm] kernel == plain: max abs err forward {worst['fwd']:.3g}, "
-        f"gradient {worst['grad']:.3g} (atol 1e-5)")
+        bwd = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
+        again = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
+        err(bwd, ref.lstm_cell_bwd_saved_ref(*args[:5], gates, dh, dc),
+            f"backward at {(B, I, H)}", "bwd")
+        err(bwd, ref.lstm_cell_bwd_ref(*args, dh, dc),
+            f"backward vs the recomputing formula at {(B, I, H)}", "bwd")
+        check(all(torch.equal(a, b) for a, b in zip(bwd, again)),
+              f"LSTM backward at {(B, I, H)}: two calls differ")
+        leaves = [a.clone().requires_grad_() for a in args]
+        leaves_ref = [a.clone().requires_grad_() for a in args]
+        out_k = lstm_cell.LSTMCellFn.apply(*leaves)
+        out_p = ref.lstm_cell_ref(*leaves_ref)
+        err(torch.autograd.grad(out_k, leaves, (dh, dc)),
+            torch.autograd.grad(out_p, leaves_ref, (dh, dc)),
+            f"gradient through LSTMCellFn at {(B, I, H)}", "grad")
+    log(f"[lstm] kernels == plain: max abs err forward {worst['fwd']:.3g}, "
+        f"saved gates {worst['gates']:.3g}, backward {worst['bwd']:.3g}, "
+        f"gradient through LSTMCellFn {worst['grad']:.3g} (atol 1e-5); two "
+        "backward calls bit-equal")
     return worst
 
 
@@ -579,7 +633,12 @@ def phase_main_path(epochs, ga_generations):
     check(counts["lstm_cell"] >= N * epochs,
           f"LSTM kernel launched {counts['lstm_cell']} times, fewer than "
           f"{N} x {epochs}")
-    check(all(v == 0 for v in plain_on_card.values()),
+    # Stage 1 is the run's only LSTM user: one backward launch per step.
+    check(counts["lstm_cell_bwd"] == counts["lstm_cell"],
+          f"LSTM backward kernel launched {counts['lstm_cell_bwd']} times "
+          f"for {counts['lstm_cell']} forward steps")
+    check(plain_on_card["lstm_cell_bwd_ref"] == 0
+          and all(v == 0 for v in plain_on_card.values()),
           f"a plain version ran on the card: {plain_on_card}")
     for out, eps in ((out_two, epochs), (out_ga, ga.eps)):
         _check_outcome(out, eps)
@@ -599,6 +658,17 @@ def phase_main_path(epochs, ga_generations):
               "ga_s": t2 - t1, "ga_generations_baseline": ga_gens}
     log(f"[main] launches {json.dumps(counts)}; plain versions on the card "
         f"{json.dumps(plain_on_card)}; {json.dumps(timing)}")
+    # Traces of a few epochs and generations, after the counted run.
+    traces = search_traces(torch.device("cuda", 0))
+    for name, tr in traces.items():
+        log(f"[main] trace of {tr['calls']} x {name}: "
+            f"{tr['unprofiled_ms']:.3f} ms each unprofiled, device "
+            f"{tr['device_us_per_call'] / 1e3:.3f} ms, busy "
+            f"{100 * tr['device_busy_share_unprofiled']:.1f}% of the "
+            f"unprofiled time, {tr['launches_per_call']:.1f} device events "
+            f"each; by kernel (µs, launches each): "
+            f"{json.dumps(tr['kernels'][:8])}")
+    timing["traces"] = traces
     return counts, timing
 
 
@@ -758,6 +828,180 @@ def _device_busy(fn, steps):
             "device_busy_share": device_us / 1e6 / wall,
             "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3
                              / steps, e.count // steps] for e in top]}
+
+
+def _kernel_trace(fn, calls):
+    """A profiler trace of ``calls`` back-to-back calls of ``fn``: wall and
+    device time per call, the device's busy share of the (profiled) wall
+    time, device events (kernels, copies, fills) per call, and each
+    kernel's device µs and launches per call by name, largest first; None
+    where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd
+              .DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        return None
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)
+    return {"calls": calls, "wall_ms_per_call": 1e3 * wall / calls,
+            "device_us_per_call": device_us / calls,
+            "device_busy_share": device_us / 1e6 / wall,
+            "launches_per_call": sum(e.count for e in events) / calls,
+            "kernels": [[e.key[:90], e.self_device_time_total / calls,
+                         e.count / calls] for e in rows]}
+
+
+def _per_launch_us(trace, name):
+    """Device µs per launch of the kernels whose name holds ``name`` in a
+    :func:`_kernel_trace`, and their launches per call; (None, 0) if none
+    ran."""
+    rows = [r for r in trace["kernels"] if name in r[0]]
+    n = sum(r[2] for r in rows)
+    return (sum(r[1] for r in rows) / n if n else None), n
+
+
+# Kernel names in a trace, and the search path's timed calls.
+COST_KERNEL, LSTM_KERNEL, LSTM_BWD_KERNEL = ("cost_eval_kernel",
+                                             "lstm_cell_kernel",
+                                             "lstm_cell_bwd_kernel")
+SEARCH_TRACE_CALLS = 200
+
+
+def search_kernel_calls(dev):
+    """The search path's kernel calls at its shapes, through the wrappers
+    that every tree of the port has: name -> (fn, kernel name, CUDA-event
+    iterations).  ``cost_eval 1x1`` is the rollout's per-step call (E = 1,
+    one layer's row); ``cost_eval 20x53`` the kernel's wrapper on
+    contiguous (B, N) inputs, the shape of PERF.md's kernel table;
+    ``table_cost 20x53`` a local-GA generation's call ((P, N) genomes, the
+    frozen (N,) dataflow row); the LSTM forward's wrapper at (1, 10, 128)
+    (h', c' and the saved gates, as stage 1 calls it), the step under
+    autograd, and its backward (``torch.autograd.grad`` over a kept
+    graph)."""
+    import torch
+
+    from repro_torch.costmodel import layers as layers_lib
+    from repro_torch.costmodel import workloads
+    from repro_torch.kernels import costmodel_eval, lstm_cell, ops
+
+    arr = layers_lib.layers_to_array(workloads.get_workload("mobilenet_v2"))
+    N = arr.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    pts = lambda hi, B, n: torch.randint(1, hi, (B, n), generator=gen,
+                                         device=dev).to(torch.float32)
+    row = torch.as_tensor(arr[17], dtype=torch.float32,
+                          device=dev)[:, None]
+    pe1, kt1, df1 = pts(161, 1, 1), pts(17, 1, 1), torch.zeros((1, 1),
+                                                              device=dev)
+    lt = _layers_table(arr, dev)
+    pe, kt = pts(161, 20, N), pts(17, 20, N)
+    df = torch.zeros((20, N), device=dev)
+    df_row = torch.zeros((N,), device=dev)
+    x, h, c, wx, wh, b = _lstm_inputs(1, 10, 128, dev, seed=7)
+    leaves = [a.clone().requires_grad_() for a in (x, h, c, wx, wh, b)]
+    outs = ops.lstm_step(*leaves)
+    up = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    return {
+        "cost_eval 1x1": (lambda: ops.table_cost(row, pe1, kt1, df1),
+                          COST_KERNEL, 2000),
+        "cost_eval 20x53": (lambda: costmodel_eval.cost_eval(lt, pe, kt, df),
+                            COST_KERNEL, 2000),
+        "table_cost 20x53": (lambda: ops.table_cost(lt, pe, kt, df_row),
+                             COST_KERNEL, 2000),
+        "lstm_cell 1x10x128": (lambda: lstm_cell.lstm_cell(x, h, c, wx, wh,
+                                                           b),
+                               LSTM_KERNEL, 2000),
+        "lstm_step autograd 1x10x128": (lambda: ops.lstm_step(*leaves),
+                                        LSTM_KERNEL, 2000),
+        "lstm_cell_bwd 1x10x128": (lambda: torch.autograd.grad(
+            outs, leaves, up, retain_graph=True), LSTM_BWD_KERNEL, 500),
+    }
+
+
+def search_kernel_times(dev, calls=SEARCH_TRACE_CALLS):
+    """:func:`search_kernel_calls` timed: CUDA-event ms per call, and from
+    a profiler trace of ``calls`` calls the device µs and device events per
+    call, and the named kernel's device µs per launch (None where the tree
+    has no such kernel)."""
+    out = {}
+    for name, (fn, kernel, iters) in search_kernel_calls(dev).items():
+        ms = time_ms(fn, iters)
+        trace = _kernel_trace(fn, calls)
+        check(trace is not None, f"the profiler trace of {name} shows no "
+              "device time")
+        us, n = _per_launch_us(trace, kernel)
+        out[name] = {"ms": ms, "device_us_per_call":
+                     trace["device_us_per_call"],
+                     "launches_per_call": trace["launches_per_call"],
+                     "kernel_device_us_per_launch": us,
+                     "kernel_launches_per_call": n,
+                     "kernels": trace["kernels"][:4]}
+    return out
+
+
+def search_traces(dev, epochs=3, generations=20):
+    """Phase 6's traces: ``epochs`` stage-1 epochs (mobilenet_v2, LSTM(128),
+    latency / area / iot / dla, E = 1) and ``generations`` local-GA
+    generations (population 20) from the epochs' best, each after a
+    warm-up: unprofiled ms per epoch / generation, and from a profiler
+    trace the device's busy share of it, device events per epoch /
+    generation, and device time by kernel."""
+    from repro_torch import api
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import ga as ga_lib
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core import reinforce
+    from repro_torch.costmodel import workloads
+    from repro_torch.training import optim
+
+    ecfg = api.EnvConfig(objective="latency", constraint="area",
+                         platform="iot", dataflow=0, levels=12)
+    env = env_lib.make_env(workloads.get_workload("mobilenet_v2"), ecfg,
+                           dev)
+    pcfg = policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim, mix=ecfg.mix,
+                                   levels=ecfg.levels)
+    rcfg = reinforce.ReinforceConfig()
+    opt = optim.Adam(lr=rcfg.lr)
+    st = [reinforce.init_search(env, ecfg, pcfg, rcfg, opt)]
+    epoch_fn = reinforce.make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+
+    def epoch():
+        st[0], _ = epoch_fn(st[0])
+
+    pe, kt, df = reinforce.solution_arrays(st[0], env)
+    engine = ga_lib.make_local_ga_engine(env, ecfg, pe, kt, df,
+                                         ga_lib.LocalGAConfig())
+    gs = [engine.init_carry(0)]
+
+    def generation():
+        gs[0], _ = engine.evolve(gs[0], engine.fitness(gs[0].pop))
+
+    out = {}
+    for name, fn, n in (("stage1_epoch", epoch, epochs),
+                        ("local_ga_generation", generation, generations)):
+        for _ in range(2):
+            fn()
+        ms = time_ms(fn, n, warmup=0)
+        trace = _kernel_trace(fn, n)
+        check(trace is not None, f"the profiler trace of {name} shows no "
+              "device time")
+        trace["unprofiled_ms"] = ms
+        trace["device_busy_share_unprofiled"] = (
+            trace["device_us_per_call"] / 1e3 / ms)
+        out[name] = trace
+    return out
 
 
 def phase_lm(dev):
@@ -965,7 +1209,14 @@ def _flash_entry(dev, counts, flash_err):
               f"with the kernel at {shape}: {lib_err}")
         iters = 50 if T > 4096 else 500
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S
+        trace = _kernel_trace(
+            lambda: flash_decode.flash_decode(q, k, v), SEARCH_TRACE_CALLS
+            if T <= 4096 else 20)
+        check(trace is not None, f"the profiler trace of flash decode at "
+              f"{shape} shows no device time")
         by_shape[f"{shape} {dt_name}"] = {
+            "device_us_per_call": sum(
+                r[1] for r in trace["kernels"] if "flash_decode" in r[0]),
             "ms": time_ms_cycle(flash_decode.flash_decode, sets, iters),
             "plain_ms": time_ms_cycle(ref.flash_decode_ref, sets,
                                       max(20, iters // 5)),
@@ -991,6 +1242,7 @@ def _flash_entry(dev, counts, flash_err):
         "max_abs_err_f32": flash_err["float32"],
         "max_abs_err_bf16": flash_err["bfloat16"],
         "ms": main["ms"], "kernel_ms": main["ms"],
+        "device_us_per_call": main["device_us_per_call"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention"
@@ -998,7 +1250,17 @@ def _flash_entry(dev, counts, flash_err):
         "by_shape": by_shape}
 
 
+def _bound(nbytes, nops):
+    """(bound ms, "bytes" or "operations") at the card's peak rates."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
+    """Phase 9: each search kernel at the main path's shapes: CUDA-event ms
+    per call, device µs per launch from a profiler trace, the bound, the
+    plain version's and the library call's ms."""
     import numpy as np
     import torch
 
@@ -1010,6 +1272,8 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
     N = arr.shape[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
+    search = search_kernel_times(dev)
+    log(f"[timings] search path: {json.dumps(search)}")
 
     def cost_args(B, n):
         lt = _layers_table(arr[:n], dev)
@@ -1024,8 +1288,7 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
                                        2000)
     a = cost_args(20, N)
     B = 20
-    cost_bytes = 4 * (3 * B * N + 4 * B * N + 8 * N)
-    cost_ops = COST_OPS_PER_POINT * B * N
+    cost_main = search["cost_eval 20x53"]
     cost_entry = {
         "name": "cost_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/costmodel_eval.cu",
@@ -1035,27 +1298,26 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
         "launches_per_run": counts["cost_eval"],
         "max_abs_err": cost_err["abs"], "max_err": cost_err["abs"],
         "max_rel_err": cost_err["rel"],
-        "ms": by_shape[f"{B}x{N}"], "kernel_ms": by_shape[f"{B}x{N}"],
+        "ms": cost_main["ms"], "kernel_ms": cost_main["ms"],
+        "device_us_per_launch": cost_main["kernel_device_us_per_launch"],
         "plain_ms": time_ms(lambda: ref.cost_eval_ref(*a), 300),
-        "bound_ms": 1e3 * max(cost_bytes / HBM_BYTES_PER_S,
-                              cost_ops / FP32_FLOP_PER_S),
-        "bound_by": ("bytes" if cost_bytes / HBM_BYTES_PER_S
-                     >= cost_ops / FP32_FLOP_PER_S else "operations"),
-        "library_ms": None, "ms_by_shape": by_shape}
+        "library_ms": None, "ms_by_shape": by_shape,
+        "rollout_1x1": search["cost_eval 1x1"],
+        "local_ga_table_cost_20x53": search["table_cost 20x53"]}
+    cost_entry["bound_ms"], cost_entry["bound_by"] = _bound(
+        4 * (3 * B * N + 4 * B * N + 8 * N), COST_OPS_PER_POINT * B * N)
 
     Bl, I, H = 1, 10, 128
     x, h, c, wx, wh, b = _lstm_inputs(Bl, I, H, dev, seed=7)
     w_ih, w_hh = wx.T.contiguous(), wh.T.contiguous()
     zero_b = torch.zeros_like(b)
     lib_out = torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zero_b)
-    ker_out = lstm_cell.lstm_cell(x, h, c, wx, wh, b)
+    ker_out = lstm_cell.lstm_cell(x, h, c, wx, wh, b)[:2]
     check(all(float((p - q).abs().max()) <= 1e-5
               for p, q in zip(lib_out, ker_out)),
           "torch.lstm_cell disagrees with the LSTM kernel")
-    lstm_bytes = 4 * (Bl * I + 2 * Bl * H + I * 4 * H + H * 4 * H + 4 * H
-                      + 2 * Bl * H)
-    lstm_ops = 2 * Bl * (I + H) * 4 * H + LSTM_TAIL_OPS_PER_UNIT * Bl * H
-    k_ms = time_ms(lambda: lstm_cell.lstm_cell(x, h, c, wx, wh, b), 2000)
+    weights = I * 4 * H + H * 4 * H + 4 * H
+    lstm_main = search["lstm_cell 1x10x128"]
     lstm_entry = {
         "name": "lstm_cell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
@@ -1064,16 +1326,55 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
         "shape": [Bl, I, H], "launches": counts["lstm_cell"],
         "launches_per_run": counts["lstm_cell"],
         "max_abs_err": lstm_err["fwd"], "max_err": lstm_err["fwd"],
-        "max_grad_err": lstm_err["grad"],
-        "ms": k_ms, "kernel_ms": k_ms,
+        "max_gates_err": lstm_err["gates"], "max_grad_err": lstm_err["grad"],
+        "ms": lstm_main["ms"], "kernel_ms": lstm_main["ms"],
+        "device_us_per_launch": lstm_main["kernel_device_us_per_launch"],
+        "autograd_forward": search["lstm_step autograd 1x10x128"],
         "plain_ms": time_ms(lambda: ref.lstm_cell_ref(x, h, c, wx, wh, b),
                             1000),
-        "bound_ms": 1e3 * max(lstm_bytes / HBM_BYTES_PER_S,
-                              lstm_ops / FP32_FLOP_PER_S),
-        "bound_by": ("bytes" if lstm_bytes / HBM_BYTES_PER_S
-                     >= lstm_ops / FP32_FLOP_PER_S else "operations"),
         "library_ms": time_ms(
-            lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zero_b), 1000)}
+            lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zero_b), 1000),
+        "library": "torch.lstm_cell"}
+    lstm_entry["bound_ms"], lstm_entry["bound_by"] = _bound(
+        4 * (Bl * I + 2 * Bl * H + weights + 2 * Bl * H),
+        2 * Bl * (I + H) * 4 * H + LSTM_TAIL_OPS_PER_UNIT * Bl * H)
+
+    # The backward at the same shape: the kernel's wrapper alone (ms, as
+    # the other rows), and autograd's call of it over a kept graph.
+    gates = lstm_cell.lstm_cell(x, h, c, wx, wh, b)[2:]
+    dh, dc = (torch.randn((Bl, H), generator=gen, device=dev)
+              for _ in range(2))
+    bwd = lambda: lstm_cell.lstm_cell_bwd(x, h, c, wx, wh, gates, dh, dc)
+    bwd_trace = _kernel_trace(bwd, SEARCH_TRACE_CALLS)
+    check(bwd_trace is not None, "the profiler trace of the LSTM backward "
+          "shows no device time")
+    lib_leaves = [t.clone().requires_grad_() for t in (x, h, c, w_ih, w_hh)]
+    lib_outs = torch.lstm_cell(lib_leaves[0], (lib_leaves[1], lib_leaves[2]),
+                               lib_leaves[3], lib_leaves[4],
+                               b.clone().requires_grad_(), zero_b)
+    bwd_entry = {
+        "name": "lstm_cell_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+        "replaces": None, "tpu_kernel": None,
+        "shape": [Bl, I, H], "launches": counts["lstm_cell_bwd"],
+        "launches_per_run": counts["lstm_cell_bwd"],
+        "max_abs_err": lstm_err["bwd"], "max_err": lstm_err["bwd"],
+        "ms": time_ms(bwd, 2000), "device_us_per_launch":
+            _per_launch_us(bwd_trace, LSTM_BWD_KERNEL)[0],
+        "autograd": search["lstm_cell_bwd 1x10x128"],
+        "plain_ms": time_ms(lambda: ref.lstm_cell_bwd_ref(
+            x, h, c, wx, wh, b, dh, dc), 300),
+        "plain_saved_gates_ms": time_ms(lambda: ref.lstm_cell_bwd_saved_ref(
+            x, h, c, wx, wh, gates, dh, dc), 300),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_outs, lib_leaves, (dh, dc), retain_graph=True), 300),
+        "library": "torch.autograd.grad through torch.lstm_cell"}
+    bwd_entry["bound_ms"], bwd_entry["bound_by"] = _bound(
+        # x, h, c, the weights, the gates, dh', dc' read; dx, dh, dc and
+        # the three weight gradients written.
+        4 * (2 * Bl * I + 11 * Bl * H + 2 * weights - 4 * H),
+        4 * Bl * (I + H) * 4 * H + Bl * 4 * H
+        + LSTM_BWD_TAIL_OPS_PER_UNIT * Bl * H)
 
     # The per-row kernel at the service's flat shapes: one GA generation of
     # population 100 and one random-search batch of 512 on mobilenet_v2.
@@ -1085,8 +1386,10 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
             lambda: costmodel_eval.cost_eval_multi(*a), 2000)
     M = 5300
     a = _flat_points(arr, M, rng, dev)
-    multi_bytes = MULTI_BYTES_PER_POINT * M
-    multi_ops = COST_OPS_PER_POINT * M
+    multi_trace = _kernel_trace(lambda: costmodel_eval.cost_eval_multi(*a),
+                                SEARCH_TRACE_CALLS)
+    check(multi_trace is not None, "the profiler trace of the per-row cost "
+          "kernel shows no device time")
     multi_entry = {
         "name": "cost_eval_multi", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/costmodel_eval.cu",
@@ -1098,13 +1401,18 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
         "max_abs_err": multi_err["abs"], "max_err": multi_err["abs"],
         "max_rel_err": multi_err["rel"],
         "ms": multi_ms[f"1x{M}"], "kernel_ms": multi_ms[f"1x{M}"],
+        "device_us_per_launch": _per_launch_us(
+            multi_trace, "cost_eval_multi_kernel")[0],
         "plain_ms": time_ms(lambda: ref.cost_eval_multi_ref(*a), 300),
-        "bound_ms": 1e3 * max(multi_bytes / HBM_BYTES_PER_S,
-                              multi_ops / FP32_FLOP_PER_S),
-        "bound_by": ("bytes" if multi_bytes / HBM_BYTES_PER_S
-                     >= multi_ops / FP32_FLOP_PER_S else "operations"),
         "library_ms": None, "ms_by_shape": multi_ms}
-    return [cost_entry, lstm_entry, multi_entry]
+    multi_entry["bound_ms"], multi_entry["bound_by"] = _bound(
+        MULTI_BYTES_PER_POINT * M, COST_OPS_PER_POINT * M)
+    for e in (cost_entry, lstm_entry, bwd_entry, multi_entry):
+        log(f"[timings] {e['name']}: {e['ms']:.4f} ms per call, "
+            f"{e['device_us_per_launch']} µs of device time per launch, "
+            f"bound {e['bound_ms']:.3g} ms ({e['bound_by']}), plain "
+            f"{e['plain_ms']:.4f} ms, library {e['library_ms']} ms")
+    return [cost_entry, lstm_entry, bwd_entry, multi_entry]
 
 
 def main(argv=None):

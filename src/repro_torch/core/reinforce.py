@@ -15,7 +15,8 @@ loop over the N layers whose every value -- ``alive``, ``budget_left``,
 ``pmin``, the best-so-far -- stays a tensor on the device: nothing syncs
 with the host until a chunk's history goes to numpy.  Each step scores its
 E actions with one cost-kernel launch at shape (E, 1) and steps the policy
-with one LSTM-kernel launch.
+with one LSTM-kernel launch; the backward runs one LSTM backward-kernel
+launch per step.
 
 Unlike the reference, whose parameters are immutable, the policy module is
 updated in place by each epoch.
@@ -84,6 +85,15 @@ def make_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
     t_norm = 2.0 * torch.arange(N, dtype=torch.float32, device=dev) / max(
         N - 1, 1) - 1.0
     Lm1 = max(pcfg.levels - 1, 1)
+    # The cost kernel's inputs that do not change between steps: each
+    # layer's (NUM_FIELDS, 1) row, and a dataflow fixed for the whole run,
+    # which goes to the kernel by value.
+    rows = [env.layers[t][:, None] for t in range(N)]
+    fixed_df_value = float(ecfg.dataflow)
+    # The rows of the kernel's (4, E) output that the reward reads, of
+    # latency, energy, area, power.
+    perf_row = 0 if ecfg.objective == "latency" else 1
+    cons_row = 2 if ecfg.constraint == "area" else 3
 
     def rollout(params, pmin, generator, E: int,
                 actions: Optional[torch.Tensor] = None) -> RolloutOut:
@@ -124,11 +134,12 @@ def make_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
                 a_df, lp_df, ent_df = fixed_df, zero, zero
             pe = env.pe_table[a_pe]
             kt = env.kt_table[a_kt]
-            lat, en, area, pw = ops.table_cost(
-                env.layers[t][:, None], pe[:, None], kt[:, None],
-                a_df.to(torch.float32)[:, None])
-            perf_pos = (lat if ecfg.objective == "latency" else en)[:, 0]
-            cons = (area if ecfg.constraint == "area" else pw)[:, 0]
+            costs = ops.table_cost(
+                rows[t], pe[:, None], kt[:, None],
+                a_df.to(torch.float32)[:, None] if ecfg.mix
+                else fixed_df_value).view(4, E)
+            perf_pos = costs[perf_row]
+            cons = costs[cons_row]
             P_t = -perf_pos  # higher is better
             if ecfg.scenario == "LP":
                 budget_left = budget_left - cons

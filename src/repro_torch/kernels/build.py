@@ -34,6 +34,7 @@ EXTRA_FLAGS = {
 SOURCES = tuple(EXTRA_FLAGS)
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_raw_stream = None
 # Threads that launch a kernel for the first time at once build it once.
 _load_lock = threading.Lock()
 
@@ -106,23 +107,45 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_input(t, name: str, shape, device) -> int:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape`` on
-    ``device``; return its data pointer for a kernel launch."""
+def check_inputs(tensors, names, shapes):
+    """Raise unless every tensor is a contiguous float32 CUDA tensor of its
+    shape, all on one card; return their data pointers and the card's
+    index, for one kernel launch.  One pass, one query of each property."""
     import torch
 
-    if not torch.is_tensor(t) or not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-    return t.data_ptr()
+    ptrs = []
+    index = None
+    for t, name, shape in zip(tensors, names, shapes):
+        d = t.get_device()
+        if d < 0:
+            raise ValueError(f"{name}: expected a CUDA tensor")
+        if index is None:
+            index = d
+        elif d != index:
+            raise ValueError(f"{name}: on cuda:{d}, expected cuda:{index}")
+        if t.dtype is not torch.float32:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected float32")
+        if t.shape != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+        ptrs.append(t.data_ptr())
+    return ptrs, index
+
+
+def stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on card ``index``, taken
+    without building a ``torch.cuda.Stream`` object where PyTorch offers
+    that call (its CUDA builds do)."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        _raw_stream = getattr(
+            torch._C, "_cuda_getCurrentRawStream",
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
 
 
 def build_log(name: str) -> str:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from array import array
 
 import torch
 
@@ -37,8 +38,8 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("costmodel_eval").cost_eval_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -55,30 +56,84 @@ def _multi_launcher():
     return _multi_fn
 
 
-def cost_eval(layers_t, pe, kt, df):
-    """Launch the kernel.  layers_t: (NUM_FIELDS, N); pe/kt/df: (B, N).
+def broadcast_strides(shape, stride, B, N, name):
+    """The row and column strides, in elements, that read a tensor of
+    ``shape`` and ``stride`` (0, 1 or 2 dimensions) as a (B, N) batch: a
+    dimension of size 1, or a missing one, gets stride 0 (broadcast).
+    Raises unless the shape broadcasts to (B, N) and no stride is
+    negative."""
+    d = len(shape)
+    if d == 2:
+        (r, n), (rs, cs) = shape, stride
+    elif d == 1:
+        r, rs, n, cs = 1, 0, shape[0], stride[0]
+    elif d == 0:
+        return 0, 0
+    else:
+        raise ValueError(f"{name}: {d} dimensions; expected at most 2")
+    if rs < 0 or cs < 0:
+        raise ValueError(f"{name}: negative stride {tuple(stride)}")
+    if r not in (1, B) or n not in (1, N):
+        raise ValueError(f"{name}: shape {tuple(shape)} does not broadcast "
+                         f"to ({B}, {N})")
+    return (rs if r != 1 else 0), (cs if n != 1 else 0)
 
-    Every input is a contiguous float32 CUDA tensor on one device.  Returns
-    (latency, energy, area, power), each (B, N) float32.
+
+def cost_eval(layers_t, pe, kt, df):
+    """Launch the table kernel.
+
+    layers_t: a contiguous (NUM_FIELDS, N) float32 CUDA tensor.  pe, kt,
+    df: each a float32 tensor on the same card that broadcasts to (B, N)
+    -- (B, N), (B, 1), (1, N), (N,) or one value, any strides, read in
+    place -- or a Python number, passed by value.  B is the first size of
+    a 2-D operand (1 if none is).  Returns one (4, B, N) float32 tensor:
+    latency, energy, area and power, in that order.
     """
     global launches
-    if pe.dim() != 2:
-        raise ValueError(f"pe: expected (B, N), got {tuple(pe.shape)}")
-    B, N = pe.shape
-    dev = pe.device
-    ptrs = [build.check_input(layers_t, "layers_t", (NUM_FIELDS, N), dev)]
-    ptrs += [build.check_input(t, n, (B, N), dev)
-             for t, n in ((pe, "pe"), (kt, "kt"), (df, "df"))]
-    out = torch.empty((4, B, N), dtype=torch.float32, device=dev)
+    index = layers_t.get_device()
+    if index < 0:
+        raise ValueError("layers_t: expected a CUDA tensor")
+    shape = layers_t.shape
+    if layers_t.dtype is not torch.float32:
+        raise ValueError(f"layers_t: dtype {layers_t.dtype}, expected "
+                         "float32")
+    if (len(shape) != 2 or shape[0] != NUM_FIELDS
+            or not layers_t.is_contiguous()):
+        raise ValueError(f"layers_t: shape {tuple(shape)}; expected a "
+                         f"contiguous ({NUM_FIELDS}, N)")
+    N = shape[1]
+    operands = (pe, kt, df)
+    shapes = [v.shape if isinstance(v, torch.Tensor) else () for v in operands]
+    B = max((s[0] for s in shapes if len(s) == 2), default=1)
+    # The launch arguments as the library reads them (one array of
+    # pointers, strides and sizes, one of by-value operands).
+    args = [layers_t.data_ptr()]
+    values = [0.0, 0.0, 0.0]
+    for i, (v, shape, name) in enumerate(zip(operands, shapes,
+                                             ("pe", "kt", "df"))):
+        if not isinstance(v, torch.Tensor):
+            args += (0, 0, 0)
+            values[i] = v
+            continue
+        if v.get_device() != index:
+            raise ValueError(f"{name}: expected a CUDA tensor on "
+                             f"cuda:{index}")
+        if v.dtype is not torch.float32:
+            raise ValueError(f"{name}: dtype {v.dtype}, expected float32")
+        args += (v.data_ptr(),
+                 *broadcast_strides(shape, v.stride(), B, N, name))
+    out = layers_t.new_empty((4, B, N))
     if B * N == 0:
-        return out.unbind(0)
-    rc = _launcher()(*ptrs, *(out[i].data_ptr() for i in range(4)), B, N,
-                     dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        return out
+    args += (out.data_ptr(), B, N)
+    packed, vals = array("q", args), array("f", values)
+    rc = _launcher()(packed.buffer_info()[0], vals.buffer_info()[0], index,
+                     build.stream(index))
     if rc != 0:
         raise RuntimeError(f"cost_eval kernel launch failed: CUDA error {rc}")
     with _count_lock:
         launches += 1
-    return out.unbind(0)
+    return out
 
 
 def cost_eval_multi(layers, pe, kt, df):
@@ -91,16 +146,14 @@ def cost_eval_multi(layers, pe, kt, df):
     if pe.dim() != 1:
         raise ValueError(f"pe: expected (M,), got {tuple(pe.shape)}")
     M = pe.shape[0]
-    dev = pe.device
-    ptrs = [build.check_input(layers, "layers", (M, NUM_FIELDS), dev)]
-    ptrs += [build.check_input(t, n, (M,), dev)
-             for t, n in ((pe, "pe"), (kt, "kt"), (df, "df"))]
-    out = torch.empty((4, M), dtype=torch.float32, device=dev)
+    ptrs, index = build.check_inputs(
+        (layers, pe, kt, df), ("layers", "pe", "kt", "df"),
+        ((M, NUM_FIELDS), (M,), (M,), (M,)))
+    out = torch.empty((4, M), dtype=torch.float32, device=pe.device)
     if M == 0:
         return out.unbind(0)
     rc = _multi_launcher()(*ptrs, *(out[i].data_ptr() for i in range(4)), M,
-                           dev.index,
-                           torch.cuda.current_stream(dev).cuda_stream)
+                           index, build.stream(index))
     if rc != 0:
         raise RuntimeError(
             f"cost_eval_multi kernel launch failed: CUDA error {rc}")

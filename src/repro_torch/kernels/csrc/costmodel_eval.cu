@@ -31,6 +31,15 @@
 // layer fields through the read-only cache, and the whole model stays in
 // registers, so no intermediate goes to device memory.  Rows with
 // repeat = 0 come out exactly 0: every output is multiplied by repeat.
+// Since a launch costs more than the work, the table kernel also takes the
+// host work away from around it: it reads pe, kt and df where they lie,
+// through their row and column strides (0 broadcasts an (E, 1) column, an
+// (N,) row or one value), or takes one of them as a scalar by value (one
+// dataflow for the whole batch), so the searches launch no copy kernel
+// and upload no scalar before it; and it writes its four outputs into one
+// (4, B, N) buffer from one base pointer.  How an operand is read does not
+// touch `core_cost`, so strided, broadcast and contiguous inputs give the
+// same bits.
 //
 // Numbers: the library is built without --use_fast_math, so `/` and sqrtf
 // round the IEEE way (a division that feeds ceilf/floorf must not come out
@@ -171,25 +180,36 @@ __device__ void core_cost(float K, float C, float Y, float X, float R,
   pw_out = power * repeat;
 }
 
+// One of pe, kt, df as the table kernel reads it: the value at (b, n) of
+// a (B, N) view, p[b * rs + n * cs] (a stride of 0 broadcasts), or, where
+// p is null, the scalar v.
+struct Operand {
+  const float* p;
+  long long rs, cs;
+  float v;
+};
+
+__device__ __forceinline__ float operand_at(const Operand& o, long long b,
+                                            long long n) {
+  return o.p != nullptr ? __ldg(o.p + b * o.rs + n * o.cs) : o.v;
+}
+
 __global__ void cost_eval_kernel(const float* __restrict__ layers_t,
-                                 const float* __restrict__ pe,
-                                 const float* __restrict__ kt,
-                                 const float* __restrict__ df,
-                                 float* __restrict__ lat,
-                                 float* __restrict__ en,
-                                 float* __restrict__ area,
-                                 float* __restrict__ pw, long long total,
+                                 Operand pe, Operand kt, Operand df,
+                                 float* __restrict__ out, long long total,
                                  int N) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const int n = static_cast<int>(idx % N);
+  const long long b = idx / N;
+  const int n = static_cast<int>(idx - b * N);
   float f[kNumFields];
 #pragma unroll
   for (int i = 0; i < kNumFields; ++i) f[i] = __ldg(layers_t + i * N + n);
-  core_cost(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], __ldg(pe + idx),
-            __ldg(kt + idx), __ldg(df + idx), lat[idx], en[idx], area[idx],
-            pw[idx]);
+  core_cost(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
+            operand_at(pe, b, n), operand_at(kt, b, n), operand_at(df, b, n),
+            out[idx], out[total + idx], out[2 * total + idx],
+            out[3 * total + idx]);
 }
 
 __global__ void cost_eval_multi_kernel(const float* __restrict__ layers,
@@ -215,25 +235,35 @@ __global__ void cost_eval_multi_kernel(const float* __restrict__ layers,
 
 }  // namespace
 
-// layers_t: (NUM_FIELDS, N); pe, kt, df and the four outputs: (B, N); all
-// float32, contiguous, on card `device`, where `stream` lives.  This
-// library carries its own CUDA runtime, so the launch selects the device
-// itself.  Returns cudaGetLastError().
-extern "C" int cost_eval_launch(const void* layers_t, const void* pe,
-                                const void* kt, const void* df, void* lat,
-                                void* en, void* area, void* pw, int B, int N,
+// The launch arguments come packed in one array, `a`, which the caller
+// fills in one step (a call with few arguments costs the host less):
+//   a[0]          layers_t: (NUM_FIELDS, N), contiguous
+//   a[1 + 3 i]    operand i of pe, kt, df: a data pointer, or 0 to take
+//                 its value from `v[i]` instead
+//   a[2 + 3 i],   its row and column strides in elements over the (B, N)
+//   a[3 + 3 i]    batch (0 broadcasts)
+//   a[10]         out: (4, B, N) contiguous, latency / energy / area / power
+//   a[11], a[12]  B, N
+// All float32, on card `device`, where `stream` lives.  This library
+// carries its own CUDA runtime, so the launch selects the device itself.
+// Returns cudaGetLastError().
+extern "C" int cost_eval_launch(const long long* a, const float* v,
                                 int device, void* stream) {
-  const long long total = static_cast<long long>(B) * N;
+  const long long total = a[11] * a[12];
   if (total == 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 128;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  Operand o[3];
+  for (int i = 0; i < 3; ++i)
+    o[i] = Operand{reinterpret_cast<const float*>(a[1 + 3 * i]), a[2 + 3 * i],
+                   a[3 + 3 * i], v[i]};
   cost_eval_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(layers_t), static_cast<const float*>(pe),
-      static_cast<const float*>(kt), static_cast<const float*>(df),
-      static_cast<float*>(lat), static_cast<float*>(en),
-      static_cast<float*>(area), static_cast<float*>(pw), total, N);
+      reinterpret_cast<const float*>(a[0]), o[0], o[1], o[2],
+      reinterpret_cast<float*>(a[10]), total, static_cast<int>(a[12]));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,7 +276,9 @@ extern "C" int cost_eval_multi_launch(const void* layers, const void* pe,
                                       void* pw, long long M, int device,
                                       void* stream) {
   if (M == 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 128;
   const unsigned blocks = static_cast<unsigned>((M + threads - 1) / threads);

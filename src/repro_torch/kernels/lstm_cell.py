@@ -1,80 +1,150 @@
-"""CUDA kernel: one fused LSTM step (the REINFORCE policy step).
+"""CUDA kernels: one fused LSTM step and its backward.
 
-Replaces the TPU kernel ``repro/kernels/lstm_cell.py::lstm_cell_padded``
-(body ``_lstm_kernel``).  The kernel (``csrc/lstm_cell.cu``) computes both
-matrix products and the gate nonlinearities in its own body; its source
-note says what bounds it on the card and how its design answers that.
-Unlike the TPU kernel it needs no padding of I or B.
+:func:`lstm_cell` replaces the TPU kernel
+``repro/kernels/lstm_cell.py::lstm_cell_padded`` (body ``_lstm_kernel``).
+The kernel (``csrc/lstm_cell.cu``) computes both matrix products and the
+gate nonlinearities in its own body, spread over the card; its source note
+says what bounds it and how its design answers that.  Unlike the TPU
+kernel it needs no padding of I or B.
 
-:class:`LSTMCellFn` gives the kernel a gradient: forward launches it,
-backward recomputes the gates and applies the LSTM formula in plain
-PyTorch (:func:`repro_torch.kernels.ref.lstm_cell_bwd_ref`).
+:func:`lstm_cell_bwd` is the step's backward, a kernel of the same source
+that the TPU package has no counterpart of (JAX cannot differentiate
+through its own LSTM kernel).  It reads the gates that the forward saved.
+:class:`LSTMCellFn` joins the two into an autograd Function.
 
-``launches`` counts the forward kernel launches made through
-:func:`lstm_cell`.
+Both take I + H up to :data:`MAX_K`, the limit of the port's first LSTM
+kernel, and raise a ``ValueError`` past it.  ``launches`` and
+``bwd_launches`` count the launches made through :func:`lstm_cell` and
+:func:`lstm_cell_bwd`.
 """
 from __future__ import annotations
 
 import ctypes
+from array import array
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build
 
+# The largest I + H the kernels take (``kMaxK`` in the source): the
+# forward's staged rows of x and h then fill 194 KB of shared memory.
+MAX_K = 12288
 launches = 0
+bwd_launches = 0
 _fn = None
-_MAX_SMEM = 48 * 1024   # static launch limit for dynamic shared memory
+_bwd_fn = None
+_NAMES = ("x", "h", "c", "wx", "wh", "b")
+_BWD_NAMES = ("x", "h", "c", "wx", "wh", "gates", "dh_new", "dc_new")
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("lstm_cell").lstm_cell_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def lstm_cell(x, h, c, wx, wh, b):
-    """Launch the kernel.  x (B, I), h/c (B, H), wx (I, 4H), wh (H, 4H),
-    b (4H,): contiguous float32 CUDA tensors on one device.
-    Returns (h', c'), each (B, H)."""
-    global launches
-    if x.dim() != 2 or h.dim() != 2:
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("lstm_cell").lstm_cell_bwd_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def _dims(x, h):
+    xs, hs = x.shape, h.shape
+    if len(xs) != 2 or len(hs) != 2:
         raise ValueError("lstm_cell: x and h must be 2-D (B, I), (B, H)")
-    B, I = x.shape
-    H = h.shape[1]
-    if (I + H) * 4 > _MAX_SMEM:
-        raise ValueError(f"lstm_cell: I + H = {I + H} exceeds the kernel's "
-                         "shared-memory limit")
-    dev = x.device
-    ptrs = [build.check_input(t, n, s, dev) for t, n, s in (
-        (x, "x", (B, I)), (h, "h", (B, H)), (c, "c", (B, H)),
-        (wx, "wx", (I, 4 * H)), (wh, "wh", (H, 4 * H)), (b, "b", (4 * H,)))]
-    out = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    h_out, c_out = out.unbind(0)
-    if B == 0:
-        return h_out, c_out
-    rc = _launcher()(*ptrs, h_out.data_ptr(), c_out.data_ptr(), B, I, H,
-                     dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return h_out, c_out
+    if xs[1] + hs[1] > MAX_K:
+        raise ValueError(f"lstm_cell: I + H = {xs[1] + hs[1]} exceeds the "
+                         f"kernels' limit of {MAX_K}")
+    return xs[0], xs[1], hs[1]
+
+
+def lstm_cell(x, h, c, wx, wh, b):
+    """Launch the forward kernel.  x (B, I), h/c (B, H), wx (I, 4H),
+    wh (H, 4H), b (4H,): contiguous float32 CUDA tensors on one card,
+    I + H <= :data:`MAX_K`.
+
+    Returns one (7, B, H) buffer: h', then c', then the gates the
+    backward reads, sig(i), sig(f), tanh(g), sig(o), tanh(c').
+    """
+    global launches
+    B, I, H = _dims(x, h)
+    ptrs, index = build.check_inputs(
+        (x, h, c, wx, wh, b), _NAMES,
+        ((B, I), (B, H), (B, H), (I, 4 * H), (H, 4 * H), (4 * H,)))
+    out = x.new_empty((7, B, H))
+    if B:
+        # The library reads its pointers and sizes from one array.
+        args = array("q", ptrs)
+        args.extend((out.data_ptr(), B, I, H))
+        rc = _launcher()(args.buffer_info()[0], index, build.stream(index))
+        if rc != 0:
+            raise RuntimeError(
+                f"lstm_cell kernel launch failed: CUDA error {rc}")
+        launches += 1
+    return out
+
+
+def lstm_cell_bwd(x, h, c, wx, wh, gates, dh_new, dc_new):
+    """Launch the backward kernel.  x, h, c, wx, wh as in
+    :func:`lstm_cell`; ``gates`` (5, B, H) as it saved them; dh_new and
+    dc_new (B, H), the gradients of h' and c'.  All contiguous float32
+    CUDA tensors on one card, I + H <= :data:`MAX_K` (dG goes through
+    shared memory in tiles of hidden units where a whole row does not
+    fit).
+
+    Returns (dx, dh, dc, dwx, dwh, db); two calls on the same inputs give
+    the same bits (no atomics).  With B = 0 the weight gradients are 0.
+    """
+    global bwd_launches
+    B, I, H = _dims(x, h)
+    ptrs, index = build.check_inputs(
+        (x, h, c, wx, wh, gates, dh_new, dc_new), _BWD_NAMES,
+        ((B, I), (B, H), (B, H), (I, 4 * H), (H, 4 * H), (5, B, H), (B, H),
+         (B, H)))
+    # Three buffers: dx; dh and dc; the weight gradients as one
+    # (I + H + 1, 4H) table whose last row is db.
+    dx = x.new_empty((B, I))
+    dhc = x.new_empty((2, B, H))
+    dw = x.new_empty((I + H + 1, 4 * H)) if B else x.new_zeros(
+        (I + H + 1, 4 * H))
+    if B:
+        args = array("q", ptrs)
+        args.extend((dx.data_ptr(), dhc.data_ptr(), dw.data_ptr(), B, I, H))
+        rc = _bwd_launcher()(args.buffer_info()[0], index,
+                             build.stream(index))
+        if rc != 0:
+            raise RuntimeError(
+                f"lstm_cell backward kernel launch failed: CUDA error {rc}")
+        bwd_launches += 1
+    dh, dc = dhc.unbind(0)
+    dwx, dwh, db = dw.split((I, H, 1))
+    return dx, dh, dc, dwx, dwh, db.view(4 * H)
 
 
 class LSTMCellFn(torch.autograd.Function):
-    """The CUDA LSTM step with its gradient."""
+    """The CUDA LSTM step with its gradient: the forward kernel saves the
+    gates, the backward kernel reads them."""
 
     @staticmethod
     def forward(ctx, x, h, c, wx, wh, b):
-        ctx.save_for_backward(x, h, c, wx, wh, b)
-        return lstm_cell(x, h, c, wx, wh, b)
+        out = lstm_cell(x, h, c, wx, wh, b)
+        ctx.save_for_backward(x, h, c, wx, wh, out)
+        return out[0], out[1]
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, dh_new, dc_new):
-        # Autograd materializes an unused output's gradient as zeros.
-        x, h, c, wx, wh, b = ctx.saved_tensors
-        return ref.lstm_cell_bwd_ref(x, h, c, wx, wh, b, dh_new, dc_new)
+        x, h, c, wx, wh, out = ctx.saved_tensors
+        # Autograd materializes an unused output's gradient as zeros; an
+        # upstream gradient may come as a broadcast (stride-0) view.
+        return lstm_cell_bwd(x, h, c, wx, wh, out[2:], dh_new.contiguous(),
+                             dc_new.contiguous())

@@ -27,8 +27,8 @@ def batched_cost(layers, pe, kt, df):
     """Evaluate a (B, N) batch of per-layer assignments.
 
     layers: (N, NUM_FIELDS); pe: (B, N); kt/df: broadcastable to (B, N)
-    (df may be a scalar).  Returns (latency, energy, area, power), each
-    (B, N) float32 on the inputs' device.
+    (df may be a scalar).  Returns one (4, B, N) float32 tensor on the
+    inputs' device: latency, energy, area, power.
     """
     dev = _device(layers, pe, kt, df)
     layers_t = torch.as_tensor(layers, dtype=torch.float32,
@@ -41,16 +41,35 @@ def table_cost(layers_t, pe, kt, df):
 
     The searches keep that table on the environment
     (``EnvArrays.layers_t``), or pass one layer's row as an
-    (NUM_FIELDS, 1) view, so no call copies it.
+    (NUM_FIELDS, 1) view, so no call copies it.  pe, kt and df each
+    broadcast to (B, N): (B, N), (B, 1), (1, N), (N,), one value or a
+    Python number; B is the first size of a 2-D one (1 if none is).  On
+    the card the kernel reads them where they lie (no copy, and a number
+    goes by value); every form gives the same bits.  Returns one
+    (4, B, N) float32 tensor: latency, energy, area, power.
     """
+    if layers_t.is_cuda:
+        # The kernel's wrapper checks that every tensor lies on this card.
+        return costmodel_eval.cost_eval(
+            layers_t, *(_as_operand(v, layers_t.device) for v in (pe, kt, df)))
     dev = _device(layers_t, pe, kt, df)
     as_f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
-    layers_t, pe = as_f32(layers_t), as_f32(pe)
-    B, N = pe.shape[0], layers_t.shape[1]
-    pe, kt, df = (as_f32(v).expand(B, N).contiguous() for v in (pe, kt, df))
-    if dev.type == "cpu":
-        return ref.cost_eval_ref(layers_t, pe, kt, df)
-    return costmodel_eval.cost_eval(layers_t, pe, kt, df)
+    layers_t = as_f32(layers_t)
+    vals = [as_f32(v) for v in (pe, kt, df)]
+    B = max((v.shape[0] for v in vals if v.dim() == 2), default=1)
+    N = layers_t.shape[1]
+    return torch.stack(ref.cost_eval_ref(
+        layers_t, *(v.expand(B, N) for v in vals)))
+
+
+def _as_operand(v, dev):
+    """``v`` as the cost kernel takes it: a float32 tensor (converted only
+    if it is of another type) or a Python number."""
+    if isinstance(v, torch.Tensor):
+        return v if v.dtype is torch.float32 else v.to(torch.float32)
+    if isinstance(v, (int, float)):
+        return v
+    return torch.as_tensor(v, dtype=torch.float32, device=dev)
 
 
 def batched_cost_multi(layers, pe, kt, df):
@@ -81,17 +100,17 @@ def batched_cost_multi(layers, pe, kt, df):
 
 
 def lstm_step(x, h, c, wx, wh, b):
-    """One LSTM cell step.  x: (B, I); h/c: (B, H); returns (h', c').
+    """One LSTM cell step.  x: (B, I); h/c: (B, H); wx: (I, 4H); wh:
+    (H, 4H); b: (4H,).  Returns (h', c').
 
     Differentiable on both paths: autograd through the plain version on
-    the CPU, :class:`~repro_torch.kernels.lstm_cell.LSTMCellFn` on CUDA.
+    the CPU, :class:`~repro_torch.kernels.lstm_cell.LSTMCellFn` (the
+    forward and the backward kernel) on CUDA, where every input must be
+    contiguous.
     """
-    b = b.reshape(-1)
     if _device(x, h, c, wx, wh, b).type == "cpu":
         return ref.lstm_cell_ref(x, h, c, wx, wh, b)
-    return lstm_cell.LSTMCellFn.apply(x.contiguous(), h.contiguous(),
-                                      c.contiguous(), wx.contiguous(),
-                                      wh.contiguous(), b.contiguous())
+    return lstm_cell.LSTMCellFn.apply(x, h, c, wx, wh, b)
 
 
 def decode_attention(q, k, v):
@@ -109,12 +128,13 @@ def decode_attention(q, k, v):
 
 
 def launch_counts():
-    """Kernel launches so far, by kernel (``flash_decode`` counts the
-    attention calls, ``flash_decode_combine`` the combine kernel's
-    launches among them)."""
+    """Kernel launches so far, by kernel (``lstm_cell_bwd`` counts the
+    LSTM step's backward kernel, ``flash_decode`` the attention calls,
+    ``flash_decode_combine`` the combine kernel's launches among them)."""
     return {"cost_eval": costmodel_eval.launches,
             "cost_eval_multi": costmodel_eval.multi_launches,
             "lstm_cell": lstm_cell.launches,
+            "lstm_cell_bwd": lstm_cell.bwd_launches,
             "flash_decode": flash_decode.launches,
             "flash_decode_combine": flash_decode.combine_launches}
 
@@ -125,6 +145,7 @@ def reset_launch_counts():
     costmodel_eval.launches = 0
     costmodel_eval.multi_launches = 0
     lstm_cell.launches = 0
+    lstm_cell.bwd_launches = 0
     flash_decode.launches = 0
     flash_decode.combine_launches = 0
     for k in ref.cuda_calls:

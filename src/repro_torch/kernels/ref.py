@@ -18,7 +18,9 @@ from repro_torch.costmodel.layers import NUM_FIELDS
 
 # Calls made with CUDA tensors, by function name.
 cuda_calls = {"cost_eval_ref": 0, "cost_eval_multi_ref": 0,
-              "lstm_cell_ref": 0, "flash_decode_ref": 0}
+              "lstm_cell_ref": 0, "lstm_cell_saved_ref": 0,
+              "lstm_cell_bwd_ref": 0, "lstm_cell_bwd_saved_ref": 0,
+              "flash_decode_ref": 0}
 
 
 def _count(name, t):
@@ -78,16 +80,42 @@ def lstm_cell_ref(x, h, c, wx, wh, b):
     return h_new, c_new
 
 
+def lstm_cell_saved_ref(x, h, c, wx, wh, b):
+    """Plain version of the LSTM kernel run for autograd: (h', c') and the
+    gates it saves for the backward, (5, B, H) = sig(i), sig(f), tanh(g),
+    sig(o), tanh(c')."""
+    _count("lstm_cell_saved_ref", x)
+    i, f, g, o = _gates(x, h, wx, wh, b)
+    c_new = f * c + i * g
+    tc = torch.tanh(c_new)
+    return o * tc, c_new, torch.stack([i, f, g, o, tc])
+
+
 def lstm_cell_bwd_ref(x, h, c, wx, wh, b, dh_new, dc_new):
     """Gradient of :func:`lstm_cell_ref` by the LSTM formula.
 
     Recomputes the gates from the saved inputs and returns
     ``(dx, dh, dc, dwx, dwh, db)`` for upstream gradients ``dh_new`` and
-    ``dc_new`` of (h', c').  This is the backward of the CUDA LSTM kernel.
+    ``dc_new`` of (h', c').  The ground truth of the backward kernel, by
+    way of :func:`lstm_cell_bwd_saved_ref`.
     """
+    _count("lstm_cell_bwd_ref", x)
     i, f, g, o = _gates(x, h, wx, wh, b)
-    c_new = f * c + i * g
-    tc = torch.tanh(c_new)
+    tc = torch.tanh(f * c + i * g)
+    return _lstm_bwd(x, h, c, wx, wh, (i, f, g, o, tc), dh_new, dc_new)
+
+
+def lstm_cell_bwd_saved_ref(x, h, c, wx, wh, gates, dh_new, dc_new):
+    """Plain version of the backward kernel, in its signature: the gradient
+    of :func:`lstm_cell_ref` from the gates that :func:`lstm_cell_saved_ref`
+    (or the forward kernel) saved, (5, B, H).  Returns
+    ``(dx, dh, dc, dwx, dwh, db)``."""
+    _count("lstm_cell_bwd_saved_ref", x)
+    return _lstm_bwd(x, h, c, wx, wh, gates.unbind(0), dh_new, dc_new)
+
+
+def _lstm_bwd(x, h, c, wx, wh, gates, dh_new, dc_new):
+    i, f, g, o, tc = gates
     dc_tot = dc_new + dh_new * o * (1.0 - tc * tc)
     d_i = dc_tot * g * i * (1.0 - i)
     d_f = dc_tot * c * f * (1.0 - f)

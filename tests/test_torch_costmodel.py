@@ -15,11 +15,13 @@ from repro.costmodel import layers as jlayers
 from repro.costmodel import maestro as jmaestro
 from repro.costmodel import workloads as jworkloads
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.core import env as tenv
 from repro_torch.costmodel import dataflows as tdfl
 from repro_torch.costmodel import layers as tlayers
 from repro_torch.costmodel import maestro as tmaestro
 from repro_torch.costmodel import workloads as tworkloads
+from repro_torch.kernels import costmodel_eval
 from repro_torch.kernels import ops as tops
 
 PAPER = ["gnmt", "mnasnet", "mobilenet_v2", "ncf", "resnet50", "transformer"]
@@ -302,3 +304,91 @@ def test_batched_cost_multi_rejects_bad_shapes_and_two_devices():
         tops.batched_cost_multi(layers[..., :7], pe, kt, df)
     with pytest.raises(ValueError, match="more than one device"):
         tops.batched_cost_multi(layers, pe, kt.to("meta"), df)
+
+
+# ---------------------------------------------------------------------------
+# The table kernel's operands: broadcast, strided and scalar forms.
+# ---------------------------------------------------------------------------
+def _operand_forms(case, rng, B, N):
+    """(pe, kt, df) in one operand form and the same values as contiguous
+    (B, N) numpy arrays."""
+    col = lambda lo, hi: rng.integers(lo, hi, (B, 1)).astype(np.float32)
+    row = lambda lo, hi: rng.integers(lo, hi, (N,)).astype(np.float32)
+    full = lambda lo, hi: rng.integers(lo, hi, (B, N)).astype(np.float32)
+    dense = lambda a: np.ascontiguousarray(np.broadcast_to(a, (B, N)))
+    if case == "rollout":          # (E, 1) columns, a Python dataflow
+        pe, kt = col(1, 161), col(1, 17)
+        return ((torch.from_numpy(pe), torch.from_numpy(kt), 2.0),
+                (dense(pe), dense(kt), np.full((B, N), 2.0, np.float32)))
+    if case == "local_ga":         # (P, N) genomes, an (N,) dataflow row
+        pe, kt, df = full(1, 161), full(1, 17), row(0, 3)
+        return ((torch.from_numpy(pe), torch.from_numpy(kt),
+                 torch.from_numpy(df)), (pe, kt, dense(df)))
+    if case == "scalars":          # a (1, 1) tensor, a 0-d tensor
+        pe = np.full((1, 1), rng.integers(1, 161), np.float32)
+        kt = np.float32(rng.integers(1, 17))
+        df = full(0, 3)
+        return ((torch.from_numpy(pe), torch.tensor(kt),
+                 torch.from_numpy(df)),
+                (dense(pe), np.full((B, N), kt, np.float32), df))
+    if case == "strided":          # every other column of wider arrays,
+        pe, kt = full(1, 161), full(1, 17)      # and a transposed array
+        wide = np.repeat(pe, 2, axis=1)
+        df = rng.integers(0, 3, (N, B)).astype(np.float32)
+        return ((torch.from_numpy(wide)[:, ::2],
+                 torch.from_numpy(np.ascontiguousarray(kt.T)).T,
+                 torch.from_numpy(df).T), (pe, kt, np.ascontiguousarray(
+                     df.T)))
+    if case == "expanded":         # stride-0 views of a level grid
+        pe, kt = col(1, 161), row(1, 17)
+        return ((torch.from_numpy(pe).expand(B, N),
+                 torch.from_numpy(kt).expand(B, N), 0),
+                (dense(pe), dense(kt), np.zeros((B, N), np.float32)))
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["rollout", "local_ga", "scalars",
+                                  "strided", "expanded"])
+def test_table_cost_operand_forms_give_contiguous_bits(case):
+    """ops.table_cost with broadcast, strided and scalar pe / kt / df gives
+    the bits of the same values as contiguous (B, N) arrays, and agrees
+    with the reference's cost_eval_ref on the same numpy inputs."""
+    rng = np.random.default_rng(["rollout", "local_ga", "scalars", "strided",
+                                 "expanded"].index(case))
+    B, N = 6, 9
+    layers_t = np.ascontiguousarray(_rand_layers(rng, N).T)
+    forms, dense = _operand_forms(case, rng, B, N)
+    got = tops.table_cost(torch.from_numpy(layers_t), *forms)
+    want = tops.table_cost(torch.from_numpy(layers_t),
+                           *(torch.from_numpy(a) for a in dense))
+    jwant = jref.cost_eval_ref(layers_t, *dense)
+    for g, w, j in zip(got, want, jwant):
+        assert g.shape == (B, N)
+        assert torch.equal(g, w)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,stride,want", [
+    ((4, 9), (9, 1), (9, 1)),          # contiguous (B, N)
+    ((4, 1), (1, 1), (1, 0)),          # an (E, 1) column broadcasts along N
+    ((1, 9), (9, 1), (0, 1)),          # one row broadcasts along B
+    ((9,), (1,), (0, 1)),              # an (N,) row
+    ((), (), (0, 0)),                  # one value
+    ((4, 9), (0, 0), (0, 0)),          # an expanded value
+    ((4, 9), (1, 4), (1, 4)),          # a transposed array
+])
+def test_broadcast_strides(shape, stride, want):
+    assert costmodel_eval.broadcast_strides(shape, stride, 4, 9, "pe") == want
+
+
+@pytest.mark.parametrize("shape,stride,match", [
+    ((4, 9), (-9, 1), "negative stride"),
+    ((9,), (-1,), "negative stride"),
+    ((3, 9), (9, 1), "does not broadcast"),
+    ((4, 8), (8, 1), "does not broadcast"),
+    ((1, 4, 9), (36, 9, 1), "dimensions"),
+])
+def test_broadcast_strides_refuses(shape, stride, match):
+    with pytest.raises(ValueError, match=match):
+        costmodel_eval.broadcast_strides(shape, stride, 4, 9, "pe")

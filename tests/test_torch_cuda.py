@@ -64,6 +64,159 @@ def test_lstm_kernel_and_gradient_match_plain(dev, B, I, H):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
 
 
+# Phase 4 of chip_smoke.py: the search's step, a batch of 64 (several
+# forward blocks and several backward chunks), ragged I, a wide I, H = 256.
+LSTM_SHAPES = [(1, 10, 128), (64, 10, 128), (8, 11, 128), (16, 130, 128),
+               (3, 10, 256)]
+
+
+def _lstm_args(B, I, H, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s, scale=0.1: torch.randn(s, generator=gen,
+                                          device=dev) * scale
+    return ([f(B, I, scale=1.0), f(B, H), f(B, H), f(I, 4 * H),
+             f(H, 4 * H), f(4 * H)], f(B, H, scale=1.0), f(B, H, scale=1.0))
+
+
+@pytest.mark.parametrize("B,I,H", LSTM_SHAPES)
+def test_lstm_backward_kernel_matches_plain(dev, B, I, H):
+    """The forward's saved gates and the backward kernel against their
+    plain versions (atol 1e-5); one launch each; a second call gives the
+    same bits."""
+    args, dh, dc = _lstm_args(B, I, H, dev, seed=B * I + H)
+    ops.reset_launch_counts()
+    out = lstm_cell.lstm_cell(*args)
+    h2, c2, gates = out[0], out[1], out[2:]
+    want_h, want_c, want_gates = ref.lstm_cell_saved_ref(*args)
+    for g, w in ((h2, want_h), (c2, want_c), (gates, want_gates)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    got = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
+    again = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
+    counts = ops.launch_counts()
+    assert counts["lstm_cell"] == 1 and counts["lstm_cell_bwd"] == 2
+    saved = ref.lstm_cell_bwd_saved_ref(*args[:5], gates, dh, dc)
+    recomputed = ref.lstm_cell_bwd_ref(*args, dh, dc)
+    torch.cuda.synchronize()
+    for name, g, a, w, r in zip(("dx", "dh", "dc", "dwx", "dwh", "db"), got,
+                                again, saved, recomputed):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0, msg=name)
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0, msg=name)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("B,I,H", [
+    (2, lstm_cell.MAX_K - 128, 128),    # the forward's rows past 48 KB
+    (5, 10, 700),                       # backward: tiles of H, chunks of B
+    (3, 10, lstm_cell.MAX_K - 10),      # I + H at the limit, H tiled
+])
+def test_lstm_kernels_up_to_the_size_limit(dev, B, I, H):
+    """Every I + H up to ``MAX_K``, the limit of the port's first LSTM
+    kernel, runs: forward and backward against their plain versions
+    computed in float64 on the same inputs (at these sizes the float32
+    plain version's own rounding is of the order of the tolerance), atol
+    and rtol 1e-5; a second backward call gives the same bits."""
+    args, dh, dc = _lstm_args(B, I, H, dev, seed=B + I + H)
+    f64 = lambda ts: [t.double() for t in ts]
+    out = lstm_cell.lstm_cell(*args)
+    want = ref.lstm_cell_saved_ref(*f64(args))
+    for g, w in zip((out[0], out[1], out[2:]), want):
+        torch.testing.assert_close(g.double(), w, atol=1e-5, rtol=1e-5)
+    gates = out[2:]
+    got = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
+    again = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
+    saved = ref.lstm_cell_bwd_saved_ref(*f64(args[:5] + [gates, dh, dc]))
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("dx", "dh", "dc", "dwx", "dwh", "db"), got,
+                             again, saved):
+        torch.testing.assert_close(g.double(), w, atol=1e-5, rtol=1e-5,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        assert torch.equal(g, a), name
+
+
+def test_lstm_autograd_runs_one_backward_launch_per_step(dev):
+    """Three chained steps under autograd: three forward and three backward
+    launches, and no plain version on the card."""
+    args, _, _ = _lstm_args(1, 10, 128, dev, seed=3)
+    leaves = [a.requires_grad_() for a in args]
+    ops.reset_launch_counts()
+    x, h, c, wx, wh, b = leaves
+    for _ in range(3):
+        h, c = ops.lstm_step(x, h, c, wx, wh, b)
+    grads = torch.autograd.grad(h.sum(), leaves)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert ops.launch_counts()["lstm_cell"] == 3
+    assert ops.launch_counts()["lstm_cell_bwd"] == 3
+    assert all(v == 0 for v in ref.cuda_calls.values())
+
+
+def test_cost_kernel_reads_strided_and_broadcast_operands(dev):
+    """Columns, rows, stride-0 views, strided slices, 0-d tensors and
+    Python numbers give the bits of the same values as contiguous (B, N)
+    tensors, with one launch each and no copy."""
+    arr = layers_lib.layers_to_array(workloads.get_workload("mobilenet_v2"))
+    N = arr.shape[0]
+    lt = torch.as_tensor(arr, dtype=torch.float32, device=dev).T.contiguous()
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    B = 20
+    pe, kt = t(rng.integers(1, 161, (B, N))), t(rng.integers(1, 17, (B, N)))
+    pe_col, kt_col = pe[:, :1], kt[:, :1]
+    row = t(rng.integers(0, 3, (N,)))
+    wide = t(np.repeat(pe.cpu().numpy(), 3, axis=1))
+    cases = [
+        ((pe_col, kt_col, 2.0), (pe_col.expand(B, N), kt_col.expand(B, N),
+                                 torch.full((B, N), 2.0, device=dev))),
+        ((pe, kt, row), (pe, kt, row.expand(B, N))),
+        ((wide[:, ::3], kt.T.contiguous().T, 1), (pe, kt,
+                                                 torch.ones_like(pe))),
+        ((t(5.0), kt, t([[0.0]])), (torch.full_like(pe, 5.0), kt,
+                                    torch.zeros_like(pe))),
+    ]
+    for forms, dense in cases:
+        dense = [d.contiguous() for d in dense]
+        before = ops.launch_counts()["cost_eval"]
+        got = costmodel_eval.cost_eval(lt, *forms)
+        assert ops.launch_counts()["cost_eval"] == before + 1
+        want = costmodel_eval.cost_eval(lt, *dense)
+        plain = ref.cost_eval_ref(lt, *dense)
+        torch.cuda.synchronize()
+        for g, w, p in zip(got, want, plain):
+            assert g.shape == (B, N)
+            assert torch.equal(g, w)
+            assert torch.equal(g, p)
+
+
+def test_cost_and_lstm_wrappers_refuse_bad_inputs(dev):
+    """A wrong dtype, a tensor off the card, a shape that does not
+    broadcast, and a negative stride (which no torch tensor has; the stride
+    helper refuses it) all raise before any launch."""
+    lt = torch.ones((8, 5), device=dev)
+    pe = torch.ones((2, 5), device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="float32"):
+        costmodel_eval.cost_eval(lt, pe.double(), pe, 0.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        costmodel_eval.cost_eval(lt, pe, pe.cpu(), 0.0)
+    with pytest.raises(ValueError, match="does not broadcast"):
+        costmodel_eval.cost_eval(lt, pe, torch.ones((3, 5), device=dev), 0.0)
+    with pytest.raises(ValueError, match="negative stride"):
+        costmodel_eval.broadcast_strides((2, 5), (-5, 1), 2, 5, "pe")
+    args, dh, dc = _lstm_args(2, 10, 128, dev, seed=0)
+    gates = torch.zeros((5, 2, 128), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        lstm_cell.lstm_cell_bwd(*args[:5], gates.double(), dh, dc)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lstm_cell.lstm_cell_bwd(*args[:5], gates, dh.cpu(), dc)
+    with pytest.raises(ValueError, match="shape"):
+        lstm_cell.lstm_cell_bwd(*args[:5], gates[:4], dh, dc)
+    with pytest.raises(ValueError, match="not contiguous"):
+        lstm_cell.lstm_cell(args[0], args[1], args[2],
+                            args[3].T.contiguous().T, args[4], args[5])
+    assert all(v == 0 for v in ops.launch_counts().values())
+
+
 def test_batched_cost_rejects_cpu_layers_with_cuda_points(dev):
     """A CPU layer table with points on the card raises: the evaluation is
     neither moved to the CPU nor run by the plain version."""
