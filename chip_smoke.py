@@ -26,10 +26,11 @@ and no result line:
    single-table kernel.
 4. LSTM kernels vs their plain versions (atol 1e-5) at ``LSTM_SHAPES``:
    the forward's h', c' and the gates it saves for the backward, the
-   backward kernel from those gates (against the plain version in its
-   signature and against the one that recomputes the gates; a second
-   call must give the same bits), and the autograd Function against
-   autograd through the plain version.
+   backward from those gates, on its single pass and forced onto its
+   tiled kernel (each against the plain version in its signature and
+   against the one that recomputes the gates; a second call must give
+   the same bits), and the autograd Function against autograd through
+   the plain version.
 5. Flash-decode kernel vs its plain version (atol 1e-4 in float32 and in
    bfloat16: both read the same values and compute in float32), at the
    LM path's shape (8, 16, 2, 128, T = 520), a 32k cache, the reference's
@@ -44,13 +45,17 @@ and no result line:
    full width (LSTM(128), L=12, latency / area / iot / dla, local GA with
    population 20 and 2000 generations), then method ga (population 100,
    5000 generations).  Only the epoch count is cut (the paper uses 5000).
-   Every launch counter is set to 0 just before and read just after; each
-   kernel must have launched as often as the run implies (the LSTM
+   Stage 1 replays one CUDA graph of its epoch.  Every launch counter is
+   set to 0 just before and read just after; each kernel must have
+   launched as often as the run implies, replays counted (the LSTM
    backward kernel once per forward step), and no plain version may have
    run on the card.  Each outcome must be feasible, have a monotone
    history of length eps, and its best re-scored by the plain version on
    the CPU must match best_value (rtol 1e-5).  Then, outside the counted
-   run, profiler traces of 3 stage-1 epochs and 20 local-GA generations
+   run: 20 epochs through the graph against 20 eager epochs of the same
+   seed, every metric and the final state bit-equal
+   (``stage1_graph_vs_eager``); profiler traces of one eager stage-1
+   epoch, 20 graphed epochs and 20 local-GA generations
    (``search_traces``): the device's busy share, device events per epoch
    and per generation, and device time by kernel.
 7. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
@@ -82,10 +87,10 @@ and no result line:
    device µs per launch from a profiler trace of back-to-back calls
    (``search_kernel_times`` for the search path's calls: the cost kernel
    at the rollout's (1, 1) and at (20, 53), the LSTM forward, and its
-   backward both alone and under autograd), printed as one
-   ``{"kernels": [...]}`` line.  ``tools/profile_search_kernels.py`` runs
-   the same search-path measurements on another tree, such as a parent
-   commit.
+   backward both alone and under autograd; the backward also on its tiled
+   kernel), printed as one ``{"kernels": [...]}`` line.
+   ``tools/profile_search_kernels.py`` runs the same search-path
+   measurements on another tree, such as a parent commit.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the JAX package.
@@ -125,6 +130,9 @@ LSTM_SHAPES = ((1, 10, 128), (64, 10, 128), (8, 11, 128), (16, 130, 128),
 # baseline GA's generations at population 100.
 EPOCHS = 1000
 GA_GENERATIONS = 2000
+# Phase 6's check of the CUDA graph against eager epochs, and its trace.
+GRAPH_CHECK_EPOCHS = 20
+GRAPHED_TRACE_EPOCHS = 20
 BASELINE_GA_GENERATIONS = 5000
 # Bytes the per-row cost kernel moves per point: 8 layer fields, pe, kt,
 # df in, four costs out, all float32.
@@ -479,14 +487,18 @@ def phase_lstm_kernel(dev):
         gen.manual_seed(100 + k)
         dh, dc = (torch.randn((B, H), generator=gen, device=dev)
                   for _ in range(2))
-        bwd = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
-        again = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc)
-        err(bwd, ref.lstm_cell_bwd_saved_ref(*args[:5], gates, dh, dc),
-            f"backward at {(B, I, H)}", "bwd")
-        err(bwd, ref.lstm_cell_bwd_ref(*args, dh, dc),
-            f"backward vs the recomputing formula at {(B, I, H)}", "bwd")
-        check(all(torch.equal(a, b) for a, b in zip(bwd, again)),
-              f"LSTM backward at {(B, I, H)}: two calls differ")
+        for tiled in (False, True):
+            what = f"{'tiled ' if tiled else ''}backward at {(B, I, H)}"
+            bwd = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc,
+                                          tiled=tiled)
+            again = lstm_cell.lstm_cell_bwd(*args[:5], gates, dh, dc,
+                                            tiled=tiled)
+            err(bwd, ref.lstm_cell_bwd_saved_ref(*args[:5], gates, dh, dc),
+                what, "bwd")
+            err(bwd, ref.lstm_cell_bwd_ref(*args, dh, dc),
+                f"{what} vs the recomputing formula", "bwd")
+            check(all(torch.equal(a, b) for a, b in zip(bwd, again)),
+                  f"LSTM {what}: two calls differ")
         leaves = [a.clone().requires_grad_() for a in args]
         leaves_ref = [a.clone().requires_grad_() for a in args]
         out_k = lstm_cell.LSTMCellFn.apply(*leaves)
@@ -496,8 +508,8 @@ def phase_lstm_kernel(dev):
             f"gradient through LSTMCellFn at {(B, I, H)}", "grad")
     log(f"[lstm] kernels == plain: max abs err forward {worst['fwd']:.3g}, "
         f"saved gates {worst['gates']:.3g}, backward {worst['bwd']:.3g}, "
-        f"gradient through LSTMCellFn {worst['grad']:.3g} (atol 1e-5); two "
-        "backward calls bit-equal")
+        f"gradient through LSTMCellFn {worst['grad']:.3g} (atol 1e-5); the "
+        "single-pass and the tiled backward each bit-equal over two calls")
     return worst
 
 
@@ -519,7 +531,7 @@ def phase_flash_kernel(dev):
     the sums differs."""
     import torch
 
-    from repro_torch.kernels import flash_decode, ref
+    from repro_torch.kernels import flash_decode, ops, ref
 
     worst = {"float32": 0.0, "bfloat16": 0.0, "cases": 0, "split_cases": 0}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -527,11 +539,11 @@ def phase_flash_kernel(dev):
     def compare(q, k, v, what):
         S, _ = flash_decode.plan_splits(q.shape[0], k.shape[2], k.shape[1],
                                         sms)
-        combines = flash_decode.combine_launches
+        combines = ops.launch_counts()["flash_decode_combine"]
         got = flash_decode.flash_decode(q, k, v)
-        check(flash_decode.combine_launches - combines == int(S > 1),
-              f"flash-decode on {what}: {S} splits, combine launched "
-              f"{flash_decode.combine_launches - combines} times")
+        combined = ops.launch_counts()["flash_decode_combine"] - combines
+        check(combined == int(S > 1), f"flash-decode on {what}: {S} splits, "
+              f"combine launched {combined} times")
         again = flash_decode.flash_decode(q, k, v)
         want = ref.flash_decode_ref(q, k, v)
         torch.cuda.synchronize()
@@ -658,8 +670,11 @@ def phase_main_path(epochs, ga_generations):
               "ga_s": t2 - t1, "ga_generations_baseline": ga_gens}
     log(f"[main] launches {json.dumps(counts)}; plain versions on the card "
         f"{json.dumps(plain_on_card)}; {json.dumps(timing)}")
-    # Traces of a few epochs and generations, after the counted run.
-    traces = search_traces(torch.device("cuda", 0))
+    # After the counted run: the graph against eager epochs, then traces
+    # of a few epochs and generations.
+    dev = torch.device("cuda", 0)
+    timing["graph_vs_eager"] = stage1_graph_vs_eager(dev)
+    traces = search_traces(dev)
     for name, tr in traces.items():
         log(f"[main] trace of {tr['calls']} x {name}: "
             f"{tr['unprofiled_ms']:.3f} ms each unprofiled, device "
@@ -670,6 +685,69 @@ def phase_main_path(epochs, ga_generations):
             f"{json.dumps(tr['kernels'][:8])}")
     timing["traces"] = traces
     return counts, timing
+
+
+def _stage1_setup(dev, epochs=EPOCHS):
+    """Phase 6's stage 1: mobilenet_v2 at full width (LSTM(128), L = 12,
+    latency / area / iot / dla, LP, E = 1, seed 0)."""
+    from repro_torch import api
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core import reinforce
+    from repro_torch.costmodel import workloads
+
+    wl = workloads.get_workload("mobilenet_v2")
+    ecfg = api.EnvConfig(objective="latency", constraint="area",
+                         platform="iot", dataflow=0, levels=12)
+    pcfg = policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim, mix=ecfg.mix,
+                                   levels=ecfg.levels)
+    rcfg = reinforce.ReinforceConfig(epochs=epochs, seed=0)
+    return wl, ecfg, pcfg, rcfg, env_lib.make_env(wl, ecfg, dev)
+
+
+def stage1_graph_vs_eager(dev, epochs=GRAPH_CHECK_EPOCHS):
+    """``epochs`` stage-1 epochs through ``reinforce.run_search`` (one CUDA
+    graph, replayed) against as many epochs of ``make_epoch_fn`` run
+    eagerly from the same seed: every metric of every epoch and the final
+    state (params, Adam state, best, epoch, generator) must be
+    bit-equal."""
+    import torch
+
+    from repro_torch.core import reinforce
+    from repro_torch.training import optim
+
+    wl, ecfg, pcfg, rcfg, env = _stage1_setup(dev, epochs)
+    t0 = time.perf_counter()
+    got, hist = reinforce.run_search(wl, ecfg, rcfg, pcfg, env=env)
+    graphed_s = time.perf_counter() - t0
+    opt = optim.Adam(lr=rcfg.lr)
+    st = reinforce.init_search(env, ecfg, pcfg, rcfg, opt)
+    epoch_fn = reinforce.make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        st, m = epoch_fn(st)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    for k in reinforce.METRICS:
+        want = torch.stack([m[k] for m in metrics]).cpu().numpy()
+        check(hist[k].tobytes() == want.tobytes(), f"graphed stage 1: "
+              f"{k} differs from the eager epochs: {hist[k]} vs {want}")
+    same = lambda xs, ys: all(torch.equal(a, b) for a, b in zip(xs, ys))
+    check(same(got.params.parameters(), st.params.parameters()),
+          "graphed stage 1: params differ from the eager epochs'")
+    check(same(reinforce.state_tensors(got), reinforce.state_tensors(st)),
+          "graphed stage 1: Adam state or best differ from the eager "
+          "epochs'")
+    check(torch.equal(got.generator.get_state(), st.generator.get_state()),
+          "graphed stage 1: the generator's state differs from the eager "
+          "epochs'")
+    out = {"epochs": epochs, "bit_equal": True,
+           "graphed_s_with_capture": graphed_s, "eager_s": eager_s,
+           "best_value": float(got.best_value)}
+    log(f"[main] graph vs eager: {json.dumps(out)}")
+    return out
 
 
 def _service_requests(specs):
@@ -871,10 +949,12 @@ def _per_launch_us(trace, name):
     return (sum(r[1] for r in rows) / n if n else None), n
 
 
-# Kernel names in a trace, and the search path's timed calls.
+# Kernel names in a trace (the backward's two kernels,
+# lstm_cell_bwd_kernel and lstm_cell_bwd_untiled_kernel, both hold the
+# last), and the search path's timed calls.
 COST_KERNEL, LSTM_KERNEL, LSTM_BWD_KERNEL = ("cost_eval_kernel",
                                              "lstm_cell_kernel",
-                                             "lstm_cell_bwd_kernel")
+                                             "lstm_cell_bwd")
 SEARCH_TRACE_CALLS = 200
 
 
@@ -887,7 +967,8 @@ def search_kernel_calls(dev):
     ``table_cost 20x53`` a local-GA generation's call ((P, N) genomes, the
     frozen (N,) dataflow row); the LSTM forward's wrapper at (1, 10, 128)
     (h', c' and the saved gates, as stage 1 calls it), the step under
-    autograd, and its backward (``torch.autograd.grad`` over a kept
+    autograd, its backward's wrapper on those saved gates, and the
+    backward under autograd (``torch.autograd.grad`` over a kept
     graph)."""
     import torch
 
@@ -913,6 +994,7 @@ def search_kernel_calls(dev):
     leaves = [a.clone().requires_grad_() for a in (x, h, c, wx, wh, b)]
     outs = ops.lstm_step(*leaves)
     up = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    gates = lstm_cell.lstm_cell(x, h, c, wx, wh, b)[2:]
     return {
         "cost_eval 1x1": (lambda: ops.table_cost(row, pe1, kt1, df1),
                           COST_KERNEL, 2000),
@@ -925,6 +1007,8 @@ def search_kernel_calls(dev):
                                LSTM_KERNEL, 2000),
         "lstm_step autograd 1x10x128": (lambda: ops.lstm_step(*leaves),
                                         LSTM_KERNEL, 2000),
+        "lstm_cell_bwd wrapper 1x10x128": (lambda: lstm_cell.lstm_cell_bwd(
+            x, h, c, wx, wh, gates, *up), LSTM_BWD_KERNEL, 2000),
         "lstm_cell_bwd 1x10x128": (lambda: torch.autograd.grad(
             outs, leaves, up, retain_graph=True), LSTM_BWD_KERNEL, 500),
     }
@@ -951,35 +1035,42 @@ def search_kernel_times(dev, calls=SEARCH_TRACE_CALLS):
     return out
 
 
-def search_traces(dev, epochs=3, generations=20):
-    """Phase 6's traces: ``epochs`` stage-1 epochs (mobilenet_v2, LSTM(128),
-    latency / area / iot / dla, E = 1) and ``generations`` local-GA
-    generations (population 20) from the epochs' best, each after a
-    warm-up: unprofiled ms per epoch / generation, and from a profiler
-    trace the device's busy share of it, device events per epoch /
-    generation, and device time by kernel."""
-    from repro_torch import api
-    from repro_torch.core import env as env_lib
-    from repro_torch.core import ga as ga_lib
-    from repro_torch.core import policy as policy_lib
+def stage1_epoch_calls(dev):
+    """Phase 6's stage-1 epoch as this tree of the port runs it: ``eager``
+    (``make_epoch_fn``) and, where the tree has ``EpochRunner``,
+    ``graphed`` (one replay of its captured epoch), each on its own state;
+    and the eager state's box, for the local GA that follows it."""
     from repro_torch.core import reinforce
-    from repro_torch.costmodel import workloads
     from repro_torch.training import optim
 
-    ecfg = api.EnvConfig(objective="latency", constraint="area",
-                         platform="iot", dataflow=0, levels=12)
-    env = env_lib.make_env(workloads.get_workload("mobilenet_v2"), ecfg,
-                           dev)
-    pcfg = policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim, mix=ecfg.mix,
-                                   levels=ecfg.levels)
-    rcfg = reinforce.ReinforceConfig()
+    wl, ecfg, pcfg, rcfg, env = _stage1_setup(dev)
     opt = optim.Adam(lr=rcfg.lr)
     st = [reinforce.init_search(env, ecfg, pcfg, rcfg, opt)]
     epoch_fn = reinforce.make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
 
-    def epoch():
+    def eager():
         st[0], _ = epoch_fn(st[0])
 
+    calls = {"eager": eager}
+    if hasattr(reinforce, "EpochRunner"):
+        runner = reinforce.EpochRunner(
+            reinforce.init_search(env, ecfg, pcfg, rcfg, opt),
+            reinforce.make_inplace_epoch_fn(ecfg, pcfg, rcfg, env, opt), 1)
+        calls["graphed"] = runner.step
+    return calls, (env, ecfg, st)
+
+
+def search_traces(dev, graphed=GRAPHED_TRACE_EPOCHS, generations=20):
+    """Phase 6's traces: one eager stage-1 epoch, ``graphed`` replays of
+    the captured epoch, and ``generations`` local-GA generations
+    (population 20) from the eager epochs' best, each after a warm-up:
+    unprofiled ms per epoch / generation, and from a profiler trace the
+    device's busy share of it, device events per epoch / generation, and
+    device time by kernel."""
+    from repro_torch.core import ga as ga_lib
+    from repro_torch.core import reinforce
+
+    calls, (env, ecfg, st) = stage1_epoch_calls(dev)
     pe, kt, df = reinforce.solution_arrays(st[0], env)
     engine = ga_lib.make_local_ga_engine(env, ecfg, pe, kt, df,
                                          ga_lib.LocalGAConfig())
@@ -989,7 +1080,8 @@ def search_traces(dev, epochs=3, generations=20):
         gs[0], _ = engine.evolve(gs[0], engine.fitness(gs[0].pop))
 
     out = {}
-    for name, fn, n in (("stage1_epoch", epoch, epochs),
+    for name, fn, n in (("stage1_epoch_eager", calls["eager"], 1),
+                        ("stage1_epoch_graphed", calls["graphed"], graphed),
                         ("local_ga_generation", generation, generations)):
         for _ in range(2):
             fn()
@@ -1340,14 +1432,17 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
         2 * Bl * (I + H) * 4 * H + LSTM_TAIL_OPS_PER_UNIT * Bl * H)
 
     # The backward at the same shape: the kernel's wrapper alone (ms, as
-    # the other rows), and autograd's call of it over a kept graph.
+    # the other rows) on the single pass the search runs and, forced, on
+    # the tiled kernel; and autograd's call of it over a kept graph.
     gates = lstm_cell.lstm_cell(x, h, c, wx, wh, b)[2:]
     dh, dc = (torch.randn((Bl, H), generator=gen, device=dev)
               for _ in range(2))
-    bwd = lambda: lstm_cell.lstm_cell_bwd(x, h, c, wx, wh, gates, dh, dc)
-    bwd_trace = _kernel_trace(bwd, SEARCH_TRACE_CALLS)
-    check(bwd_trace is not None, "the profiler trace of the LSTM backward "
-          "shows no device time")
+    bwd_main = search["lstm_cell_bwd wrapper 1x10x128"]
+    tiled = lambda: lstm_cell.lstm_cell_bwd(x, h, c, wx, wh, gates, dh, dc,
+                                            tiled=True)
+    tiled_trace = _kernel_trace(tiled, SEARCH_TRACE_CALLS)
+    check(tiled_trace is not None, "the profiler trace of the tiled LSTM "
+          "backward shows no device time")
     lib_leaves = [t.clone().requires_grad_() for t in (x, h, c, w_ih, w_hh)]
     lib_outs = torch.lstm_cell(lib_leaves[0], (lib_leaves[1], lib_leaves[2]),
                                lib_leaves[3], lib_leaves[4],
@@ -1359,8 +1454,12 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
         "shape": [Bl, I, H], "launches": counts["lstm_cell_bwd"],
         "launches_per_run": counts["lstm_cell_bwd"],
         "max_abs_err": lstm_err["bwd"], "max_err": lstm_err["bwd"],
-        "ms": time_ms(bwd, 2000), "device_us_per_launch":
-            _per_launch_us(bwd_trace, LSTM_BWD_KERNEL)[0],
+        "ms": bwd_main["ms"], "kernel_ms": bwd_main["ms"],
+        "device_us_per_launch": bwd_main["kernel_device_us_per_launch"],
+        "path": "single pass",
+        "tiled_ms": time_ms(tiled, 2000),
+        "tiled_device_us_per_launch":
+            _per_launch_us(tiled_trace, LSTM_BWD_KERNEL)[0],
         "autograd": search["lstm_cell_bwd 1x10x128"],
         "plain_ms": time_ms(lambda: ref.lstm_cell_bwd_ref(
             x, h, c, wx, wh, b, dh, dc), 300),
@@ -1412,6 +1511,9 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
             f"{e['device_us_per_launch']} µs of device time per launch, "
             f"bound {e['bound_ms']:.3g} ms ({e['bound_by']}), plain "
             f"{e['plain_ms']:.4f} ms, library {e['library_ms']} ms")
+    log(f"[timings] lstm_cell_bwd tiled: {bwd_entry['tiled_ms']:.4f} ms per "
+        f"call, {bwd_entry['tiled_device_us_per_launch']} µs of device time "
+        "per launch")
     return [cost_entry, lstm_entry, bwd_entry, multi_entry]
 
 

@@ -1,0 +1,71 @@
+"""One step of an engine captured as a CUDA graph and replayed.
+
+The port's counterpart of a jitted step in the reference: the step's few
+thousand small launches are recorded once and then replayed by one call,
+so the host no longer dispatches them one by one.  What a replay computes
+is fixed at capture: the step must read and write the same tensors every
+time (its state lives in static buffers, updated in place) and must not
+sync with the host.
+
+The kernels' wrappers count their launches (``ops.launch_counts``).
+Launches made while warming up or capturing are recorded on the side
+stream instead of counted; each replay then counts the launches its
+capture recorded.  A capture that fails raises: nothing falls back to
+running the step eagerly.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Sequence
+
+import torch
+
+from repro_torch.kernels import build
+
+# Calls of the warm-up before a capture.
+WARMUPS = 3
+# One capture at a time in this process: a capture starts with a device
+# synchronize, which must not meet another thread's capture under way.
+_capture_lock = threading.Lock()
+
+
+class CapturedStep:
+    """``fn`` captured on ``device`` after :data:`WARMUPS` calls of
+    ``warmup``.
+
+    ``warmup`` runs the same work as ``fn`` on other buffers (cuBLAS and
+    autograd set themselves up on the first calls, which must not run
+    under capture).  ``generators`` are the CUDA generators ``fn`` draws
+    from: each replay draws what an eager call would draw next, and
+    advances them as that call would.
+    """
+
+    def __init__(self, fn: Callable[[], None], warmup: Callable[[], None],
+                 device, generators: Sequence[torch.Generator] = ()):
+        device = torch.device(device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches: Dict[str, int] = {}
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        key = stream.cuda_stream
+        build.recording[key] = {}      # the warm-up's launches: dropped
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(WARMUPS):
+                    warmup()
+            torch.cuda.current_stream(device).wait_stream(stream)
+            build.recording[key] = self.launches
+            for gen in generators:
+                self.graph.register_generator_state(gen)
+            # Other threads (the search service's workers) may use the card
+            # during the capture; only this thread is held to its rules.
+            with _capture_lock, torch.cuda.graph(
+                    self.graph, stream=stream,
+                    capture_error_mode="thread_local"):
+                fn()
+        finally:
+            build.recording.pop(key, None)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        build.add_launches(self.launches)

@@ -19,10 +19,15 @@ with one LSTM-kernel launch; the backward runs one LSTM backward-kernel
 launch per step.
 
 Unlike the reference, whose parameters are immutable, the policy module is
-updated in place by each epoch.
+updated in place by each epoch.  :func:`run_search` goes further: it runs
+the epoch in place on one state (:func:`make_inplace_epoch_fn`), and on
+the card captures that epoch once as a CUDA graph and replays it for every
+epoch (:class:`EpochRunner`), the counterpart of the reference's jitted
+scan over epochs.  On the CPU it runs the same epoch eagerly.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.core import chunk as chunk_lib
 from repro_torch.core import env as env_lib
+from repro_torch.core import graph as graph_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.kernels import ops
 from repro_torch.training import optim
@@ -277,6 +283,109 @@ def init_search(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
         generator=gen, epoch=torch.zeros((), dtype=torch.int64, device=dev))
 
 
+# The metrics of an epoch, in the order of the in-place epoch's buffer.
+METRICS = ("loss", "best_value", "mean_value", "feasible_frac",
+           "mean_return")
+
+
+def state_tensors(state: SearchState):
+    """Every tensor of ``state`` but the params and the generator, in a
+    fixed order."""
+    opt = state.opt_state
+    return ([opt.step, *(opt.mu[k] for k in sorted(opt.mu)),
+             *(opt.nu[k] for k in sorted(opt.nu)), state.pmin,
+             state.best_value, state.best_pe_lvl, state.best_kt_lvl,
+             state.best_df, state.epoch])
+
+
+def make_inplace_epoch_fn(ecfg: env_lib.EnvConfig,
+                          pcfg: policy_lib.PolicyConfig,
+                          rcfg: ReinforceConfig, env: env_lib.EnvArrays,
+                          opt: optim.Adam):
+    """Build epoch_(state, metrics): the epoch of :func:`make_epoch_fn`
+    written back in place -- the new params, Adam state, pmin, best value,
+    best actions and epoch into ``state``'s own tensors, the
+    :data:`METRICS` into the (5,) float32 tensor ``metrics`` -- so that
+    every epoch reads and writes the same buffers.  The same bits as
+    :func:`make_epoch_fn`."""
+    epoch_fn = make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+
+    def epoch_(state: SearchState, metrics: torch.Tensor):
+        new, m = epoch_fn(state)       # updates the params in place
+        with torch.no_grad():
+            for old, val in zip(state_tensors(state), state_tensors(new)):
+                old.copy_(val)
+            metrics.copy_(torch.stack([m[k] for k in METRICS]))
+
+    return epoch_
+
+
+def clone_state(state: SearchState) -> SearchState:
+    """A copy of ``state`` that shares no tensor and no generator with it."""
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    opt = state.opt_state
+    c = lambda t: t.detach().clone()
+    return SearchState(
+        params=copy.deepcopy(state.params),
+        opt_state=optim.OptState(
+            c(opt.step), {k: c(v) for k, v in opt.mu.items()},
+            {k: c(v) for k, v in opt.nu.items()}),
+        pmin=c(state.pmin), best_value=c(state.best_value),
+        best_pe_lvl=c(state.best_pe_lvl), best_kt_lvl=c(state.best_kt_lvl),
+        best_df=c(state.best_df), generator=gen, epoch=c(state.epoch))
+
+
+class EpochRunner:
+    """Stage-1 epochs in place on ``state``, which it owns (its tensors
+    and generator are the static buffers).
+
+    One epoch (:func:`make_inplace_epoch_fn`) also writes its metrics into
+    column ``slot`` of a (5, capacity) history on the device and moves
+    ``slot`` on, modulo the capacity.  On the card that epoch is captured
+    once as a CUDA graph, after warm-up epochs on a copy of the state (so
+    the run's own generator does not move), and :meth:`step` replays it;
+    on the CPU :meth:`step` runs it eagerly.
+    """
+
+    def __init__(self, state: SearchState, epoch_, capacity: int):
+        dev = state.pmin.device
+        self.state = state
+        self._epoch = epoch_
+        self.metrics = torch.zeros((len(METRICS),), device=dev)
+        self.hist = torch.zeros((len(METRICS), max(capacity, 1)),
+                                device=dev)
+        self.slot = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graph = None
+        if dev.type == "cuda":
+            scratch = clone_state(state)
+            scratch_metrics = torch.zeros_like(self.metrics)
+            self.graph = graph_lib.CapturedStep(
+                self._one, lambda: epoch_(scratch, scratch_metrics), dev,
+                generators=(state.generator,))
+
+    def _one(self):
+        self._epoch(self.state, self.metrics)
+        self.hist.index_copy_(1, self.slot.view(1), self.metrics.view(-1, 1))
+        torch.remainder(self.slot + 1, self.hist.shape[1], out=self.slot)
+
+    def step(self):
+        """One epoch: a replay of the graph on the card, eager on the CPU."""
+        if self.graph is None:
+            self._one()
+        else:
+            self.graph.replay()
+
+    def run(self, n: int):
+        """``n`` epochs (at most the capacity); their history, read back to
+        the host in one sync, as a dict of (n,) float32 arrays."""
+        self.slot.zero_()
+        for _ in range(n):
+            self.step()
+        h = self.hist[:, :n].to("cpu", copy=True).numpy()
+        return {k: h[i] for i, k in enumerate(METRICS)}
+
+
 def run_search(workload, ecfg: env_lib.EnvConfig,
                rcfg: ReinforceConfig = ReinforceConfig(),
                pcfg: Optional[policy_lib.PolicyConfig] = None,
@@ -289,25 +398,27 @@ def run_search(workload, ecfg: env_lib.EnvConfig,
 
     Runs in chunks of ``chunk`` epochs; ``on_chunk(state, chunk_history,
     epochs_done)`` fires after each chunk.  The history of a chunk is read
-    back to the host once, at its end.
+    back to the host once, at its end.  The epochs run in place on a copy
+    of ``state`` (a fresh state if None), through one CUDA graph on the
+    card (:class:`EpochRunner`); ``on_chunk`` and the result get copies,
+    and a run resumed from one gives the bits of an uninterrupted run.
     """
     if env is None:
         env = env_lib.make_env(workload, ecfg, device)
     pcfg = pcfg or policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim, mix=ecfg.mix,
                                            levels=ecfg.levels)
     opt = optim.Adam(lr=rcfg.lr)
-    if state is None:
-        state = init_search(env, ecfg, pcfg, rcfg, opt)
-    epoch_fn = make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+    state = (init_search(env, ecfg, pcfg, rcfg, opt) if state is None
+             else clone_state(state))
+    if rcfg.epochs <= 0:
+        return state, {}
+    runner = EpochRunner(
+        state, make_inplace_epoch_fn(ecfg, pcfg, rcfg, env, opt),
+        min(max(int(chunk), 1), rcfg.epochs) if chunk else rcfg.epochs)
 
-    def run_chunk(state, n):
-        metrics = []
-        for _ in range(n):
-            state, m = epoch_fn(state)
-            metrics.append(m)
-        hist = {k: torch.stack([m[k] for m in metrics]).cpu().numpy()
-                for k in metrics[0]}
-        return state, hist
+    def run_chunk(_, n):
+        hist = runner.run(n)
+        return clone_state(runner.state), hist
 
     state, history = chunk_lib.drive(state, rcfg.epochs, chunk, run_chunk,
                                      on_chunk)

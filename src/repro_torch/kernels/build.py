@@ -5,6 +5,14 @@ plain C interface, ``_build/<name>-<hash>.so`` next to this file (the
 directory is git-ignored), and is loaded through ``ctypes``.  The hash
 covers the source and the flags, so an edited source is rebuilt.  Only
 the sources in this package are built.
+
+``launches`` counts the kernels' launches by kernel: each wrapper calls
+:func:`count` where it launches.  A launch on a stream listed in
+``recording`` (a CUDA graph's capture, or the warm-up before it) is
+added to that stream's record instead; a graph's replays then add its
+record (:mod:`repro_torch.core.graph`).  These libraries carry nvcc's
+static CUDA runtime, and their launches are captured into a graph like
+PyTorch's own (``tests/test_torch_cuda.py`` replays them bit for bit).
 """
 from __future__ import annotations
 
@@ -37,6 +45,38 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _raw_stream = None
 # Threads that launch a kernel for the first time at once build it once.
 _load_lock = threading.Lock()
+
+KERNELS = ("cost_eval", "cost_eval_multi", "lstm_cell", "lstm_cell_bwd",
+           "flash_decode", "flash_decode_combine")
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# Raw stream handle -> {kernel: launches} recorded on it.
+recording: Dict[int, Dict[str, int]] = {}
+# Worker and dispatcher threads of the search service launch concurrently.
+_count_lock = threading.Lock()
+
+
+def count(kernel: str, stream: int) -> None:
+    """Count one launch of ``kernel`` on the raw stream ``stream``, or
+    record it if that stream is in ``recording``."""
+    with _count_lock:
+        rec = recording.get(stream)
+        if rec is None:
+            launches[kernel] += 1
+        else:
+            rec[kernel] = rec.get(kernel, 0) + 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count each kernel's launches in ``counts`` (a replay's record)."""
+    with _count_lock:
+        for kernel, n in counts.items():
+            launches[kernel] += n
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for kernel in launches:
+            launches[kernel] = 0
 
 
 def _nvcc() -> str:

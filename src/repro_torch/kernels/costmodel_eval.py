@@ -12,13 +12,12 @@ its ``core_cost``; the source note says what bounds them on the card and
 how their design answers that.  Unlike the TPU kernels they take any
 shape: no tiles, no padding.
 
-``launches`` and ``multi_launches`` count the launches made through
-:func:`cost_eval` and :func:`cost_eval_multi`.
+Each launch is counted in ``build.launches`` (``cost_eval``,
+``cost_eval_multi``).
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 from array import array
 
 import torch
@@ -26,10 +25,6 @@ import torch
 from repro_torch.costmodel.layers import NUM_FIELDS
 from repro_torch.kernels import build
 
-launches = 0
-multi_launches = 0
-# Worker and dispatcher threads of the search service launch concurrently.
-_count_lock = threading.Lock()
 _fn = None
 _multi_fn = None
 
@@ -89,7 +84,6 @@ def cost_eval(layers_t, pe, kt, df):
     a 2-D operand (1 if none is).  Returns one (4, B, N) float32 tensor:
     latency, energy, area and power, in that order.
     """
-    global launches
     index = layers_t.get_device()
     if index < 0:
         raise ValueError("layers_t: expected a CUDA tensor")
@@ -127,12 +121,12 @@ def cost_eval(layers_t, pe, kt, df):
         return out
     args += (out.data_ptr(), B, N)
     packed, vals = array("q", args), array("f", values)
+    stream = build.stream(index)
     rc = _launcher()(packed.buffer_info()[0], vals.buffer_info()[0], index,
-                     build.stream(index))
+                     stream)
     if rc != 0:
         raise RuntimeError(f"cost_eval kernel launch failed: CUDA error {rc}")
-    with _count_lock:
-        launches += 1
+    build.count("cost_eval", stream)
     return out
 
 
@@ -142,7 +136,6 @@ def cost_eval_multi(layers, pe, kt, df):
     Every input is a contiguous float32 CUDA tensor on one device.  Returns
     (latency, energy, area, power), each (M,) float32.
     """
-    global multi_launches
     if pe.dim() != 1:
         raise ValueError(f"pe: expected (M,), got {tuple(pe.shape)}")
     M = pe.shape[0]
@@ -152,11 +145,11 @@ def cost_eval_multi(layers, pe, kt, df):
     out = torch.empty((4, M), dtype=torch.float32, device=pe.device)
     if M == 0:
         return out.unbind(0)
+    stream = build.stream(index)
     rc = _multi_launcher()(*ptrs, *(out[i].data_ptr() for i in range(4)), M,
-                           index, build.stream(index))
+                           index, stream)
     if rc != 0:
         raise RuntimeError(
             f"cost_eval_multi kernel launch failed: CUDA error {rc}")
-    with _count_lock:
-        multi_launches += 1
+    build.count("cost_eval_multi", stream)
     return out.unbind(0)

@@ -39,17 +39,37 @@
 // a shuffle and shared memory and are added in a fixed order.  A grid row
 // of blocks takes kRows batch rows and reuses each weight it loads for all
 // of them; past 48 KB of staged rows (I + H > 2928) the block opts in to
-// the card's larger shared memory, up to I + H = kMaxK.  Backward: the
-// weight rows k of [wx; wh] (and db as row I + H) are split across
-// blocks, kKRows a block.  Every block builds dG for a chunk of batch rows
-// and a tile of hidden units (all 4H columns when they fit) in shared
-// memory (an elementwise pass over the saved gates), then writes its rows
-// of dwx / dwh / db in that tile, each a sum over the batch, and adds the
+// the card's larger shared memory, up to I + H = kMaxK.
+//
+// Backward, bound on an H100: the same bytes (the weights read once, their
+// gradients written once: 1.71e-4 ms at (1, 10, 128)), and in practice
+// the launch and the dependent round trips to L2.  Stage 1 replays its
+// epoch as a CUDA graph, so what the step pays is this device time, not
+// the host's.  The first design staged a block's weight rows and only
+// then loaded the gates to build dG, two round trips one after the other,
+// and paid tile index arithmetic (a division and a remainder per element)
+// even where one tile held every column: 6.3 µs a launch at (1, 10, 128).
+// Design now, single pass (B <= kUntiledMaxB and 4H <= kUntiledMaxCols x
+// kThreads, which holds the search's step): the rows k of [wx; wh] (and
+// db as row I + H) are split across blocks, kUntiledRows a block (one:
+// 139 blocks at (1, 10, 128), the fastest of 1, 2, 4 and 8 in
+// tools/tune_lstm_bwd.py); a thread owns up to C gate columns and issues
+// every load it needs -- its columns of the block's weight rows, the
+// saved gates, c, dh' and dc' of its hidden units, the block's x / h
+// values -- before the first use, so one round trip covers them; it forms
+// dG in registers (no shared-memory staging, no per-element index
+// arithmetic), writes its columns of the block's dwx / dwh / db rows
+// (sums over the batch in row order), and its share of each dx / dh goes
+// through the warp's shuffles and one pass over shared memory in warp
+// order.  Otherwise the tiled kernel: every block builds dG for a chunk
+// of batch rows and a tile of hidden units (all 4H columns when they fit)
+// in shared memory, kKRows weight rows a block, writes its rows of
+// dwx / dwh / db in that tile, each a sum over the batch, and adds the
 // tile's share to its columns of dx / dh, each a dot product of a dG row
 // with its staged weight row (one warp each, reduced by shuffles in a
 // fixed order).  Batch chunks and hidden-unit tiles keep the block within
-// 48 KB for any H.  Every output is written by one thread, with no
-// atomics, so two calls give the same bits.
+// 48 KB for any H.  In both, every output is written by one thread, with
+// no atomics, so two calls give the same bits.
 // Everything is float32 on CUDA cores: tensor cores would round the
 // products, and the port holds the step to atol 1e-5.  The nonlinearities
 // use the precise expf and tanhf (the library is built without
@@ -68,8 +88,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 4;               // batch rows per forward block
 constexpr int kStep = 2 * kWarps;      // weight rows between a lane's loads
 constexpr int kBatch = 10;             // a lane's loads in flight at once
-constexpr int kKRows = 4;              // weight rows per backward block
+constexpr int kKRows = 4;              // weight rows per tiled backward block
 constexpr int kBwdRows = 4;            // batch rows with hidden-unit tiles
+// The single-pass backward: weight rows per block (tools/tune_lstm_bwd.py
+// times 1, 2, 4 and 8 at the search's shape), and the shapes it takes:
+// at most kUntiledMaxB batch rows, and 4H gate columns at most
+// kUntiledMaxCols per thread.
+constexpr int kUntiledRows = 1;
+constexpr int kUntiledMaxB = 32;
+constexpr int kUntiledMaxCols = 10;
 // Dynamic shared memory a block may take without opting in to more.
 constexpr long long kSmemLimit = 48 * 1024;
 // The largest I + H the forward takes (the port's first kernel's limit);
@@ -311,6 +338,126 @@ lstm_cell_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   }
 }
 
+
+// The backward in one pass, for 4H <= kUntiledMaxCols * kThreads gate
+// columns and B <= kUntiledMaxB: a block owns R rows of [wx; wh] (row K is
+// db's), a thread up to C gate columns, col = tid + i * kThreads.  All its
+// loads -- its columns of the block's weight rows, of the saved gates, c,
+// dh' and dc', and the block's x / h values -- are issued before the first
+// use, so one round trip covers them; dG stays in registers.
+template <int R, int C>
+__global__ void __launch_bounds__(kThreads)
+lstm_cell_bwd_untiled_kernel(
+    const float* __restrict__ x, const float* __restrict__ h,
+    const float* __restrict__ c, const float* __restrict__ wx,
+    const float* __restrict__ wh, const float* __restrict__ gates,
+    const float* __restrict__ dh_new, const float* __restrict__ dc_new,
+    float* __restrict__ dx, float* __restrict__ dh, float* __restrict__ dc,
+    float* __restrict__ dwx, float* __restrict__ dwh, float* __restrict__ db,
+    int B, int I, int H) {
+  __shared__ float red[kWarps][R][kUntiledMaxB];   // dx / dh per warp
+  const int K = I + H, H4 = 4 * H, BH = B * H;
+  const int k0 = blockIdx.x * R;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // Column i: gate q[i], hidden unit j[i]; the gate's own activation and
+  // the other factor of its dG (tanh(g) for i, c for f, sig(i) for g).
+  int q[C], j[C];
+  float w[R][C], acc[R][C];
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int col = tid + i * kThreads;
+    q[i] = col < H4 ? col / H : -1;
+    j[i] = col - max(q[i], 0) * H;
+#pragma unroll
+    for (int kk = 0; kk < R; ++kk) {
+      const int k = k0 + kk;
+      w[kk][i] = q[i] < 0 || k >= K ? 0.0f
+                 : (k < I ? __ldg(wx + k * H4 + col)
+                          : __ldg(wh + (k - I) * H4 + col));
+      acc[kk][i] = 0.0f;
+    }
+  }
+
+  for (int r = 0; r < B; ++r) {
+    const int rh = r * H;
+    float own[C], oth[C], dhn[C], dcn[C], go[C], tc[C], v[R];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (q[i] < 0) continue;
+      const int u = rh + j[i];
+      own[i] = gates[q[i] * BH + u];
+      oth[i] = q[i] == 1 ? c[u] : gates[(q[i] == 0 ? 2 : 0) * BH + u];
+      dhn[i] = dh_new[u];
+      dcn[i] = dc_new[u];
+      go[i] = gates[3 * BH + u];
+      tc[i] = gates[4 * BH + u];
+    }
+#pragma unroll
+    for (int kk = 0; kk < R; ++kk) {
+      const int k = k0 + kk;
+      v[kk] = k < I ? x[r * I + k] : (k < K ? h[rh + k - I] : 1.0f);
+    }
+    float g[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      g[i] = 0.0f;
+      if (q[i] < 0) continue;
+      const float a = own[i];
+      const float dct = dcn[i] + dhn[i] * go[i] * (1.0f - tc[i] * tc[i]);
+      if (q[i] < 2)
+        g[i] = dct * oth[i] * a * (1.0f - a);
+      else if (q[i] == 2)
+        g[i] = dct * oth[i] * (1.0f - a * a);
+      else
+        g[i] = dhn[i] * tc[i] * a * (1.0f - a);
+      // dc[:, j] belongs to the block that owns wh's row j.
+      if (q[i] == 1 && I + j[i] >= k0 && I + j[i] < k0 + R)
+        dc[rh + j[i]] = dct * a;
+    }
+    // Rows of dwx / dwh / db: a sum over the batch, in row order.
+#pragma unroll
+    for (int kk = 0; kk < R; ++kk) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) acc[kk][i] = fmaf(v[kk], g[i], acc[kk][i]);
+    }
+    // This row's dx / dh: the thread's columns, then the warp's lanes.
+#pragma unroll
+    for (int kk = 0; kk < R; ++kk) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < C; ++i) s = fmaf(g[i], w[kk][i], s);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) red[warp][kk][r] = s;
+    }
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < R; ++kk) {
+    const int k = k0 + kk;
+    if (k > K) break;
+    float* dst = k < I ? dwx + k * H4 : (k < K ? dwh + (k - I) * H4 : db);
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (q[i] >= 0) dst[tid + i * kThreads] = acc[kk][i];
+  }
+  __syncthreads();
+  // The warps' shares of dx / dh, in warp order.
+  for (int p = tid; p < R * B; p += kThreads) {
+    const int kk = p / B, r = p % B, k = k0 + kk;
+    if (k >= K) continue;
+    float s = 0.0f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) s += red[v][kk][r];
+    if (k < I)
+      dx[r * I + k] = s;
+    else
+      dh[r * H + k - I] = s;
+  }
+}
+
 }  // namespace
 
 // The launch arguments come packed in one array, `a`, which the caller
@@ -358,19 +505,25 @@ extern "C" int lstm_cell_launch(const long long* a, int device,
 
 // Packed as for the forward, `a` holds the data pointers of x, h, c, wx,
 // wh as above, `gates` (5, B, H) from the forward, dh_new and dc_new
-// (B, H), then of the outputs dx, dhc and dw, then B, I, H.  Outputs: dx
-// (B, I); `dhc` holds dh (B, H) then dc (B, H); `dw` holds dwx (I, 4H),
-// dwh (H, 4H) and db (4H,), in that order.
-// dG is held for as many batch rows and hidden units at a time as fit in
-// 48 KB of shared memory: all H with as many rows as fit where a row
-// fits, else tiles of hidden units for up to kBwdRows rows.  All float32,
-// contiguous, on card `device`, where `stream` lives.  Returns
-// cudaGetLastError().
+// (B, H), then of the outputs dx, dhc and dw, then B, I, H and the path:
+// 0 for the single pass (4H <= kUntiledMaxCols * kThreads and B <=
+// kUntiledMaxB, else cudaErrorInvalidValue), 1 for the tiled kernel.
+// Outputs: dx (B, I); `dhc` holds dh (B, H) then dc (B, H); `dw` holds dwx
+// (I, 4H), dwh (H, 4H) and db (4H,), in that order.
+// The tiled kernel holds dG for as many batch rows and hidden units at a
+// time as fit in 48 KB of shared memory: all H with as many rows as fit
+// where a row fits, else tiles of hidden units for up to kBwdRows rows.
+// All float32, contiguous, on card `device`, where `stream` lives.
+// Returns cudaGetLastError().
 extern "C" int lstm_cell_bwd_launch(const long long* a, int device,
                                     void* stream) {
   const int B = static_cast<int>(a[11]), I = static_cast<int>(a[12]),
             H = static_cast<int>(a[13]);
+  const bool tiled = a[14] != 0;
   if (B == 0) return 0;
+  const int cols = (4 * H + kThreads - 1) / kThreads;
+  if (!tiled && (B > kUntiledMaxB || cols > kUntiledMaxCols))
+    return static_cast<int>(cudaErrorInvalidValue);
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -383,6 +536,22 @@ extern "C" int lstm_cell_bwd_launch(const long long* a, int device,
   float* dwx = reinterpret_cast<float*>(a[10]);
   float* dwh = dwx + I * H4;
   float* db = dwh + H * H4;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!tiled) {
+    const int blocks = (I + H + 1 + kUntiledRows - 1) / kUntiledRows;
+#define LSTM_BWD_UNTILED(C)                                                  \
+  lstm_cell_bwd_untiled_kernel<kUntiledRows, C><<<blocks, kThreads, 0, st>>>( \
+      in(0), in(1), in(2), in(3), in(4), in(5), in(6), in(7), dx, dh, dc,    \
+      dwx, dwh, db, B, I, H)
+    if (cols <= 2)
+      LSTM_BWD_UNTILED(2);
+    else if (cols <= 4)
+      LSTM_BWD_UNTILED(4);
+    else
+      LSTM_BWD_UNTILED(kUntiledMaxCols);
+#undef LSTM_BWD_UNTILED
+    return static_cast<int>(cudaGetLastError());
+  }
   // (kKRows + chunk) rows of 4U floats and two kKRows x chunk tables.
   const long long floats = kSmemLimit / 4;
   long long U = H;
@@ -396,10 +565,8 @@ extern "C" int lstm_cell_bwd_launch(const long long* a, int device,
   const long long smem =
       4 * (4 * U * (kKRows + chunk) + 2 * kKRows * chunk);
   const int blocks = (I + H + 1 + kKRows - 1) / kKRows;
-  lstm_cell_bwd_kernel<<<blocks, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  lstm_cell_bwd_kernel<<<blocks, kThreads, smem, st>>>(
       in(0), in(1), in(2), in(3), in(4), in(5), in(6), in(7), dx, dh, dc, dwx,
-      dwh, db, B, I, H, static_cast<int>(chunk),
-      static_cast<int>(U));
+      dwh, db, B, I, H, static_cast<int>(chunk), static_cast<int>(U));
   return static_cast<int>(cudaGetLastError());
 }

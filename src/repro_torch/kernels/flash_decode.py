@@ -11,9 +11,10 @@ note says what bounds it on the card and what its design does about
 that.  Unlike the TPU kernel it takes any T >= 1: the ragged last tile is
 cut in the kernel.
 
-``launches`` counts the calls of :func:`flash_decode` that launched the
-kernel (one per attention); ``combine_launches`` counts the combine
-kernel's launches (one per call with more than one split).
+``build.launches["flash_decode"]`` counts the calls of
+:func:`flash_decode` that launched the kernel (one per attention);
+``build.launches["flash_decode_combine"]`` counts the combine kernel's
+launches (one per call with more than one split).
 """
 from __future__ import annotations
 
@@ -23,8 +24,6 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = 0
-combine_launches = 0
 _fn = None
 
 HEAD_DIMS = (16, 64, 128, 256)
@@ -151,7 +150,6 @@ def flash_decode(q, k, v):
     contiguous (a view ``cache[:, :T]`` of a longer cache is read in
     place); all float32 or all bfloat16, on one CUDA device.
     Returns (B, Hq, D) float32."""
-    global launches, combine_launches
     B, T, Hq, Hkv, D, (k_bstride, v_bstride), S, keys = _plan(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
@@ -162,13 +160,14 @@ def flash_decode(q, k, v):
         return out
     ws = (torch.empty((B, Hq, S, D + 2), dtype=torch.float32, device=dev)
           if S > 1 else None)
+    stream = build.stream(dev.index)
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      None if ws is None else ws.data_ptr(),
                      B, T, Hq, Hkv, D, k_bstride, v_bstride, S, keys,
-                     _DTYPES[q.dtype], dev.index,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     _DTYPES[q.dtype], dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: error {rc}")
-    launches += 1
-    combine_launches += int(S > 1)
+    build.count("flash_decode", stream)
+    if S > 1:
+        build.count("flash_decode_combine", stream)
     return out

@@ -9,13 +9,15 @@ kernel it needs no padding of I or B.
 
 :func:`lstm_cell_bwd` is the step's backward, a kernel of the same source
 that the TPU package has no counterpart of (JAX cannot differentiate
-through its own LSTM kernel).  It reads the gates that the forward saved.
-:class:`LSTMCellFn` joins the two into an autograd Function.
+through its own LSTM kernel).  It reads the gates that the forward saved,
+in one pass where the shape allows it (:func:`single_pass`, which holds
+the search's step), else through a kernel that tiles dG over hidden
+units.  :class:`LSTMCellFn` joins the forward and the backward into an
+autograd Function.
 
 Both take I + H up to :data:`MAX_K`, the limit of the port's first LSTM
-kernel, and raise a ``ValueError`` past it.  ``launches`` and
-``bwd_launches`` count the launches made through :func:`lstm_cell` and
-:func:`lstm_cell_bwd`.
+kernel, and raise a ``ValueError`` past it.  Each launch is counted in
+``build.launches`` (``lstm_cell``, ``lstm_cell_bwd``).
 """
 from __future__ import annotations
 
@@ -29,8 +31,10 @@ from repro_torch.kernels import build
 # The largest I + H the kernels take (``kMaxK`` in the source): the
 # forward's staged rows of x and h then fill 194 KB of shared memory.
 MAX_K = 12288
-launches = 0
-bwd_launches = 0
+# The single-pass backward's limits (``kUntiledMaxB`` and
+# ``kUntiledMaxCols`` x ``kThreads`` gate columns in the source).
+SINGLE_PASS_MAX_B = 32
+SINGLE_PASS_MAX_COLS = 10 * 256
 _fn = None
 _bwd_fn = None
 _NAMES = ("x", "h", "c", "wx", "wh", "b")
@@ -75,7 +79,6 @@ def lstm_cell(x, h, c, wx, wh, b):
     Returns one (7, B, H) buffer: h', then c', then the gates the
     backward reads, sig(i), sig(f), tanh(g), sig(o), tanh(c').
     """
-    global launches
     B, I, H = _dims(x, h)
     ptrs, index = build.check_inputs(
         (x, h, c, wx, wh, b), _NAMES,
@@ -85,26 +88,32 @@ def lstm_cell(x, h, c, wx, wh, b):
         # The library reads its pointers and sizes from one array.
         args = array("q", ptrs)
         args.extend((out.data_ptr(), B, I, H))
-        rc = _launcher()(args.buffer_info()[0], index, build.stream(index))
+        stream = build.stream(index)
+        rc = _launcher()(args.buffer_info()[0], index, stream)
         if rc != 0:
             raise RuntimeError(
                 f"lstm_cell kernel launch failed: CUDA error {rc}")
-        launches += 1
+        build.count("lstm_cell", stream)
     return out
 
 
-def lstm_cell_bwd(x, h, c, wx, wh, gates, dh_new, dc_new):
+def single_pass(B, H):
+    """Whether the backward of a (B, ., H) step runs in one pass."""
+    return B <= SINGLE_PASS_MAX_B and 4 * H <= SINGLE_PASS_MAX_COLS
+
+
+def lstm_cell_bwd(x, h, c, wx, wh, gates, dh_new, dc_new, tiled=False):
     """Launch the backward kernel.  x, h, c, wx, wh as in
     :func:`lstm_cell`; ``gates`` (5, B, H) as it saved them; dh_new and
     dc_new (B, H), the gradients of h' and c'.  All contiguous float32
-    CUDA tensors on one card, I + H <= :data:`MAX_K` (dG goes through
-    shared memory in tiles of hidden units where a whole row does not
-    fit).
+    CUDA tensors on one card, I + H <= :data:`MAX_K`.  The single-pass
+    kernel runs where :func:`single_pass` allows it and ``tiled`` is
+    false; else the tiled one (dG through shared memory in tiles of
+    hidden units where a whole row does not fit).
 
     Returns (dx, dh, dc, dwx, dwh, db); two calls on the same inputs give
     the same bits (no atomics).  With B = 0 the weight gradients are 0.
     """
-    global bwd_launches
     B, I, H = _dims(x, h)
     ptrs, index = build.check_inputs(
         (x, h, c, wx, wh, gates, dh_new, dc_new), _BWD_NAMES,
@@ -118,13 +127,14 @@ def lstm_cell_bwd(x, h, c, wx, wh, gates, dh_new, dc_new):
         (I + H + 1, 4 * H))
     if B:
         args = array("q", ptrs)
-        args.extend((dx.data_ptr(), dhc.data_ptr(), dw.data_ptr(), B, I, H))
-        rc = _bwd_launcher()(args.buffer_info()[0], index,
-                             build.stream(index))
+        args.extend((dx.data_ptr(), dhc.data_ptr(), dw.data_ptr(), B, I, H,
+                     int(tiled or not single_pass(B, H))))
+        stream = build.stream(index)
+        rc = _bwd_launcher()(args.buffer_info()[0], index, stream)
         if rc != 0:
             raise RuntimeError(
                 f"lstm_cell backward kernel launch failed: CUDA error {rc}")
-        bwd_launches += 1
+        build.count("lstm_cell_bwd", stream)
     dh, dc = dhc.unbind(0)
     dwx, dwh, db = dw.split((I, H, 1))
     return dx, dh, dc, dwx, dwh, db.view(4 * H)

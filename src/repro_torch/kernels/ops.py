@@ -10,8 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.costmodel.layers import NUM_FIELDS
-from repro_torch.kernels import (costmodel_eval, flash_decode, lstm_cell,
-                                 ref)
+from repro_torch.kernels import (build, costmodel_eval, flash_decode,
+                                 lstm_cell, ref)
 
 
 def _device(*vals) -> torch.device:
@@ -130,23 +130,15 @@ def decode_attention(q, k, v):
 def launch_counts():
     """Kernel launches so far, by kernel (``lstm_cell_bwd`` counts the
     LSTM step's backward kernel, ``flash_decode`` the attention calls,
-    ``flash_decode_combine`` the combine kernel's launches among them)."""
-    return {"cost_eval": costmodel_eval.launches,
-            "cost_eval_multi": costmodel_eval.multi_launches,
-            "lstm_cell": lstm_cell.launches,
-            "lstm_cell_bwd": lstm_cell.bwd_launches,
-            "flash_decode": flash_decode.launches,
-            "flash_decode_combine": flash_decode.combine_launches}
+    ``flash_decode_combine`` the combine kernel's launches among them).
+    A CUDA graph's replays count the launches its capture recorded; the
+    capture and its warm-up count none."""
+    return dict(build.launches)
 
 
 def reset_launch_counts():
     """Set every kernel's launch count, and the plain versions' count of
     calls on CUDA tensors, to 0."""
-    costmodel_eval.launches = 0
-    costmodel_eval.multi_launches = 0
-    lstm_cell.launches = 0
-    lstm_cell.bwd_launches = 0
-    flash_decode.launches = 0
-    flash_decode.combine_launches = 0
+    build.reset_launches()
     for k in ref.cuda_calls:
         ref.cuda_calls[k] = 0

@@ -7,8 +7,10 @@ as a CLI.
         --out results/search_torch.json
 
 The flags and the last-line JSON are those of ``repro.launch.search`` for
-the methods this package has (two_stage, reinforce, ga), plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain versions of the kernels).  The
+the methods this package registers (``api.list_optimizers()``: two_stage,
+reinforce, ga, sa, bo, random and grid), plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain versions of the kernels).  On the card,
+stage 1 (two_stage, reinforce) replays its epoch as one CUDA graph.  The
 flags of methods and layers not ported yet are absent, and ``--arch``
 fails with a "not ported yet" error.
 """
@@ -75,7 +77,8 @@ def main(argv=None):
     ap.add_argument("--objective", default="latency",
                     choices=["latency", "energy", "blend"],
                     help="whole-model objective; 'blend' scalarizes "
-                    "lat^w * en^(1-w) with --blend-weight (ga only)")
+                    "lat^w * en^(1-w) with --blend-weight (sampling "
+                    "methods only)")
     ap.add_argument("--blend-weight", type=float, default=0.5,
                     help="--objective blend: latency weight w in [0, 1]")
     ap.add_argument("--constraint", default="area",

@@ -151,6 +151,37 @@ def test_lstm_autograd_runs_one_backward_launch_per_step(dev):
     assert all(v == 0 for v in ref.cuda_calls.values())
 
 
+@pytest.mark.parametrize("B,H", [(1, 128), (3, 614), (3, 615), (2, 700),
+                                 (33, 128)])
+def test_lstm_backward_paths_match_plain_and_each_other(dev, B, H):
+    """The single-pass backward (where ``single_pass`` takes the shape: up
+    to 4H = 2,560 gate columns and 32 batch rows) and the tiled one
+    against the plain version computed in float64 on the same inputs
+    (atol 1e-5) and against each other (atol 1e-5); two calls of each give
+    the same bits; one launch per call."""
+    I = 10
+    args, dh, dc = _lstm_args(B, I, H, dev, seed=B * H)
+    gates = lstm_cell.lstm_cell(*args)[2:]
+    inputs = (*args[:5], gates, dh, dc)
+    want = ref.lstm_cell_bwd_saved_ref(*(t.double() for t in inputs))
+    ops.reset_launch_counts()
+    auto = lstm_cell.lstm_cell_bwd(*inputs)
+    tiled = lstm_cell.lstm_cell_bwd(*inputs, tiled=True)
+    again = (lstm_cell.lstm_cell_bwd(*inputs),
+             lstm_cell.lstm_cell_bwd(*inputs, tiled=True))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lstm_cell_bwd"] == 4
+    assert lstm_cell.single_pass(B, H) == (B <= 32 and H <= 640)
+    for name, a, t, a2, t2, w in zip(("dx", "dh", "dc", "dwx", "dwh", "db"),
+                                     auto, tiled, *again, want):
+        for got in (a, t):
+            torch.testing.assert_close(
+                got.double(), w, atol=1e-5, rtol=0,
+                msg=lambda m, name=name: f"{name}: {m}")
+        torch.testing.assert_close(a, t, atol=1e-5, rtol=0)
+        assert torch.equal(a, a2) and torch.equal(t, t2), name
+
+
 def test_cost_kernel_reads_strided_and_broadcast_operands(dev):
     """Columns, rows, stride-0 views, strided slices, 0-d tensors and
     Python numbers give the bits of the same values as contiguous (B, N)
@@ -463,3 +494,180 @@ def test_decode_step_on_card_matches_cpu(dev):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert ops.launch_counts()["flash_decode"] == 6 * cfg.num_layers
     assert ref.cuda_calls["flash_decode_ref"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The stage-1 epoch as a CUDA graph.
+# ---------------------------------------------------------------------------
+def test_captured_kernel_calls_replay_the_eager_bits(dev):
+    """One cost_eval, one lstm_cell and one lstm_cell_bwd call captured in
+    a CUDA graph (ctypes launches of libraries built with nvcc's static
+    runtime) and replayed on new inputs give the bits of eager calls on
+    those inputs; the warm-up and the capture count no launch, each
+    replay counts one of each."""
+    from repro_torch.core import graph as graph_lib
+
+    arr = layers_lib.layers_to_array(workloads.get_workload("mobilenet_v2"))
+    lt = torch.as_tensor(arr, dtype=torch.float32, device=dev).T.contiguous()
+    N = lt.shape[1]
+    pe, kt = (torch.ones((20, N), device=dev) for _ in range(2))
+    args, dh, dc = _lstm_args(1, 10, 128, dev, seed=5)
+    out = {}
+
+    def calls():
+        out["cost"] = costmodel_eval.cost_eval(lt, pe, kt, 0.0)
+        out["fwd"] = lstm_cell.lstm_cell(*args)
+        out["bwd"] = lstm_cell.lstm_cell_bwd(*args[:5], out["fwd"][2:], dh,
+                                             dc)
+
+    ops.reset_launch_counts()
+    step = graph_lib.CapturedStep(calls, calls, dev)
+    assert all(v == 0 for v in ops.launch_counts().values())
+    rng = np.random.default_rng(0)
+    for replay in range(2):
+        pe.copy_(torch.as_tensor(rng.integers(1, 161, (20, N)),
+                                 dtype=torch.float32))
+        kt.copy_(torch.as_tensor(rng.integers(1, 17, (20, N)),
+                                 dtype=torch.float32))
+        for t in (*args, dh, dc):
+            t.copy_(torch.randn_like(t) * 0.1)
+        step.replay()
+        cost = costmodel_eval.cost_eval(lt, pe, kt, 0.0)
+        fwd = lstm_cell.lstm_cell(*args)
+        bwd = lstm_cell.lstm_cell_bwd(*args[:5], fwd[2:], dh, dc)
+        torch.cuda.synchronize()
+        assert torch.equal(out["cost"], cost)
+        assert torch.equal(out["fwd"], fwd)
+        assert all(torch.equal(a, b) for a, b in zip(out["bwd"], bwd))
+    counts = ops.launch_counts()
+    assert (counts["cost_eval"], counts["lstm_cell"],
+            counts["lstm_cell_bwd"]) == (4, 4, 4)
+
+
+def _stage1(dev, epochs, name="mobilenet_v2"):
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core import reinforce
+
+    wl = workloads.get_workload(name)
+    ecfg = api.EnvConfig(platform="iot")
+    pcfg = policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim)
+    rcfg = reinforce.ReinforceConfig(epochs=epochs, seed=0)
+    return wl, ecfg, pcfg, rcfg, env_lib.make_env(wl, ecfg, dev)
+
+
+def test_graphed_stage1_gives_the_bits_of_eager_epochs(dev):
+    """``run_search`` on the card (one CUDA graph, replayed in chunks)
+    against ``make_epoch_fn`` run eagerly from the same seed: every metric
+    of every epoch and the final state (params, Adam state, best,
+    generator) bit-equal."""
+    from repro_torch.core import reinforce
+    from repro_torch.training import optim
+
+    wl, ecfg, pcfg, rcfg, env = _stage1(dev, 12)
+    got, hist = reinforce.run_search(wl, ecfg, rcfg, pcfg, chunk=5, env=env)
+    opt = optim.Adam(lr=rcfg.lr)
+    st = reinforce.init_search(env, ecfg, pcfg, rcfg, opt)
+    epoch_fn = reinforce.make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+    metrics = []
+    for _ in range(rcfg.epochs):
+        st, m = epoch_fn(st)
+        metrics.append(m)
+    for k in reinforce.METRICS:
+        want = torch.stack([m[k] for m in metrics]).cpu().numpy()
+        assert hist[k].tobytes() == want.tobytes(), k
+    assert all(torch.equal(a, b) for a, b in zip(got.params.parameters(),
+                                                 st.params.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(
+        reinforce.state_tensors(got), reinforce.state_tensors(st)))
+    assert torch.equal(got.generator.get_state(), st.generator.get_state())
+
+
+def test_graph_replays_count_launches(dev):
+    """Stage 1 through the graph counts every replay's launches, and the
+    warm-up and capture none: one cost, one forward and one backward
+    launch per layer and epoch (plus make_env's cost launch), no plain
+    version on the card."""
+    from repro_torch.core import reinforce
+
+    wl, ecfg, pcfg, rcfg, _ = _stage1(dev, 7, name="ncf")
+    ops.reset_launch_counts()
+    reinforce.run_search(wl, ecfg, rcfg, pcfg, chunk=3, device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    N = len(wl)
+    assert counts["cost_eval"] == 1 + N * rcfg.epochs
+    assert counts["lstm_cell"] == counts["lstm_cell_bwd"] == N * rcfg.epochs
+    assert all(v == 0 for v in ref.cuda_calls.values())
+
+
+def test_concurrent_stage1_captures_give_their_serial_bits(dev):
+    """Two stage-1 searches and a GA through the service at once: both
+    searches capture and replay their graphs in worker threads while the
+    other threads use the card, and every outcome equals its serial run
+    byte for byte."""
+    ecfg = api.EnvConfig(platform="cloud")
+    cases = [("reinforce", "ncf", 1), ("reinforce", "mnasnet", 2),
+             ("ga", "ncf", 3)]
+    reqs = lambda: [api.SearchRequest(workload=wl, env=ecfg,
+                                      eps=30 if m == "reinforce" else 400,
+                                      seed=seed, method=m)
+                    for m, wl, seed in cases]
+    serial = [api.run_search(r) for r in reqs()]
+    with SearchService(ServiceConfig(max_workers=3)) as svc:
+        outs = svc.run_all(reqs())
+    for got, want in zip(outs, serial):
+        assert got.best_value == want.best_value
+        assert got.history.tobytes() == want.history.tobytes()
+        assert got.pe.tobytes() == want.pe.tobytes()
+        assert got.kt.tobytes() == want.kt.tobytes()
+
+
+def test_a_capture_waits_for_another_threads_capture(dev):
+    """A thread that starts a capture while another thread's capture is
+    under way (the first thread's step pauses mid-capture) waits for it:
+    both graphs capture, and both replay the bits of eager calls."""
+    import threading
+    import time
+
+    from repro_torch.core import graph as graph_lib
+
+    args, dh, dc = _lstm_args(1, 10, 128, dev, seed=9)
+    started = threading.Event()
+    outs, steps, errors = {}, {}, []
+
+    def first():
+        outs["a"] = lstm_cell.lstm_cell(*args)
+        if torch.cuda.is_current_stream_capturing():
+            started.set()
+            time.sleep(0.5)
+        outs["a2"] = lstm_cell.lstm_cell_bwd(*args[:5], outs["a"][2:], dh,
+                                             dc)
+
+    def second():
+        outs["b"] = lstm_cell.lstm_cell(*args)
+
+    def run(name, fn, wait):
+        try:
+            if wait:
+                started.wait(timeout=30)
+            steps[name] = graph_lib.CapturedStep(fn, fn, dev)
+        except Exception as e:          # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=("a", first, False)),
+               threading.Thread(target=run, args=("b", second, True))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert started.is_set()
+    for step in steps.values():
+        step.replay()
+    want = lstm_cell.lstm_cell(*args)
+    bwd = lstm_cell.lstm_cell_bwd(*args[:5], want[2:], dh, dc)
+    torch.cuda.synchronize()
+    assert torch.equal(outs["a"], want) and torch.equal(outs["b"], want)
+    assert all(torch.equal(a, b) for a, b in zip(outs["a2"], bwd))

@@ -16,6 +16,8 @@ Tolerances (float32, different summation orders):
     standardized returns carry the reward error;
   * post-Adam params and moments: atol 1e-5 (lr 3e-3 times the Adam step).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,3 +160,73 @@ def test_discounted_returns_match_reference():
     got = treinforce._discounted_returns(torch.from_numpy(r), 0.9)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+def _small_stage1(name, E, mix, epochs=5, seed=3):
+    """A 5-layer stage-1 setup on the CPU: ncf, or the first 5 layers of
+    mobilenet_v2."""
+    wl = tworkloads.get_workload(name)[:5]
+    ecfg = tenv.EnvConfig(platform="iot", mix=mix)
+    pcfg = tpolicy.PolicyConfig(obs_dim=ecfg.obs_dim, mix=mix)
+    rcfg = treinforce.ReinforceConfig(epochs=epochs, episodes_per_epoch=E,
+                                      seed=seed)
+    return wl, ecfg, pcfg, rcfg, tenv.make_env(wl, ecfg, device="cpu")
+
+
+def _assert_same_state(a, b):
+    assert all(torch.equal(p, q) for p, q in zip(a.params.parameters(),
+                                                 b.params.parameters()))
+    assert all(torch.equal(p, q) for p, q in zip(
+        treinforce.state_tensors(a), treinforce.state_tensors(b)))
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.parametrize("mix", [False, True])
+@pytest.mark.parametrize("E", [1, 3])
+@pytest.mark.parametrize("name", ["ncf", "mobilenet_v2"])
+def test_inplace_epoch_gives_the_bits_of_make_epoch_fn(name, E, mix):
+    """Five epochs written back in place (the form the CUDA graph
+    captures) against five epochs of ``make_epoch_fn``: the same metrics
+    and the same state, bit for bit, in the same buffers throughout."""
+    wl, ecfg, pcfg, rcfg, env = _small_stage1(name, E, mix)
+    opt = toptim.Adam(lr=rcfg.lr)
+    eager = treinforce.init_search(env, ecfg, pcfg, rcfg, opt)
+    inplace = treinforce.init_search(env, ecfg, pcfg, rcfg, opt)
+    buffers = [t.data_ptr() for t in treinforce.state_tensors(inplace)]
+    epoch_fn = treinforce.make_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+    epoch_ = treinforce.make_inplace_epoch_fn(ecfg, pcfg, rcfg, env, opt)
+    metrics = torch.zeros(len(treinforce.METRICS))
+    for _ in range(rcfg.epochs):
+        eager, m = epoch_fn(eager)
+        epoch_(inplace, metrics)
+        assert torch.equal(metrics, torch.stack(
+            [m[k] for k in treinforce.METRICS]))
+    _assert_same_state(eager, inplace)
+    assert buffers == [t.data_ptr()
+                       for t in treinforce.state_tensors(inplace)]
+    assert int(inplace.epoch) == rcfg.epochs
+
+
+@pytest.mark.parametrize("chunk", [2, 5])
+def test_stage1_resumes_across_chunks_bit_identically(chunk):
+    """Stage 1 run as 2 epochs then 3 more from the returned state gives
+    the bits of 5 epochs in one run, in chunks of ``chunk``; the states
+    handed to ``on_chunk`` are copies that later epochs leave alone."""
+    wl, ecfg, pcfg, rcfg, env = _small_stage1("ncf", 2, False)
+    seen = []
+    whole, h5 = treinforce.run_search(
+        wl, ecfg, rcfg, pcfg, chunk=chunk, device="cpu", env=env,
+        on_chunk=lambda st, h, done: seen.append((done, float(st.epoch))))
+    assert seen == [(d, float(d)) for d in range(chunk, 5, chunk)] + [
+        (5, 5.0)]
+    first, h2 = treinforce.run_search(
+        wl, ecfg, dataclasses.replace(rcfg, epochs=2), pcfg, device="cpu",
+        env=env)
+    saved = treinforce.clone_state(first)
+    rest, h3 = treinforce.run_search(
+        wl, ecfg, dataclasses.replace(rcfg, epochs=3), pcfg, state=first,
+        device="cpu", env=env)
+    _assert_same_state(first, saved)          # the given state is not moved
+    _assert_same_state(whole, rest)
+    for k in treinforce.METRICS:
+        assert np.concatenate([h2[k], h3[k]]).tobytes() == h5[k].tobytes(), k

@@ -158,3 +158,21 @@ def test_cli_rejects_arch_as_not_ported():
          "qwen3-32b", "--device", "cpu"], env=env, cwd=REPO,
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2 and "not ported yet" in proc.stderr
+
+
+def test_cli_text_names_every_registered_method(capsys):
+    """The launcher's docstring and its --help name every method the
+    registry has, and the blend help says what the reference says."""
+    import re
+
+    from repro_torch.launch import search as tlaunch
+
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--help"])
+    help_text = " ".join(capsys.readouterr().out.split())
+    for method in tapi.list_optimizers():
+        pattern = rf"\b{method}\b"
+        assert re.search(pattern, tlaunch.__doc__), method
+        assert re.search(pattern, help_text), method
+    assert "(sampling methods only)" in help_text
+    assert "ga only" not in help_text

@@ -12,12 +12,16 @@ calls at the search path's shapes,
 each timed alone with ``time.perf_counter_ns`` over back-to-back calls.
 
 With ``--compare OTHER_SRC`` it times the search path's calls
-(``chip_smoke.search_kernel_calls``) of another tree of the port, such as
-a ``git archive`` of a parent commit unpacked under the git-ignored
-``_archive/``, and of this checkout in one process, in turns (other,
-this, this, other, twice): the host of the machine with the card is noisy
-from process to process, so only calls timed side by side compare.  Each
-call also gets its device µs per launch from one profiler trace.
+(``chip_smoke.search_kernel_calls``, the LSTM backward's wrapper among
+them) and a stage-1 epoch (``chip_smoke.stage1_epoch_calls``: a replay of
+the captured epoch where the tree has one, else its eager epoch) of
+another tree of the port, such as a ``git archive`` of a parent commit
+unpacked under the git-ignored ``_archive/``, and of this checkout in one
+process, in turns (other, this, this, other, twice): the host of the
+machine with the card is noisy from process to process, so only calls
+timed side by side compare.  Each call also gets its device µs per
+launch of its kernel (the epoch: of the LSTM backward) from one profiler
+trace.
 
 Needs a card; exits non-zero without one.
 """
@@ -34,6 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _ns_per_call(fn, iters=2000, warmup=50):
+    warmup = min(warmup, iters)
     for _ in range(warmup):
         fn()
     t0 = time.perf_counter_ns()
@@ -114,6 +119,10 @@ def compare(dev, other_src, src, rounds=2):
         _purge_port_modules()
         sys.path.insert(0, str(Path(path).resolve()))
         trees[label] = chip_smoke.search_kernel_calls(dev)
+        epoch = chip_smoke.stage1_epoch_calls(dev)[0]
+        trees[label]["stage1 epoch"] = (
+            epoch.get("graphed", epoch["eager"]),
+            chip_smoke.LSTM_BWD_KERNEL, 20)
         sys.path.pop(0)
     out = {}
     for name in trees["this"]:
@@ -126,9 +135,9 @@ def compare(dev, other_src, src, rounds=2):
                 ns[label].append(_ns_per_call(fn, iters))
         row = {}
         for label in ("other", "this"):
-            fn, kernel, _ = trees[label][name]
-            trace = chip_smoke._kernel_trace(fn,
-                                             chip_smoke.SEARCH_TRACE_CALLS)
+            fn, kernel, iters = trees[label][name]
+            trace = chip_smoke._kernel_trace(
+                fn, min(chip_smoke.SEARCH_TRACE_CALLS, iters))
             row[label] = {
                 "ms": sum(ms[label]) / len(ms[label]), "ms_runs": ms[label],
                 "host_ns": sum(ns[label]) / len(ns[label]),
