@@ -23,7 +23,13 @@ and no result line:
    (1, 5300) and (1, 27136) (a GA generation of 100 and a random-search
    batch of 512 on mobilenet_v2), ragged (1, 1), (3, 7), (13, 130);
    padding rows exactly 0, and rows of one workload bit-equal to the
-   single-table kernel.
+   single-table kernel.  Every case is also read in place from one
+   packed (M, 11) row block (the service's upload, stride 11), through
+   the wrapper and through ``ops.batched_cost_multi`` as (M, 4) rows and
+   as four planes; the padded rows as (B, N) views of one block with pe
+   a number; and each workload's (N, 8) table broadcast over 20 rows
+   with a (B, 1) kt column and df a number, against the table kernel:
+   each form bit-equal to the contiguous call.
 4. LSTM kernels vs their plain versions (atol 1e-5) at ``LSTM_SHAPES``:
    the forward's h', c' and the gates it saves for the backward, the
    backward from those gates, on its single pass and forced onto its
@@ -67,7 +73,16 @@ and no result line:
    run byte for byte (best_value, history, pe, kt, df); the batcher must
    have fused dispatches and hit its cache; the per-row kernel must have
    launched at least once and at most once per dispatch; no plain version
-   may have run on the card.
+   may have run on the card.  Then the same requests run through the
+   service again under ``DispatchProbe`` (its instrumentation slows them,
+   so the timed run above is unprobed): the outcomes must again equal
+   the serial runs, and no dispatch may sync the host more than twice, or
+   more than once without fresh points.  The phase prints that run's
+   dispatch split (``[service] dispatch split``): ms per dispatch, the
+   share off the CPU, the time up to the cache lookup, in
+   ``eval_point_rows`` and in the aggregation, syncs and torch calls per
+   dispatch, the per-row kernel's M over its launches, and each method's
+   round trips (``sa``'s is the service's critical path).
 8. LM serving path: qwen2.5-3b at full width (36 layers, d_model 2048,
    GQA 16 / 2, vocab 151,936; random weights from a seed).  (a) float32
    weights, 8 greedy decode steps of 4 requests through the kernel and
@@ -88,7 +103,11 @@ and no result line:
    (``search_kernel_times`` for the search path's calls: the cost kernel
    at the rollout's (1, 1) and at (20, 53), the LSTM forward, and its
    backward both alone and under autograd; the backward also on its tiled
-   kernel), printed as one ``{"kernels": [...]}`` line.
+   kernel); the per-row kernel at (1, 53), (1, 5300) and (1, 27136)
+   (``MULTI_SHAPES``) as the batcher calls it and on contiguous inputs
+   (both forms' device µs), with the batcher's whole
+   ``eval_point_rows``; printed as one
+   ``{"kernels": [...]}`` line.
    ``tools/profile_search_kernels.py`` runs the same search-path
    measurements on another tree, such as a parent commit.
 
@@ -137,6 +156,9 @@ BASELINE_GA_GENERATIONS = 5000
 # Bytes the per-row cost kernel moves per point: 8 layer fields, pe, kt,
 # df in, four costs out, all float32.
 MULTI_BYTES_PER_POINT = 4 * (8 + 3 + 4)
+# Its timed shapes (1, M): an sa step on mobilenet_v2 (one genome), a GA
+# generation of population 100, a random-search batch of 512.
+MULTI_SHAPES = (53, 5300, 27136)
 BF16_FLOP_PER_S = 989e12
 # Flash-decode shapes (B, Hq, Hkv, D, T) checked against the plain version:
 # the LM path's (qwen2.5-3b, 8 requests, a 520-token prompt), a 32k cache,
@@ -367,15 +389,21 @@ def phase_multi_kernel(dev):
     from repro_torch.costmodel import dataflows as dfl
     from repro_torch.costmodel import layers as layers_lib
     from repro_torch.costmodel import workloads
-    from repro_torch.kernels import costmodel_eval, ref
+    from repro_torch.kernels import costmodel_eval, ops, ref
 
-    worst = {"abs": 0.0, "rel": 0.0, "points": 0}
+    worst = {"abs": 0.0, "rel": 0.0, "points": 0, "forms": 0}
 
     def compare(layers, pe, kt, df, what):
+        """The kernel on contiguous (M, 8) and (M,) inputs against the
+        plain version; then the same values read in place from one packed
+        (M, 11) row block (the service's upload, stride 11), through the
+        wrapper and through ``ops.batched_cost_multi`` as (M, 4) rows and
+        as four planes, bit-equal to the contiguous call."""
         got = costmodel_eval.cost_eval_multi(layers, pe, kt, df)
         want = ref.cost_eval_multi_ref(layers, pe, kt, df)
         torch.cuda.synchronize()
-        for g, w, field in zip(got, want, ("lat", "en", "area", "pw")):
+        for g, w, field in zip(got.unbind(1), want,
+                               ("lat", "en", "area", "pw")):
             ok = torch.isclose(g, w, rtol=1e-5, atol=1e-2)
             check(bool(ok.all()), f"per-row cost kernel disagrees on {what} "
                   f"{field}: max abs {float((g - w).abs().max())}")
@@ -384,7 +412,45 @@ def phase_multi_kernel(dev):
             worst["rel"] = max(worst["rel"], float(
                 (diff / w.abs().clamp_min(1e-30)).max()))
         worst["points"] += pe.numel()
+        block = torch.cat([layers, pe[:, None], kt[:, None], df[:, None]], 1)
+        cols = (block[:, :8], block[:, 8], block[:, 9], block[:, 10])
+        for form, out in (
+                ("wrapper", costmodel_eval.cost_eval_multi(*cols)),
+                ("rows", ops.batched_cost_multi(*cols, interleaved=True)),
+                ("planes", torch.stack(ops.batched_cost_multi(*cols), 1))):
+            check(torch.equal(out, got), f"per-row kernel on {what}: the "
+                  f"(M, 11) row block ({form}) differs from the contiguous "
+                  "call")
+            worst["forms"] += 1
         return got
+
+    def broadcast_forms(arr, B, what):
+        """One workload's (N, 8) table broadcast over B rows, pe (B, N), kt
+        a (B, 1) column, df a number, through ``ops.batched_cost_multi``
+        as rows and as planes: bit-equal to the table kernel, as is the
+        dense call, which holds to the plain version."""
+        n = len(arr)
+        table = torch.as_tensor(arr, dtype=torch.float32, device=dev)
+        f = lambda lo, hi, c: torch.tensor(rng.integers(lo, hi, (B, c)),
+                                           dtype=torch.float32, device=dev)
+        pe, kt_col, d = f(1, 161, n), f(1, 17, 1), float(rng.integers(0, 3))
+        kt = kt_col.expand(B, n)
+        dense = compare(table.repeat(B, 1), pe.reshape(-1),
+                        kt.reshape(-1), torch.full((B * n,), d, device=dev),
+                        f"{what} dense")
+        want = costmodel_eval.cost_eval(_layers_table(arr, dev), pe, kt_col,
+                                        d)
+        check(torch.equal(dense.T.reshape(4, B, n), want),
+              f"per-row kernel differs from the table kernel on {what}")
+        for form, out in (
+                ("rows", ops.batched_cost_multi(
+                    table, pe, kt_col, d, interleaved=True).permute(2, 0, 1)),
+                ("planes", torch.stack(ops.batched_cost_multi(
+                    table, pe, kt_col, d)))):
+            check(torch.equal(out, want), f"per-row kernel on {what}: "
+                  f"broadcast and number operands ({form}) differ from the "
+                  "table kernel")
+            worst["forms"] += 1
 
     rng = np.random.default_rng(2)
     # The six paper workloads as ragged rows, padded with repeat = 0 rows.
@@ -408,8 +474,28 @@ def phase_multi_kernel(dev):
         got = compare(layers, pe, kt, torch.full_like(pe, float(df)),
                       f"ragged paper rows df={df}")
         pad_mask = torch.as_tensor(~real, device=dev)
-        check(all(bool((g[pad_mask] == 0).all()) for g in got),
+        check(bool((got[pad_mask] == 0).all()),
               "per-row cost kernel: a repeat = 0 padding row is not 0")
+        # The same rows as (B, N, 8) and (B, N) views of one (B, N, 11)
+        # block, pe a number: bit-equal, padding rows 0, rows and planes.
+        B = layers.shape[0] // N
+        block = torch.cat([layers, kt[:, None], torch.full_like(
+            kt, float(df))[:, None]], 1).reshape(B, N, 10)
+        p0 = float(pe[0])
+        dense = costmodel_eval.cost_eval_multi(
+            layers, torch.full_like(pe, p0), kt, torch.full_like(pe, float(
+                df)))
+        views = (block[..., :8], p0, block[..., 8], block[..., 9])
+        for form, out in (
+                ("rows", ops.batched_cost_multi(*views, interleaved=True)),
+                ("planes", torch.stack(ops.batched_cost_multi(*views), -1))):
+            out = out.reshape(-1, 4)
+            check(torch.equal(out, dense), f"per-row kernel on ragged paper "
+                  f"rows df={df}: (B, N) views ({form}) differ from the "
+                  "contiguous call")
+            check(bool((out[pad_mask] == 0).all()), "per-row cost kernel: a "
+                  f"repeat = 0 padding row is not 0 ({form})")
+            worst["forms"] += 1
 
     mobilenet = layers_lib.layers_to_array(workloads.get_workload(
         "mobilenet_v2"))
@@ -434,13 +520,14 @@ def phase_multi_kernel(dev):
                             device=dev),
             pe.reshape(-1), kt.reshape(-1), df.reshape(-1))
         torch.cuda.synchronize()
-        check(all(torch.equal(a, b.reshape(B, n))
-                  for a, b in zip(table, per_row)),
+        check(torch.equal(table, per_row.T.reshape(4, B, n)),
               f"per-row kernel differs from the table kernel on {name}")
+        broadcast_forms(arr, 20, f"{name} (20 rows)")
     log(f"[cost_multi] kernel == plain on {worst['points']} points: max abs "
         f"err {worst['abs']:.6g}, max rel err {worst['rel']:.3g} (rtol "
         "1e-5, atol 1e-2); padding rows 0; one-workload rows bit-equal to "
-        "the table kernel")
+        f"the table kernel; {worst['forms']} strided, broadcast or number "
+        "forms, as rows and as planes, bit-equal to the contiguous call")
     return worst
 
 
@@ -770,13 +857,267 @@ def _same_outcome(a, b):
             and a.df.tobytes() == b.df.tobytes())
 
 
+class DispatchProbe:
+    """Measures the search service's dispatches from outside, for one run.
+
+    Used as a context manager around a service run.  It wraps, by name,
+    ``CostEvalBatcher._dispatch`` and ``evaluate``,
+    ``SearchService._run``, ``CostMemoCache.get_many`` and the batcher
+    module's ``eval_point_rows`` and ``AGG_NAME``, its aggregation
+    function; it adds no stats key.  For every dispatch it records the
+    wall time (``time.perf_counter``) and the dispatcher thread's CPU
+    time (``time.thread_time``): the gap is time off the CPU, waiting for
+    the GIL or the scheduler (the CUDA runtime spins in a synchronize,
+    which counts as CPU time).  It also records the time up to the cache
+    lookup's return (the rows' concatenation, ``np.unique``, the keys and
+    ``get_many``), the time in ``eval_point_rows`` and in the
+    aggregation, the items, the fresh points (the per-row kernel's M),
+    and its blocking host syncs: PyTorch's sync debug mode ("warn", for
+    the whole run) turns each into a warning, which a filter counts on
+    the dispatcher threads and drops.
+    Every ``count_every``-th dispatch is also counted: a
+    ``TorchFunctionMode`` on the dispatcher thread counts its torch calls
+    (functions, methods, operators and indexing; property reads are left
+    out), and the wall time spent in syncs is summed.  Counted dispatches
+    run slower and are left out of the time means.  Each ``evaluate``
+    call is a round trip of one search's batch; they are summed per
+    method.
+    """
+
+    AGG_NAME = "aggregate_items"
+
+    def __init__(self, count_every=16):
+        self.count_every = count_every
+        self.records = []
+        self.round_trips = {}
+        self._n = 0
+
+    def __enter__(self):
+        import threading
+        import warnings
+
+        import torch
+        from torch.overrides import TorchFunctionMode
+
+        from repro_torch.serving import batcher as bmod
+        from repro_torch.serving import cost_cache, search_service
+
+        probe, tl = self, threading.local()
+        self._tl = tl
+        self._patches = []
+
+        def patch(owner, name, make):
+            orig = getattr(owner, name)
+            self._patches.append((owner, name, orig))
+            setattr(owner, name, make(orig))
+
+        def timed(key):
+            def make(orig):
+                def wrapper(*a, **k):
+                    rec = getattr(tl, "rec", None)
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(*a, **k)
+                    finally:
+                        if rec is not None:
+                            rec[key] += time.perf_counter() - t0
+                            if key == "eval_s":
+                                rec["fresh"] = len(a[0])
+                return wrapper
+            return make
+
+        def lookup(orig):
+            def wrapper(*a, **k):
+                out = orig(*a, **k)
+                rec = getattr(tl, "rec", None)
+                if rec is not None and rec["lookup_s"] == 0.0:
+                    rec["lookup_s"] = time.perf_counter() - rec["t0"]
+                return out
+            return wrapper
+
+        class Calls(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                rec = tl.rec
+                if getattr(func, "__name__", "") != "__get__":
+                    rec["torch_calls"] += 1
+                t0 = time.perf_counter()
+                tl.synced = False
+                out = func(*args, **(kwargs or {}))
+                if tl.synced:
+                    rec["sync_s"] += time.perf_counter() - t0
+                return out
+
+        def dispatch(orig):
+            def wrapper(batcher, items):
+                counted = probe._n % probe.count_every == 0
+                probe._n += 1
+                rec = {"items": len(items), "points": sum(
+                    len(it.points) for it in items), "fresh": 0,
+                    "counted": counted, "lookup_s": 0.0, "eval_s": 0.0,
+                    "agg_s": 0.0, "torch_calls": 0, "syncs": 0,
+                    "sync_s": 0.0, "t0": time.perf_counter()}
+                tl.rec, tl.synced = rec, False
+                mode = Calls() if counted else None
+                if counted:
+                    mode.__enter__()
+                c0, t0 = time.thread_time(), time.perf_counter()
+                try:
+                    return orig(batcher, items)
+                finally:
+                    rec["wall_s"] = time.perf_counter() - t0
+                    rec["cpu_s"] = time.thread_time() - c0
+                    if counted:
+                        mode.__exit__(None, None, None)
+                    tl.rec = None
+                    probe.records.append(rec)
+            return wrapper
+
+        def stream_sync(orig):
+            def wrapper(stream):
+                rec = getattr(tl, "rec", None)
+                t0 = time.perf_counter()
+                orig(stream)   # warns, and so is counted, in debug mode
+                if rec is not None and rec["counted"]:
+                    rec["sync_s"] += time.perf_counter() - t0
+            return wrapper
+
+        def run(orig):
+            def wrapper(service, ticket):
+                tl.method = ticket.request.method
+                return orig(service, ticket)
+            return wrapper
+
+        def evaluate(orig):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    dt = time.perf_counter() - t0
+                    rt = probe.round_trips.setdefault(
+                        getattr(tl, "method", "?"), [0, 0.0])
+                    rt[0] += 1
+                    rt[1] += dt
+            return wrapper
+
+        def on_warning(orig):
+            def wrapper(message, category, *a, **k):
+                rec = getattr(tl, "rec", None)
+                if "synchronizing CUDA operation" in str(message):
+                    if rec is not None:
+                        rec["syncs"] += 1
+                        tl.synced = True
+                    return None
+                if "Synchronization debug mode" in str(message):
+                    return None
+                return orig(message, category, *a, **k)
+            return wrapper
+
+        B = bmod.CostEvalBatcher
+        patch(B, "_dispatch", dispatch)
+        patch(B, "evaluate", evaluate)
+        patch(search_service.SearchService, "_run", run)
+        patch(cost_cache.CostMemoCache, "get_many", lookup)
+        patch(bmod, "eval_point_rows", timed("eval_s"))
+        patch(bmod, self.AGG_NAME, timed("agg_s"))
+        patch(torch.cuda.Stream, "synchronize", stream_sync)
+        patch(warnings, "showwarning", on_warning)
+        self._filters = warnings.filters[:]
+        warnings.filterwarnings("always", message=".*synchroniz")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import warnings
+
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        for owner, name, orig in reversed(self._patches):
+            setattr(owner, name, orig)
+        warnings.filters[:] = self._filters
+        return False
+
+    def split(self, service_s):
+        """The dispatches' means: ms each, the share of it off the CPU,
+        the ms up to the cache lookup's return, in ``eval_point_rows``
+        (over the dispatches with fresh points) and in the aggregation,
+        items, torch calls and syncs (counted dispatches), the per-row
+        kernel's M over its launches, and each method's round trips."""
+        timed = [r for r in self.records if not r["counted"]]
+        counted = [r for r in self.records if r["counted"]]
+        fresh = [r for r in timed if r["fresh"]]
+        mean = lambda rows, k: (sum(r[k] for r in rows) / len(rows)
+                                if rows else None)
+        ms = lambda rows, k: (None if not rows else 1e3 * mean(rows, k))
+        wall = sum(r["wall_s"] for r in timed)
+        cpu = sum(r["cpu_s"] for r in timed)
+        out = {
+            "dispatches": len(self.records), "timed": len(timed),
+            "counted": len(counted),
+            "ms_per_dispatch": ms(timed, "wall_s"),
+            "cpu_ms_per_dispatch": ms(timed, "cpu_s"),
+            "off_cpu_share": (wall - cpu) / wall if wall else None,
+            "lookup_ms": ms(timed, "lookup_s"),
+            "eval_ms_fresh_dispatches": ms(fresh, "eval_s"),
+            "agg_ms": ms(timed, "agg_s"),
+            "fresh_dispatch_share": len(fresh) / max(len(timed), 1),
+            "items_per_dispatch": mean(self.records, "items"),
+            "points_per_dispatch": mean(self.records, "points"),
+            "torch_calls_per_dispatch": mean(counted, "torch_calls"),
+            "syncs_per_dispatch": mean(self.records, "syncs"),
+            "sync_ms_per_dispatch": ms(counted, "sync_s"),
+            "max_syncs_in_a_dispatch": max(
+                (r["syncs"] for r in self.records), default=None),
+            "max_syncs_without_fresh": max(
+                (r["syncs"] for r in self.records if not r["fresh"]),
+                default=None),
+            "dispatch_share_of_service": wall * len(self.records)
+            / max(len(timed), 1) / service_s}
+        m = sorted(r["fresh"] for r in self.records if r["fresh"])
+        if m:
+            out["fresh_points_per_launch"] = {
+                "launches": len(m), "mean": sum(m) / len(m),
+                "median": m[len(m) // 2], "p90": m[int(0.9 * len(m))],
+                "max": m[-1], **{f"at_most_{t}": sum(x <= t for x in m)
+                                 for t in (64, 128, 256, 1024)}}
+        for method, (n, s) in sorted(self.round_trips.items()):
+            out[f"round_trips_{method}"] = n
+            out[f"round_trip_ms_{method}"] = 1e3 * s / n
+            out[f"round_trip_share_of_service_{method}"] = s / service_s
+        return out
+
+
+def service_run(dev, requests, probe=None):
+    """``requests`` submitted together to the search service on the card
+    (``probe``, a :class:`DispatchProbe`, measures its dispatches if
+    given): the outcomes, the tickets, the service's stats and its wall
+    seconds."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.serving import SearchService, ServiceConfig
+
+    with probe or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        with SearchService(ServiceConfig(max_workers=8, window_ms=2.0,
+                                         device="cuda")) as svc:
+            tickets = [svc.submit(r) for r in requests]
+            outs = [t.result() for t in tickets]
+            stats = svc.stats()
+        torch.cuda.synchronize()
+        return outs, tickets, stats, time.perf_counter() - t0
+
+
 def phase_service(dev, specs=SERVICE_REQUESTS):
-    """The search service against serial runs of the same requests."""
+    """The search service against serial runs of the same requests; then
+    the same requests again under :class:`DispatchProbe`, for the
+    dispatch split."""
     import torch
 
     from repro_torch import api
     from repro_torch.kernels import ops, ref
-    from repro_torch.serving import SearchService, ServiceConfig
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -784,16 +1125,9 @@ def phase_service(dev, specs=SERVICE_REQUESTS):
     torch.cuda.synchronize()
     serial_s = time.perf_counter() - t0
 
-    requests = _service_requests(specs)
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    with SearchService(ServiceConfig(max_workers=8, window_ms=2.0,
-                                     device="cuda")) as svc:
-        tickets = [svc.submit(r) for r in requests]
-        outs = [t.result() for t in tickets]
-        stats = svc.stats()
-    torch.cuda.synchronize()
-    service_s = time.perf_counter() - t0
+    outs, tickets, stats, service_s = service_run(
+        dev, _service_requests(specs))
     counts = ops.launch_counts()
     plain_on_card = dict(ref.cuda_calls)
 
@@ -817,6 +1151,22 @@ def phase_service(dev, specs=SERVICE_REQUESTS):
                         "eps": spec[2], "best_value": out.best_value,
                         "feasible": out.feasible,
                         "wall_seconds": t.wall_seconds}))
+
+    # The dispatch split, from a second run under the probe (its times
+    # are instrumented, so they compare only with other probed runs).
+    probe = DispatchProbe()
+    probed, _, probed_stats, probed_s = service_run(
+        dev, _service_requests(specs), probe)
+    split = probe.split(probed_s)
+    check(all(_same_outcome(a, b) for a, b in zip(probed, serial)),
+          "a probed service outcome differs from its serial run")
+    check(split["dispatches"] == probed_stats["dispatches"],
+          f"the probe saw {split['dispatches']} of "
+          f"{probed_stats['dispatches']} dispatches")
+    check(split["max_syncs_in_a_dispatch"] <= 2
+          and (split["max_syncs_without_fresh"] or 0) <= 1,
+          f"a dispatch synced the host more than twice, or more than once "
+          f"without fresh points: {split}")
     timing = {
         "requests": len(specs), "serial_s": serial_s,
         "service_s": service_s,
@@ -831,10 +1181,18 @@ def phase_service(dev, specs=SERVICE_REQUESTS):
         "items_per_dispatch": stats["items"] / max(dispatches, 1),
         "max_items_per_dispatch": stats["max_items_per_dispatch"],
         "ms_per_dispatch": 1e3 * stats["dispatch_seconds"]
-        / max(dispatches, 1)}
+        / max(dispatches, 1),
+        "probed_service_s": probed_s, "dispatch_split": split}
     log(f"[service] byte-identical to serial on {len(specs)} requests; "
         f"launches {json.dumps(counts)}; plain versions on the card "
         f"{json.dumps(plain_on_card)}; {json.dumps(timing)}")
+    log(f"[service] dispatch split (probed run, {probed_s:.3f} s): "
+        f"{split['ms_per_dispatch']:.3f} ms per dispatch, "
+        f"{100 * split['off_cpu_share']:.1f}% of it off the CPU, "
+        f"{split['syncs_per_dispatch']:.2f} syncs and "
+        f"{split['torch_calls_per_dispatch']:.1f} torch calls per dispatch; "
+        f"sa round trip {split.get('round_trip_ms_sa', 0):.3f} ms; "
+        f"unprobed: serial {serial_s:.3f} s, service {service_s:.3f} s")
     return counts, timing
 
 
@@ -1349,6 +1707,22 @@ def _bound(nbytes, nops):
                                        else "operations")
 
 
+def eval_rows_ms(rows, dev, iters=300, warmup=20):
+    """Mean wall ms per call of the batcher's ``eval_point_rows`` on the
+    (M, 11) packed rows ``rows`` (numpy), with one stream and pinned
+    buffers for all calls, as a dispatcher thread has; each call ends in
+    its own wait."""
+    from repro_torch.serving import batcher
+
+    io = batcher._DeviceIO(dev)
+    for _ in range(warmup):
+        batcher.eval_point_rows(rows, dev, io)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        batcher.eval_point_rows(rows, dev, io)
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
 def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
     """Phase 9: each search kernel at the main path's shapes: CUDA-event ms
     per call, device µs per launch from a profiler trace, the bound, the
@@ -1475,20 +1849,36 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
         4 * Bl * (I + H) * 4 * H + Bl * 4 * H
         + LSTM_BWD_TAIL_OPS_PER_UNIT * Bl * H)
 
-    # The per-row kernel at the service's flat shapes: one GA generation of
-    # population 100 and one random-search batch of 512 on mobilenet_v2.
+    # The per-row kernel at the service's flat shapes: an sa step (one
+    # mobilenet_v2 genome), a GA generation of population 100 and a
+    # random-search batch of 512, as the batcher calls it (its (M, 11)
+    # upload read in place) and on contiguous (M, 8) and (M,) inputs, the
+    # parent kernel's only form, both with (M, 4) rows out; and the whole
+    # eval_point_rows (upload, launch, download, wait, on its own stream).
     rng = np.random.default_rng(3)
-    multi_ms = {}
-    for M in (5300, 27136):
+    multi_by_shape = {}
+    for M in MULTI_SHAPES:
         a = _flat_points(arr, M, rng, dev)
-        multi_ms[f"1x{M}"] = time_ms(
-            lambda: costmodel_eval.cost_eval_multi(*a), 2000)
+        rows = torch.cat([a[0], *(v[:, None] for v in a[1:])], 1)
+        cols = (rows[:, :8], rows[:, 8], rows[:, 9], rows[:, 10])
+        forms = {"": lambda: costmodel_eval.cost_eval_multi(*cols),
+                 "contiguous_": lambda: costmodel_eval.cost_eval_multi(*a)}
+        row = {}
+        for form, call in forms.items():
+            trace = _kernel_trace(call, SEARCH_TRACE_CALLS)
+            check(trace is not None, "the profiler trace of the per-row "
+                  "cost kernel shows no device time")
+            row[f"{form}ms"] = time_ms(call, 2000)
+            row[f"{form}device_us_per_launch"] = _per_launch_us(
+                trace, "cost_eval_multi_kernel")[0]
+        multi_by_shape[f"1x{M}"] = {
+            **row,
+            "eval_point_rows_ms": eval_rows_ms(rows.cpu().numpy(), dev),
+            "bound_ms": _bound(MULTI_BYTES_PER_POINT * M,
+                               COST_OPS_PER_POINT * M)[0],
+            "plain_ms": time_ms(lambda: ref.cost_eval_multi_ref(*a), 300)}
     M = 5300
-    a = _flat_points(arr, M, rng, dev)
-    multi_trace = _kernel_trace(lambda: costmodel_eval.cost_eval_multi(*a),
-                                SEARCH_TRACE_CALLS)
-    check(multi_trace is not None, "the profiler trace of the per-row cost "
-          "kernel shows no device time")
+    main = multi_by_shape[f"1x{M}"]
     multi_entry = {
         "name": "cost_eval_multi", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/costmodel_eval.cu",
@@ -1499,11 +1889,14 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
         "launches_per_run": multi_counts["cost_eval_multi"],
         "max_abs_err": multi_err["abs"], "max_err": multi_err["abs"],
         "max_rel_err": multi_err["rel"],
-        "ms": multi_ms[f"1x{M}"], "kernel_ms": multi_ms[f"1x{M}"],
-        "device_us_per_launch": _per_launch_us(
-            multi_trace, "cost_eval_multi_kernel")[0],
-        "plain_ms": time_ms(lambda: ref.cost_eval_multi_ref(*a), 300),
-        "library_ms": None, "ms_by_shape": multi_ms}
+        "ms": main["ms"], "kernel_ms": main["ms"],
+        "device_us_per_launch": main["device_us_per_launch"],
+        "contiguous_ms": main["contiguous_ms"],
+        "contiguous_device_us_per_launch": main[
+            "contiguous_device_us_per_launch"],
+        "plain_ms": main["plain_ms"], "library_ms": None,
+        "threads_per_block": costmodel_eval.MULTI_THREADS,
+        "by_shape": multi_by_shape}
     multi_entry["bound_ms"], multi_entry["bound_by"] = _bound(
         MULTI_BYTES_PER_POINT * M, COST_OPS_PER_POINT * M)
     for e in (cost_entry, lstm_entry, bwd_entry, multi_entry):
@@ -1514,6 +1907,7 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
     log(f"[timings] lstm_cell_bwd tiled: {bwd_entry['tiled_ms']:.4f} ms per "
         f"call, {bwd_entry['tiled_device_us_per_launch']} µs of device time "
         "per launch")
+    log(f"[timings] cost_eval_multi by shape: {json.dumps(multi_by_shape)}")
     return [cost_entry, lstm_entry, bwd_entry, multi_entry]
 
 

@@ -7,7 +7,8 @@ layer descriptor per point.
 against a (NUM_FIELDS, N) layer table.  :func:`cost_eval_multi` replaces
 ``cost_eval_multi_padded`` (body ``_cost_kernel_multi``): a flat list of M
 points, each with its own (NUM_FIELDS,) layer row -- the search service's
-fused dispatch.  Both kernels live in ``csrc/costmodel_eval.cu`` and share
+fused dispatch -- read through their point strides and written as (M, 4)
+rows.  Both kernels live in ``csrc/costmodel_eval.cu`` and share
 its ``core_cost``; the source note says what bounds them on the card and
 how their design answers that.  Unlike the TPU kernels they take any
 shape: no tiles, no padding.
@@ -24,6 +25,13 @@ import torch
 
 from repro_torch.costmodel.layers import NUM_FIELDS
 from repro_torch.kernels import build
+
+# Threads per block of the per-row kernel.  Most of the service's launches
+# carry few points (phase 7 on an H100: 169 of 182 at most 64, median 3),
+# so one block holds them whatever its size; over that mix 64, 128 and 256
+# threads give device times within 1% of each other
+# (tools/tune_cost_multi.py), and 128 is the table kernel's.
+MULTI_THREADS = 128
 
 _fn = None
 _multi_fn = None
@@ -44,8 +52,7 @@ def _multi_launcher():
     global _multi_fn
     if _multi_fn is None:
         fn = build.load("costmodel_eval").cost_eval_multi_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong,
-                                               ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _multi_fn = fn
     return _multi_fn
@@ -131,25 +138,48 @@ def cost_eval(layers_t, pe, kt, df):
 
 
 def cost_eval_multi(layers, pe, kt, df):
-    """Launch the per-row kernel.  layers: (M, NUM_FIELDS); pe/kt/df: (M,).
+    """Launch the per-row kernel.
 
-    Every input is a contiguous float32 CUDA tensor on one device.  Returns
-    (latency, energy, area, power), each (M,) float32.
+    layers: an (M, NUM_FIELDS) float32 CUDA tensor whose fields lie side
+    by side (stride 1), any row stride; pe, kt, df: (M,) (or one value)
+    float32 tensors on the same card, any stride.  Each is read in place:
+    the search service passes the columns of its packed (M, 11) rows.
+    Returns one (M, 4) float32 tensor, each point's latency, energy, area
+    and power side by side.
     """
-    if pe.dim() != 1:
-        raise ValueError(f"pe: expected (M,), got {tuple(pe.shape)}")
-    M = pe.shape[0]
-    ptrs, index = build.check_inputs(
-        (layers, pe, kt, df), ("layers", "pe", "kt", "df"),
-        ((M, NUM_FIELDS), (M,), (M,), (M,)))
-    out = torch.empty((4, M), dtype=torch.float32, device=pe.device)
+    index = layers.get_device()
+    if index < 0:
+        raise ValueError("layers: expected a CUDA tensor")
+    if layers.dtype is not torch.float32:
+        raise ValueError(f"layers: dtype {layers.dtype}, expected float32")
+    shape, stride = layers.shape, layers.stride()
+    if len(shape) != 2 or shape[1] != NUM_FIELDS or stride[1] != 1:
+        raise ValueError(f"layers: shape {tuple(shape)}, strides "
+                         f"{tuple(stride)}; expected (M, {NUM_FIELDS}) "
+                         "with its fields side by side")
+    M = shape[0]
+    strides = [broadcast_strides(shape[:1], stride[:1], 1, M, "layers")[1]]
+    args = [layers.data_ptr()]
+    for v, name in ((pe, "pe"), (kt, "kt"), (df, "df")):
+        if v.get_device() != index:
+            raise ValueError(f"{name}: expected a CUDA tensor on "
+                             f"cuda:{index}")
+        if v.dtype is not torch.float32:
+            raise ValueError(f"{name}: dtype {v.dtype}, expected float32")
+        args.append(v.data_ptr())
+        strides.append(broadcast_strides(v.shape, v.stride(), 1, M, name)[1])
+    if max((M - 1) * strides[0] + NUM_FIELDS, (M - 1) * max(strides),
+           4 * M + MULTI_THREADS) >= 1 << 31:
+        raise ValueError(f"cost_eval_multi: {M} points at strides "
+                         f"{strides} reach past 2**31 elements")
+    out = layers.new_empty((M, 4))
     if M == 0:
-        return out.unbind(0)
+        return out
+    packed = array("q", (*args, *strides, out.data_ptr(), M, MULTI_THREADS))
     stream = build.stream(index)
-    rc = _multi_launcher()(*ptrs, *(out[i].data_ptr() for i in range(4)), M,
-                           index, stream)
+    rc = _multi_launcher()(packed.buffer_info()[0], index, stream)
     if rc != 0:
         raise RuntimeError(
             f"cost_eval_multi kernel launch failed: CUDA error {rc}")
     build.count("cost_eval_multi", stream)
-    return out.unbind(0)
+    return out

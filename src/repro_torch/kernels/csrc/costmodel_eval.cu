@@ -11,9 +11,9 @@
 //
 // `cost_eval_multi_kernel` replaces `cost_eval_multi_padded` /
 // `_cost_kernel_multi` in the same file: every point carries its own layer
-// descriptor, (M, NUM_FIELDS) row-major beside (M,) pe, kt and df.  This
-// is the search service's shape: one batcher dispatch fuses the fresh
-// points of many searches, of different workloads, into one flat list.
+// descriptor, (M, NUM_FIELDS) beside (M,) pe, kt and df.  This is the
+// search service's shape: one batcher dispatch fuses the fresh points of
+// many searches, of different workloads, into one flat list.
 // Both kernels call the one `core_cost` below, in one library built with
 // one set of flags, so a point gets the same bits from either kernel; that
 // is what keeps a search through the service byte-identical to the same
@@ -40,6 +40,15 @@
 // (4, B, N) buffer from one base pointer.  How an operand is read does not
 // touch `core_cost`, so strided, broadcast and contiguous inputs give the
 // same bits.
+// The per-row kernel is the service's, whose dispatch waits on each of its
+// calls: it reads a point's eight layer fields and its pe, kt and df
+// through one point stride each (the fields of a point side by side), so
+// the batcher's (M, 11) upload of packed point rows is read in place (the
+// fields are columns 0-7, pe / kt / df columns 8-10, all at point stride
+// 11) and no copy kernel runs before it; and it writes each point's four
+// costs as one 16-byte (M, 4) row, which is the row the service's cache
+// stores, so no stacking kernel runs after it.  Offsets are 32-bit (the
+// wrapper checks that they fit).
 //
 // Numbers: the library is built without --use_fast_math, so `/` and sqrtf
 // round the IEEE way (a division that feeds ceilf/floorf must not come out
@@ -212,25 +221,27 @@ __global__ void cost_eval_kernel(const float* __restrict__ layers_t,
             out[3 * total + idx]);
 }
 
+// The per-row kernel: point p's layer fields at layers[p * ls + i], its pe,
+// kt and df at pe[p * ps], kt[p * ks], df[p * ds] (a stride of 0 reads one
+// value for every point), its four costs at out[4 p .. 4 p + 3] (out is
+// 16-byte aligned).
 __global__ void cost_eval_multi_kernel(const float* __restrict__ layers,
                                        const float* __restrict__ pe,
                                        const float* __restrict__ kt,
                                        const float* __restrict__ df,
-                                       float* __restrict__ lat,
-                                       float* __restrict__ en,
-                                       float* __restrict__ area,
-                                       float* __restrict__ pw,
-                                       long long total) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const float* row = layers + idx * kNumFields;
+                                       float4* __restrict__ out, int ls,
+                                       int ps, int ks, int ds, int M) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= M) return;
+  const float* row = layers + p * ls;
   float f[kNumFields];
 #pragma unroll
   for (int i = 0; i < kNumFields; ++i) f[i] = __ldg(row + i);
-  core_cost(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], __ldg(pe + idx),
-            __ldg(kt + idx), __ldg(df + idx), lat[idx], en[idx], area[idx],
-            pw[idx]);
+  float4 o;
+  core_cost(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
+            __ldg(pe + p * ps), __ldg(kt + p * ks), __ldg(df + p * ds), o.x,
+            o.y, o.z, o.w);
+  out[p] = o;
 }
 
 }  // namespace
@@ -267,26 +278,32 @@ extern "C" int cost_eval_launch(const long long* a, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// layers: (M, NUM_FIELDS) row-major, one descriptor per point; pe, kt, df
-// and the four outputs: (M,); all float32, contiguous, on card `device`,
-// where `stream` lives.  Returns cudaGetLastError().
-extern "C" int cost_eval_multi_launch(const void* layers, const void* pe,
-                                      const void* kt, const void* df,
-                                      void* lat, void* en, void* area,
-                                      void* pw, long long M, int device,
+// The per-row kernel's launch arguments, packed as the table kernel's:
+//   a[0..3]       layers, pe, kt, df: data pointers
+//   a[4..7]       their point strides in elements (layers: its fields
+//                 side by side)
+//   a[8]          out: (M, 4) contiguous, latency / energy / area / power
+//   a[9]          M
+//   a[10]         threads per block
+// All float32, on card `device`, where `stream` lives; every offset below
+// 2^31.  Returns cudaGetLastError().
+extern "C" int cost_eval_multi_launch(const long long* a, int device,
                                       void* stream) {
+  const int M = static_cast<int>(a[9]);
   if (M == 0) return 0;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 128;
+  const int threads = static_cast<int>(a[10]);
   const unsigned blocks = static_cast<unsigned>((M + threads - 1) / threads);
   cost_eval_multi_kernel<<<blocks, threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(layers), static_cast<const float*>(pe),
-      static_cast<const float*>(kt), static_cast<const float*>(df),
-      static_cast<float*>(lat), static_cast<float*>(en),
-      static_cast<float*>(area), static_cast<float*>(pw), M);
+      reinterpret_cast<const float*>(a[0]),
+      reinterpret_cast<const float*>(a[1]),
+      reinterpret_cast<const float*>(a[2]),
+      reinterpret_cast<const float*>(a[3]), reinterpret_cast<float4*>(a[8]),
+      static_cast<int>(a[4]), static_cast<int>(a[5]), static_cast<int>(a[6]),
+      static_cast<int>(a[7]), M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,31 +72,41 @@ def _as_operand(v, dev):
     return torch.as_tensor(v, dtype=torch.float32, device=dev)
 
 
-def batched_cost_multi(layers, pe, kt, df):
-    """Evaluate a (B, N) batch where every row has its own layer descriptors.
+def batched_cost_multi(layers, pe, kt, df, interleaved=False):
+    """Evaluate a batch where every point has its own layer descriptors.
 
-    layers: (B, N, NUM_FIELDS); pe/kt/df: broadcastable to (B, N).  Returns
-    (latency, energy, area, power), each (B, N) float32 on the inputs'
-    device.  This is the search service's shape: one call evaluates points
-    of different workloads side by side (its batcher passes them as one
-    (1, M) row).  Rows with ``repeat = 0`` come out exactly 0, so a caller
-    may pad ragged workloads with them.
+    layers: (B, N, NUM_FIELDS), or (M, NUM_FIELDS) for a flat list of M
+    points; pe/kt/df broadcast to its leading shape ((B, N) or (M,)) and
+    may be Python numbers.  Returns (latency, energy, area, power), each of
+    that shape, float32 on the inputs' device; with ``interleaved`` one
+    (..., 4) tensor instead, each point's four costs side by side.  This
+    is the search service's shape: one call evaluates points of different
+    workloads side by side (its batcher passes the columns of its packed
+    (M, ROW_WIDTH) rows, and stores each point's costs as one row).  Each
+    input goes to the per-row kernel (its plain version on the CPU) as a
+    flat view where one exists, read through its stride; a broadcast that
+    no stride can express is copied.  Every form gives the same bits.
+    Rows with ``repeat = 0`` come out exactly 0, so a caller may pad
+    ragged workloads with them.
     """
     dev = _device(layers, pe, kt, df)
-    as_f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
-    layers = as_f32(layers)
-    if layers.dim() != 3 or layers.shape[-1] != NUM_FIELDS:
-        raise ValueError(f"layers: expected (B, N, {NUM_FIELDS}), got "
-                         f"{tuple(layers.shape)}")
-    B, N = layers.shape[:2]
-    flat = layers.reshape(B * N, NUM_FIELDS).contiguous()
-    pe, kt, df = (as_f32(v).expand(B, N).reshape(-1).contiguous()
-                  for v in (pe, kt, df))
+    layers = torch.as_tensor(layers, dtype=torch.float32, device=dev)
+    if layers.dim() not in (2, 3) or layers.shape[-1] != NUM_FIELDS:
+        raise ValueError(f"layers: expected (B, N, {NUM_FIELDS}) or (M, "
+                         f"{NUM_FIELDS}), got {tuple(layers.shape)}")
+    vals = [torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for v in (pe, kt, df)]
+    lead = torch.broadcast_shapes(layers.shape[:-1], *(v.shape for v in vals))
+    flat = layers.expand(*lead, NUM_FIELDS).reshape(-1, NUM_FIELDS)
+    if flat.stride(1) != 1:
+        flat = flat.contiguous()
+    vals = [v.expand(lead).reshape(-1) for v in vals]
     if dev.type == "cpu":
-        outs = ref.cost_eval_multi_ref(flat, pe, kt, df)
+        out = torch.stack(ref.cost_eval_multi_ref(flat, *vals), dim=-1)
     else:
-        outs = costmodel_eval.cost_eval_multi(flat, pe, kt, df)
-    return tuple(o.reshape(B, N) for o in outs)
+        out = costmodel_eval.cost_eval_multi(flat, *vals)
+    out = out.reshape(*lead, 4)
+    return out if interleaved else tuple(out.unbind(-1))
 
 
 def lstm_step(x, h, c, wx, wh, b):

@@ -10,15 +10,23 @@ everything pending and:
      pe, kt, df)`` -- the cost model is per point, so points from
      different workloads concatenate freely;
   2. dedupe identical points across and within items with one
-     ``np.unique`` pass;
+     ``np.unique`` pass over the rows' bytes;
   3. look the unique points up in the
      :class:`~repro_torch.serving.cost_cache.CostMemoCache` and evaluate
      only the fresh ones in ONE call of the per-row cost kernel
-     (``ops.batched_cost_multi`` at (1, M); its plain version when the
-     batcher runs on the CPU);
+     (:func:`eval_point_rows`: one upload of their packed rows, one launch
+     that reads them in place and writes each point's four costs as one
+     row, one download; its plain version when the batcher runs on the
+     CPU);
   4. reassemble each item's values to the ``(b, N)`` shape the serial
      engine reduces over and aggregate them with the serial engine's own
-     :func:`repro_torch.core.env.aggregate_costs`, on the batcher's device.
+     :func:`repro_torch.core.env.aggregate_costs`, on the batcher's device
+     (:func:`aggregate_items`: one upload and one download for all items).
+
+On a card each dispatcher thread has a CUDA stream of its own and pinned
+host buffers (:class:`_DeviceIO`), and a dispatch waits on that stream
+alone, not behind the work the searches queue on the card: one host sync
+for a dispatch whose points are all cached, two for one with fresh points.
 
 Exactness, by construction: the per-row kernel and the single-table kernel
 the serial engines launch share one ``core_cost`` device function built
@@ -36,6 +44,7 @@ the dispatch fails, and nothing falls back to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, List, Optional
@@ -52,6 +61,7 @@ _PE_COL = NUM_FIELDS
 _KT_COL = NUM_FIELDS + 1
 _DF_COL = NUM_FIELDS + 2
 ROW_WIDTH = NUM_FIELDS + 3   # layer fields + pe + kt + df
+_ROW_BYTES = np.dtype((np.void, 4 * ROW_WIDTH))   # one packed row, opaque
 
 
 class _Item:
@@ -109,6 +119,8 @@ class CostEvalBatcher:
             "leaked_dispatch_threads": 0,
             "dispatch_seconds": 0.0,
         }
+        # Each dispatcher thread's stream and pinned buffers (on a card).
+        self._io = threading.local()
         self._threads = [
             threading.Thread(target=self._loop,
                              name=f"cost-eval-batcher-{i}", daemon=True)
@@ -207,16 +219,32 @@ class CostEvalBatcher:
                 with self._stats_lock:
                     self._active -= 1
 
+    def _device_io(self) -> Optional["_DeviceIO"]:
+        """The calling thread's :class:`_DeviceIO`, made on its first
+        dispatch (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        io = getattr(self._io, "io", None)
+        if io is None:
+            io = self._io.io = _DeviceIO(self.device)
+        return io
+
     def _dispatch(self, items: List[_Item]) -> None:
         t0 = time.perf_counter()
+        io = self._device_io()
         rows = (items[0].points if len(items) == 1
                 else np.concatenate([it.points for it in items], axis=0))
-        uniq, inv = np.unique(rows, axis=0, return_inverse=True)
+        # Dedupe on each row's bytes, the cache's key: one sort of (P,)
+        # opaque 44-byte items (np.unique(rows, axis=0) sorts a structured
+        # dtype field by field, several times slower).
+        flat = np.ascontiguousarray(rows).view(_ROW_BYTES).reshape(-1)
+        uniq, first, inv = np.unique(flat, return_index=True,
+                                     return_inverse=True)
         inv = inv.reshape(-1)
-        keys = [u.tobytes() for u in uniq]
+        keys = uniq.tolist()                        # bytes, as u.tobytes()
         values, miss_index = self.cache.get_many(keys)
         if miss_index:
-            fresh = eval_point_rows(uniq[miss_index], self.device)
+            fresh = eval_point_rows(rows[first[miss_index]], self.device, io)
             # Cache per-row COPIES: a row view would pin the whole dispatch's
             # result array in memory for as long as any one point stays hot.
             self.cache.put_many([keys[i] for i in miss_index],
@@ -225,12 +253,9 @@ class CostEvalBatcher:
                 values[i] = v
         per_point = np.stack(values)[inv]          # (P, 4)
 
-        off = 0
-        for it in items:
-            n = it.points.shape[0]
-            it.fit = aggregate_point_values(per_point[off:off + n], it.shape,
-                                            it.ecfg, it.budget, self.device)
-            off += n
+        for it, fit in zip(items, aggregate_items(per_point, items,
+                                                  self.device, io)):
+            it.fit = fit
             it.event.set()
 
         with self._stats_lock:
@@ -248,36 +273,122 @@ class CostEvalBatcher:
             s["dispatch_seconds"] += time.perf_counter() - t0
 
 
-def eval_point_rows(rows: np.ndarray, device) -> np.ndarray:
+class _DeviceIO:
+    """A dispatcher thread's CUDA stream and pinned host buffers on one
+    card, made once per thread (``CostEvalBatcher._device_io``).
+
+    A dispatch runs every upload, launch, reduction and download on its
+    thread's stream and waits on that stream alone: the stream does not
+    wait for the legacy default stream, where the searches queue their own
+    work (GA generations, a ``reinforce`` request's CUDA-graph replays).
+    Tensors made on the stream are used only there.  The host buffers are
+    pinned, so copies to and from the card go straight to the stream, and
+    grow by powers of two, so a warm thread allocates no pinned memory
+    (an allocation synchronizes the device).  A buffer is refilled only
+    after the stream has drained: each use ends in a synchronize.
+    """
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self._host: Dict[str, torch.Tensor] = {}
+
+    def host(self, name: str, n: int) -> torch.Tensor:
+        """The first ``n`` float32 of pinned buffer ``name``."""
+        buf = self._host.get(name)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(1 << max(n - 1, 255).bit_length(),
+                              dtype=torch.float32, pin_memory=True)
+            self._host[name] = buf
+        return buf[:n]
+
+
+def eval_point_rows(rows: np.ndarray, device,
+                    io: Optional[_DeviceIO] = None) -> np.ndarray:
     """Evaluate (M, ROW_WIDTH) fresh points on ``device`` -> (M, 4) f32.
 
-    One call of the per-row cost kernel at (1, M) (its plain version on
-    the CPU).  Per-point results do not depend on M or on the other rows,
-    so any caller packing the same row gets the same bytes -- the property
-    both the memo cache and serial == service-batched byte identity rest
-    on.
+    One call of the per-row cost kernel (its plain version on the CPU): on
+    a card, one upload of the rows from the pinned buffer of ``io`` (the
+    calling dispatcher thread's; a new one if None), one launch that
+    reads the layer fields and pe / kt / df as columns of that upload and
+    writes each point's four costs as one row, one download into pinned
+    memory and one wait, all on the stream of ``io``.
+    Per-point results do not depend on M or on the other rows, so any
+    caller packing the same row gets the same bytes -- the property both
+    the memo cache and serial == service-batched byte identity rest on.
     """
-    t = torch.as_tensor(np.asarray(rows, np.float32), device=device)[None]
-    out = ops.batched_cost_multi(t[..., :NUM_FIELDS], t[..., _PE_COL],
-                                 t[..., _KT_COL], t[..., _DF_COL])
-    return torch.stack(out, dim=-1)[0].cpu().numpy()
+    rows = np.asarray(rows, np.float32)
+    if device.type == "cpu":
+        return _point_costs(torch.from_numpy(rows)).numpy()
+    io = io or _DeviceIO(device)
+    M = rows.shape[0]
+    host_rows = io.host("rows", M * ROW_WIDTH).view(M, ROW_WIDTH)
+    host_rows.numpy()[...] = rows
+    host_out = io.host("costs", M * 4).view(M, 4)
+    with torch.cuda.stream(io.stream):
+        host_out.copy_(_point_costs(host_rows.to(device, non_blocking=True)),
+                       non_blocking=True)
+    io.stream.synchronize()
+    return host_out.numpy().copy()
 
 
-def aggregate_point_values(vals: np.ndarray, shape, ecfg, budget,
-                           device) -> np.ndarray:
-    """(b*N, 4) per-point values -> (b,) f32 fitness, +inf where infeasible.
+def _point_costs(t: torch.Tensor) -> torch.Tensor:
+    """(M, ROW_WIDTH) packed rows -> (M, 4) costs, read in place."""
+    return ops.batched_cost_multi(t[:, :NUM_FIELDS], t[:, _PE_COL],
+                                  t[:, _KT_COL], t[:, _DF_COL],
+                                  interleaved=True)
 
-    The serial engines' reduction (:func:`env.aggregate_costs`) over the
-    same (b, N) shape, on ``device``: the four (b, N) tensors are
-    contiguous views of one (4, b, N) block, as the cost kernel returns
-    them, and the budget is a float32 0-d tensor, as in ``EnvArrays``.
+
+def aggregate_items(vals: np.ndarray, items, device,
+                    io: Optional[_DeviceIO] = None) -> List[np.ndarray]:
+    """(P, 4) per-point values of ``items``, in order -> each item's (b,)
+    f32 fitness, +inf where infeasible.
+
+    Each item gets the serial engines' reduction
+    (:func:`env.aggregate_costs`) over its own (b, N) shape, on
+    ``device``: its four (b, N) tensors are views of one freshly
+    allocated (4, b, N) block, as the cost kernel returns them, filled on
+    the device from the dispatch's upload (PyTorch picks vectorised loads
+    by a pointer's alignment, which can change the order of a sum, so a
+    view at another offset of the upload could round differently); the
+    budget is a float32 0-d tensor, as in ``EnvArrays``.  On a card the
+    values and budgets of all items go up in one copy and all fitnesses
+    come back in one, through the pinned buffers and on the stream of
+    ``io`` (a new one if None), with one wait.
     """
-    b, N = shape
-    block = torch.as_tensor(np.ascontiguousarray(vals.T), device=device)
-    lat, en, area, pw = block.reshape(4, b, N).unbind(0)
-    budget = torch.as_tensor(np.float32(budget), device=device)
-    perf, _, feas = env_lib.aggregate_costs(lat, en, area, pw, ecfg, budget)
-    return torch.where(feas, perf, torch.inf).cpu().numpy()
+    sizes = [it.points.shape[0] for it in items]
+    P = sum(sizes)
+    n = P * 4 + len(items)
+    on_card = device.type == "cuda"
+    if on_card:
+        io = io or _DeviceIO(device)
+        host = io.host("values", n)
+        ctx = torch.cuda.stream(io.stream)
+    else:
+        host = torch.empty(n, dtype=torch.float32)
+        ctx = contextlib.nullcontext()
+    flat = host.numpy()
+    flat[:P * 4] = vals.reshape(-1)
+    flat[P * 4:] = [it.budget for it in items]
+    with ctx:
+        up = host.to(device, non_blocking=True)
+        per_point, budgets = up[:P * 4].view(P, 4), up[P * 4:]
+        fits, off = [], 0
+        for k, (it, size) in enumerate(zip(items, sizes)):
+            b, N = it.shape
+            block = torch.empty((4, b, N), dtype=torch.float32,
+                                device=device)
+            block.copy_(per_point[off:off + size].T.reshape(4, b, N))
+            perf, _, feas = env_lib.aggregate_costs(*block.unbind(0),
+                                                    it.ecfg, budgets[k])
+            fits.append(torch.where(feas, perf, torch.inf))
+            off += size
+        fit = torch.cat(fits)
+        if on_card:
+            fit = io.host("fitness", fit.shape[0]).copy_(fit,
+                                                         non_blocking=True)
+            io.stream.synchronize()
+    bounds = np.cumsum([it.shape[0] for it in items])[:-1]
+    return [f.copy() for f in np.split(fit.numpy(), bounds)]
 
 
 def pack_point_rows(layers, pe, kt, df) -> np.ndarray:

@@ -250,9 +250,11 @@ def _multi_inputs(B, N, seed):
     return layers, pe, kt, df
 
 
-def _compare_multi(layers, pe, kt, df, use_kernel):
-    got = tops.batched_cost_multi(*(torch.from_numpy(a)
-                                    for a in (layers, pe, kt, df)))
+def _compare_multi(layers, pe, kt, df, use_kernel, forms=None):
+    """The port on ``forms`` (default: the numpy inputs as tensors)
+    against the JAX package on the (B, N) numpy inputs."""
+    got = tops.batched_cost_multi(*(forms or (torch.from_numpy(a)
+                                              for a in (layers, pe, kt, df))))
     want = jops.batched_cost_multi(layers, pe, kt, df, use_kernel=use_kernel)
     for g, w in zip(got, want):
         assert g.shape == tuple(w.shape)
@@ -304,6 +306,127 @@ def test_batched_cost_multi_rejects_bad_shapes_and_two_devices():
         tops.batched_cost_multi(layers[..., :7], pe, kt, df)
     with pytest.raises(ValueError, match="more than one device"):
         tops.batched_cost_multi(layers, pe, kt.to("meta"), df)
+
+
+def _multi_views(case, seed, B=4, N=9):
+    """Dense (B, N, 8) layers and (B, N) pe / kt / df as numpy, and the
+    same values as ``ops.batched_cost_multi`` takes them in place:
+    ``row_block`` views of one packed (B * N, 11) block (the service's
+    upload: stride 11) as a flat list, ``views_3d`` (B, N) views of a
+    (B, N, 11) block, ``broadcast`` one (N, 8) table, a (B, 1) pe column,
+    a (1, N) kt row and an expanded df, ``number_df`` a Python-number df
+    and a 0-d kt."""
+    rng = np.random.default_rng(seed)
+    layers, pe, kt, df = _multi_inputs(B, N, seed)
+    if case == "broadcast":
+        table = _rand_layers(rng, N)
+        layers = np.ascontiguousarray(np.broadcast_to(table, (B, N, 8)))
+        pe = np.repeat(pe[:, :1], N, axis=1)
+        kt = np.repeat(kt[:1], B, axis=0)
+        df = np.full((B, N), df[0, 0], np.float32)
+        forms = (torch.from_numpy(table), torch.from_numpy(pe[:, :1]),
+                 torch.from_numpy(kt[:1]),
+                 torch.from_numpy(df[:1, :1]).expand(B, N))
+    elif case == "number_df":
+        kt = np.full((B, N), kt[0, 0], np.float32)
+        df = np.full((B, N), 1.0, np.float32)
+        forms = (torch.from_numpy(layers), torch.from_numpy(pe),
+                 torch.tensor(kt[0, 0]), 1.0)
+    else:
+        block = torch.from_numpy(np.concatenate(
+            [layers, pe[..., None], kt[..., None], df[..., None]], -1))
+        if case == "row_block":
+            block = block.reshape(B * N, 11)
+        forms = (block[..., :8], block[..., 8], block[..., 9],
+                 block[..., 10])
+    return (layers, pe, kt, df), forms
+
+
+MULTI_VIEWS = ["row_block", "views_3d", "broadcast", "number_df"]
+
+
+@pytest.mark.parametrize("case", MULTI_VIEWS)
+def test_batched_cost_multi_views_equal_contiguous_bitwise(case):
+    """ops.batched_cost_multi on strided, broadcast and by-value inputs
+    gives the bits of the same values as contiguous (B, N) arrays, in
+    both output layouts: each point's (4,) row interleaved equals its
+    four planes."""
+    dense, forms = _multi_views(case, MULTI_VIEWS.index(case))
+    B, N = dense[1].shape
+    want = tops.batched_cost_multi(*(torch.from_numpy(a) for a in dense))
+    got = tops.batched_cost_multi(*forms)
+    rows = tops.batched_cost_multi(*forms, interleaved=True)
+    assert rows.shape == got[0].shape + (4,)
+    for f, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.reshape(B, N), w)
+        assert torch.equal(rows[..., f].reshape(B, N), w)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("case", MULTI_VIEWS)
+def test_batched_cost_multi_views_match_reference(case, use_kernel):
+    """The same views against the JAX package's per-row Pallas kernel
+    (interpret mode) and its jnp path on the dense numpy inputs."""
+    dense, forms = _multi_views(case, 10 + MULTI_VIEWS.index(case))
+    B, N = dense[1].shape
+    if case == "row_block":    # a flat list: compare as (B, N)
+        forms = [v.reshape(B, N, *v.shape[1:]) for v in forms]
+    _compare_multi(*dense, use_kernel, forms=forms)
+
+
+def _flat_source(case, B=4, N=9):
+    """The inputs of ``ops.batched_cost_multi`` in one form, and for each
+    of layers, pe, kt, df the tensor whose storage a view would share
+    (None where the form needs a copy)."""
+    block = torch.arange(B * N * 11, dtype=torch.float32).reshape(B, N, 11)
+    if case == "row_block":
+        block = block.reshape(B * N, 11)
+        cols = (block[:, :8], block[:, 8], block[:, 9], block[:, 10])
+        return cols, (block,) * 4
+    if case == "views_3d":
+        cols = (block[..., :8], block[..., 8], block[..., 9], block[..., 10])
+        return cols, (block,) * 4
+    if case == "contiguous":
+        args = (block[..., :8].contiguous(),
+                *(block[..., i].contiguous() for i in (8, 9, 10)))
+        return args, args
+    if case == "number":
+        layers, pe = block[..., :8].contiguous(), block[..., 8].contiguous()
+        kt = torch.tensor(3.0)
+        return (layers, pe, kt, 1.0), (layers, pe, kt, None)
+    table, col = block[0, :, :8], block[:, :1, 8]         # "broadcast"
+    return (table, col, block[0, :, 9], block[..., 10]), (None, None, None,
+                                                          block)
+
+
+FLAT_CASES = ["row_block", "views_3d", "contiguous", "number", "broadcast"]
+
+
+@pytest.mark.parametrize("case", FLAT_CASES)
+def test_batched_cost_multi_hands_the_kernel_views(case, monkeypatch):
+    """ops.batched_cost_multi flattens each input to the per-row kernel's
+    (M, 8) and (M,) arguments without a copy wherever a stride can
+    express it (the service's (M, 11) row block, (B, N) views of one
+    block, contiguous arrays, one value at stride 0), fields side by
+    side, and copies only a broadcast that no stride expresses."""
+    args, sources = _flat_source(case)
+    seen = []
+
+    def plain(*flat):
+        seen.extend(flat)
+        return tuple(torch.zeros(flat[1].shape) for _ in range(4))
+
+    monkeypatch.setattr(tops.ref, "cost_eval_multi_ref", plain)
+    out = tops.batched_cost_multi(*args)
+    assert len(seen) == 4 and seen[0].shape == (36, 8)
+    assert seen[0].stride(1) == 1
+    assert all(v.shape == (36,) for v in seen[1:])
+    for flat, src in zip(seen, sources):
+        if src is None:
+            continue
+        base = src.untyped_storage().data_ptr()
+        assert flat.untyped_storage().data_ptr() == base
+    assert all(o.shape == out[0].shape for o in out)
 
 
 # ---------------------------------------------------------------------------

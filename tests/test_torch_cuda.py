@@ -374,6 +374,172 @@ def test_service_on_card_byte_identical_to_serial(dev):
     assert all(v == 0 for v in ref.cuda_calls.values())
 
 
+def _multi_forms(form, rng, dev, M=300):
+    """Dense (M, 8) and (M,) inputs of the per-row kernel, and the same
+    values in one operand form: ``row_block`` the columns of one packed
+    (M, 11) block (the service's upload), ``broadcast`` one (N, 8) table
+    under (B, N) pe, a (B, 1) kt column and a (1, N) df row, ``by_value``
+    pe and df as numbers, ``views_3d`` (B, N) views of a (B, N, 11)
+    block."""
+    arr = layers_lib.layers_to_array(workloads.get_workload("mobilenet_v2"))
+    N = arr.shape[0]
+    B = -(-M // N)
+    f = lambda lo, hi, *s: torch.tensor(rng.integers(lo, hi, s),
+                                        dtype=torch.float32, device=dev)
+    table = torch.as_tensor(arr, dtype=torch.float32, device=dev)
+    if form == "broadcast":
+        pe, kt, df = f(1, 161, B, N), f(1, 17, B, 1), f(0, 3, 1, N)
+        forms = (table, pe, kt, df)
+    elif form == "by_value":
+        pe, kt, df = 64.0, f(1, 17, B, N), 2.0
+        forms = (table.expand(B, N, 8), pe, kt, df)
+    else:
+        pe, kt, df = f(1, 161, B, N), f(1, 17, B, N), f(0, 3, B, N)
+        block = torch.cat([table.expand(B, N, 8), pe[..., None],
+                           kt[..., None], df[..., None]], -1)
+        if form == "row_block":
+            block = block.reshape(B * N, 11)
+        forms = (block[..., :8], block[..., 8], block[..., 9],
+                 block[..., 10])
+    dense = (table.repeat(B, 1),
+             *(torch.as_tensor(v, dtype=torch.float32, device=dev).expand(
+                 B, N).reshape(-1).contiguous() for v in (pe, kt, df)))
+    return forms, dense, (B, N)
+
+
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+@pytest.mark.parametrize("form", ["row_block", "broadcast", "by_value",
+                                  "views_3d"])
+def test_cost_multi_kernel_forms_and_layouts_bit_equal(dev, form, layout):
+    """Every operand form, through ops.batched_cost_multi as four planes
+    or as (..., 4) rows, gives the bits of the wrapper's contiguous call,
+    which holds to the plain version; the row block also straight
+    through the wrapper, in one launch."""
+    forms, dense, (B, N) = _multi_forms(form, np.random.default_rng(7), dev)
+    want = costmodel_eval.cost_eval_multi(*dense)
+    torch.testing.assert_close(want, torch.stack(ref.cost_eval_multi_ref(
+        *dense), -1), rtol=1e-5, atol=1e-2)
+    before = ops.launch_counts()["cost_eval_multi"]
+    if layout == "interleaved":
+        got = ops.batched_cost_multi(*forms, interleaved=True)
+    else:
+        got = torch.stack(ops.batched_cost_multi(*forms), -1)
+    assert ops.launch_counts()["cost_eval_multi"] == before + 1
+    assert torch.equal(got.reshape(-1, 4), want)
+    if form == "row_block":
+        assert torch.equal(costmodel_eval.cost_eval_multi(*forms), want)
+
+
+def test_cost_multi_wrapper_refuses_fields_apart(dev):
+    """The per-row wrapper reads a point's fields side by side: layers
+    whose fields lie apart raise before anything is launched, and
+    ops.batched_cost_multi hands the kernel a copy of them instead."""
+    M = 4
+    layers_t = torch.rand((8, M), device=dev) * 10 + 1
+    pe = torch.full((M,), 8.0, device=dev)
+    before = ops.launch_counts()["cost_eval_multi"]
+    with pytest.raises(ValueError, match="side by side"):
+        costmodel_eval.cost_eval_multi(layers_t.T, pe, pe, pe)
+    assert ops.launch_counts()["cost_eval_multi"] == before
+    got = ops.batched_cost_multi(layers_t.T, pe, pe, pe, interleaved=True)
+    want = costmodel_eval.cost_eval_multi(layers_t.T.contiguous(), pe, pe,
+                                          pe)
+    assert torch.equal(got, want)
+
+
+def test_eval_point_rows_on_card_reads_the_rows_in_place(dev):
+    """The batcher's fresh-point call: one launch on packed (M, 11) rows,
+    (M, 4) costs back, bit-equal to the wrapper's contiguous call."""
+    from repro_torch.serving import batcher
+
+    forms, dense, _ = _multi_forms("row_block", np.random.default_rng(8),
+                                   dev)
+    rows = torch.cat([dense[0], *(v[:, None] for v in dense[1:])], 1)
+    before = ops.launch_counts()["cost_eval_multi"]
+    got = batcher.eval_point_rows(rows.cpu().numpy(), dev,
+                                  batcher._DeviceIO(dev))
+    assert ops.launch_counts()["cost_eval_multi"] == before + 1
+    want = costmodel_eval.cost_eval_multi(*dense).cpu().numpy()
+    assert got.shape == want.shape and got.tobytes() == want.tobytes()
+
+
+def test_dispatch_on_card_syncs_at_most_twice(dev):
+    """One dispatch of items of two workloads and two objectives, some
+    fresh and some cached: each fitness equals serial genome_cost byte
+    for byte; two host syncs with fresh points, one without."""
+    import warnings
+
+    from repro_torch.core import baselines
+    from repro_torch.core import env as env_lib
+    from repro_torch.serving import CostEvalBatcher
+    from repro_torch.serving.batcher import _Item, pack_point_rows
+
+    rng = np.random.default_rng(9)
+    cases = []
+    for wl, objective in (("ncf", "latency"), ("mobilenet_v2", "energy")):
+        ecfg = api.EnvConfig(objective=objective, platform="cloud")
+        env = env_lib.make_env(workloads.get_workload(wl), ecfg, device=dev)
+        for b in (3, 5):
+            g = torch.as_tensor(rng.integers(0, ecfg.levels,
+                                             (b, env.num_layers, 2)),
+                                device=dev)
+            cases.append((env, ecfg, *baselines._decode_and_eval(env, ecfg,
+                                                                 g)))
+
+    def items(sel):
+        return [_Item(pack_point_rows(env.layers.cpu().numpy(),
+                                      pe.cpu().numpy(), kt.cpu().numpy(),
+                                      np.float32(ecfg.dataflow)),
+                      tuple(pe.shape), ecfg,
+                      np.float32(env.budget.cpu().numpy()))
+                for env, ecfg, _, pe, kt in (cases[i] for i in sel)]
+
+    def dispatch(its):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                b._dispatch(its)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [(w.filename, w.lineno) for w in caught
+                if "synchronizing CUDA operation" in str(w.message)]
+
+    b = CostEvalBatcher(window_ms=0.0, device=dev)
+    try:
+        syncs = dispatch(items([0, 2]))            # all fresh
+        assert len(syncs) <= 2, syncs
+        mixed = items(range(4))                    # 0, 2 cached; 1, 3 not
+        syncs = dispatch(mixed)
+        assert len(syncs) <= 2, syncs
+        syncs = dispatch(items([1, 3]))            # all cached
+        assert len(syncs) == 1, syncs
+    finally:
+        b.close()
+    for it, (_, _, want, _, _) in zip(mixed, cases):
+        assert it.fit.tobytes() == want.cpu().numpy().tobytes()
+
+
+def test_service_raises_when_the_per_row_kernel_fails(dev, monkeypatch):
+    """A launch the card refuses (more threads per block than it takes)
+    fails the request: nothing falls back to the plain version."""
+    from repro_torch.serving import CostEvalBatcher
+
+    monkeypatch.setattr(costmodel_eval, "MULTI_THREADS", 4096)
+    layers = layers_lib.layers_to_array(workloads.get_workload("ncf"))
+    pe = np.full((2, len(layers)), 8, np.float32)
+    plain = dict(ref.cuda_calls)
+    b = CostEvalBatcher(window_ms=0.0, device=dev)
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            b.evaluate(layers, pe, pe, np.float32(0),
+                       api.EnvConfig(platform="cloud"), np.float32(1e18))
+    finally:
+        b.close()
+    assert ref.cuda_calls == plain
+
+
 # ---------------------------------------------------------------------------
 # Flash-decode kernel and the LM decode step.
 # ---------------------------------------------------------------------------

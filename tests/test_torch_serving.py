@@ -26,7 +26,8 @@ from repro_torch.costmodel.layers import NUM_FIELDS, LayerSpec, layers_to_array
 from repro_torch.serving import (CostEvalBatcher, CostMemoCache,
                                  PersistentCostCache, SearchCancelled,
                                  SearchService, ServiceConfig)
-from repro_torch.serving.batcher import ROW_WIDTH, pack_point_rows
+from repro_torch.serving.batcher import (ROW_WIDTH, eval_point_rows,
+                                        pack_point_rows)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ECFG = env_lib.EnvConfig(platform="cloud")
@@ -391,6 +392,52 @@ def test_batcher_evaluate_equals_genome_cost_bitwise():
         assert st["cache_hits"] > 0
     finally:
         b.close()
+
+
+def test_one_dispatch_of_mixed_items_equals_serial_bitwise():
+    """One dispatch carries items of two workloads with different N, under
+    two objectives, some all cached and some fresh: each item's fitness is
+    the serial genome_cost's, byte for byte, and the cache stores each
+    fresh point's four costs under the bytes of its packed row."""
+    from repro_torch.serving.batcher import _Item
+
+    rng = np.random.default_rng(5)
+    cases = []
+    for wl, objective in (("ncf", "latency"), ("mobilenet_v2", "energy")):
+        ecfg = env_lib.EnvConfig(objective=objective, platform="cloud")
+        env = env_lib.make_env(workloads.get_workload(wl), ecfg,
+                               device="cpu")
+        for b in (3, 5):
+            g = torch.from_numpy(rng.integers(0, ecfg.levels,
+                                              (b, env.num_layers, 2)))
+            cases.append((env, ecfg,
+                          *baselines._decode_and_eval(env, ecfg, g)))
+
+    def items(sel):
+        return [_Item(pack_point_rows(env.layers.numpy(), pe.numpy(),
+                                      kt.numpy(), np.float32(ecfg.dataflow)),
+                      tuple(pe.shape), ecfg, np.float32(env.budget.numpy()))
+                for env, ecfg, _, pe, kt in (cases[i] for i in sel)]
+
+    b = CostEvalBatcher(window_ms=0.0, device="cpu")
+    try:
+        b._dispatch(items([0, 2]))                 # cache two items' points
+        fresh_before = b.stats()["fresh_points"]
+        mixed = items(range(4))                    # 0, 2 cached; 1, 3 fresh
+        b._dispatch(mixed)
+        st = b.stats()
+        assert st["dispatches"] == 2 and st["fused_dispatches"] == 2
+        assert st["fresh_points"] > fresh_before
+        rows = np.concatenate([it.points for it in mixed])
+        vals, missing = b.cache.get_many([r.tobytes() for r in rows])
+        assert missing == []
+        assert np.stack(vals).tobytes() == eval_point_rows(
+            rows, torch.device("cpu")).tobytes()
+    finally:
+        b.close()
+    for it, (_, _, want, _, _) in zip(mixed, cases):
+        assert it.fit.dtype == np.float32
+        assert it.fit.tobytes() == want.numpy().tobytes()
 
 
 def test_batcher_close_fails_pending_when_dispatch_hangs():
