@@ -16,7 +16,10 @@ and no result line:
    points at (4096, 53), ragged shapes (1, 1), (3, 7), (13, 130); each
    case also with the kernel reading its operands broadcast ((144, 1)
    columns and a dataflow by value) or strided (a column slice and
-   transposed arrays) against the plain version on the dense inputs.
+   transposed arrays) against the plain version on the dense inputs;
+   and the engines' shapes on mobilenet_v2: each layer row at (4, 1)
+   with df by value (an a2c / ppo2 rollout step of E = 4) and the whole
+   table at (1, 53) (a relaxed hard probe).
    Then the per-row cost kernel vs its plain version (rtol 1e-5, atol
    1e-2): the six paper workloads as ragged rows padded with repeat = 0
    rows x 3 dataflows x random level points, random raw points at
@@ -64,6 +67,26 @@ and no result line:
    epoch, 20 graphed epochs and 20 local-GA generations
    (``search_traces``): the device's busy share, device events per epoch
    and per generation, and device time by kernel.
+6b. The paper's other search engines on the card, on mobilenet_v2 at
+   full width (LSTM(128), L = 12, latency / area / dla, LP, seed 0),
+   each through ``api.run_search`` with every launch counter set to 0
+   just before and read just after: ``a2c`` and ``ppo2`` under the cloud
+   budget at eps = 400 with 4 episodes an epoch (100 epochs; the paper
+   runs 5000), and ``relaxed`` under iot at eps = 100 (4 restarts, 25
+   Adam steps a round).  Each kernel must have launched exactly as the
+   run implies (a2c per epoch: 53 cost launches at (4, 1), 2 x 53 LSTM
+   forward steps, rollout and ``eval_sequence``, 53 backward; ppo2: 53,
+   53 x 5, 53 x 4; relaxed: one cost launch at (1, N) a hard probe;
+   make_env one more) and no plain version may have run on the card.
+   Each outcome is checked as phase 6's are: feasible, monotone, and
+   re-scored on the CPU (rtol 1e-5).  (Under iot a2c and ppo2 find no
+   feasible point in 400 samples, nor do the JAX package's, seed 0.)
+   Then one relaxed request (eps = 25) through ``SearchService`` must
+   equal its serial run byte for byte, its probes through the per-row
+   kernel.  The phase prints ms per epoch / round of each counted run and
+   a profiler trace of one short run of each engine (``[engines] trace
+   ...``: a2c and ppo2 at 3 epochs, relaxed at 3 rounds and its 4
+   rounding variants; busy share, device events, time by kernel).
 7. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
    ``SERVICE_REQUESTS``) run serially through ``api.run_search`` on the
    card, then submitted together to
@@ -107,7 +130,9 @@ and no result line:
    (``MULTI_SHAPES``) as the batcher calls it and on contiguous inputs
    (both forms' device µs), with the batcher's whole
    ``eval_point_rows``; printed as one
-   ``{"kernels": [...]}`` line.
+   ``{"kernels": [...]}`` line, whose ``launches`` are phase 6's counts
+   (phase 7's for the per-row kernel) and ``launches_by_path`` each
+   counted run's.
    ``tools/profile_search_kernels.py`` runs the same search-path
    measurements on another tree, such as a parent commit.
 
@@ -141,9 +166,10 @@ LSTM_TAIL_OPS_PER_UNIT = 24
 LSTM_BWD_TAIL_OPS_PER_UNIT = 24
 # LSTM shapes (B, I, H) checked against the plain versions: the search's
 # step, a batch of 64 (several forward blocks, several backward chunks),
-# a ragged I, a wide I, H = 256.
+# a ragged I, a wide I, H = 256, and a2c / ppo2's step at B = E = 4 (I =
+# 10, and 11 when the search mixes dataflows).
 LSTM_SHAPES = ((1, 10, 128), (64, 10, 128), (8, 11, 128), (16, 130, 128),
-               (3, 10, 256))
+               (3, 10, 256), (4, 10, 128), (4, 11, 128))
 # The main path's size: stage-1 epochs (= eps; the paper uses 5000, this
 # is the only cut), local-GA generations of the two-stage run, and the
 # baseline GA's generations at population 100.
@@ -153,6 +179,13 @@ GA_GENERATIONS = 2000
 GRAPH_CHECK_EPOCHS = 20
 GRAPHED_TRACE_EPOCHS = 20
 BASELINE_GA_GENERATIONS = 5000
+# Phase 6b: a2c and ppo2 at 100 epochs of 4 episodes (the paper runs 5000
+# epochs; this is the only cut), relaxed at 100 hard evaluations (its
+# default 4 restarts and 25 steps a round), the relaxed request it sends
+# through the service (25 probes), and the eps of each traced short run
+# (3 epochs; 3 rounds and the 4 rounding variants).
+AC_EPS, AC_EPISODES, RELAXED_EPS, SERVICE_RELAXED_EPS = 400, 4, 100, 25
+ENGINE_TRACE_EPS = {"a2c": 12, "ppo2": 12, "relaxed": 7}
 # Bytes the per-row cost kernel moves per point: 8 layer fields, pe, kt,
 # df in, four costs out, all float32.
 MULTI_BYTES_PER_POINT = 4 * (8 + 3 + 4)
@@ -338,6 +371,19 @@ def phase_cost_kernel(dev):
                 f"random ({B}, {N}) strided",
                 forms=(wide[:, ::2], dense[1].T.contiguous().T,
                        dense[2].T.contiguous().T))
+    # The engines' shapes on mobilenet_v2: each layer row at (4, 1), an
+    # a2c / ppo2 rollout step of E = 4 (pe, kt as columns, df by value),
+    # and the whole table at (1, 53), a relaxed hard probe.
+    f = lambda lo, hi, B, N: torch.tensor(rng.integers(lo, hi, (B, N)),
+                                          dtype=torch.float32, device=dev)
+    for t in range(mobilenet.shape[0]):
+        dense = (f(1, 161, 4, 1), f(1, 17, 4, 1), torch.zeros((4, 1),
+                                                              device=dev))
+        compare(_layers_table(mobilenet[t:t + 1], dev), *dense,
+                f"mobilenet_v2 layer {t} at (4, 1)",
+                forms=(*dense[:2], 0.0))
+    compare(_layers_table(mobilenet, dev), f(1, 161, 1, 53),
+            f(1, 17, 1, 53), f(0, 3, 1, 53), "mobilenet_v2 at (1, 53)")
     log(f"[cost] kernel == plain on {worst['points']} points (half of them "
         f"read broadcast or strided): max abs err {worst['abs']:.6g}, max "
         f"rel err {worst['rel']:.3g} (rtol 1e-5, atol 1e-2)")
@@ -1454,6 +1500,145 @@ def search_traces(dev, graphed=GRAPHED_TRACE_EPOCHS, generations=20):
     return out
 
 
+def _engine_requests():
+    """Phase 6b's requests on mobilenet_v2 at full width (LSTM(128), L =
+    12, latency / area / dla, LP, seed 0): a2c and ppo2 under the cloud
+    budget, relaxed under iot.  Under iot a2c and ppo2 find no feasible
+    point in 400 samples (nor do the JAX package's, seed 0), so their runs
+    there would check no outcome."""
+    from repro_torch import api
+    from repro_torch.costmodel import workloads
+
+    wl = workloads.get_workload("mobilenet_v2")
+    mk = lambda method, eps, platform, opts: api.SearchRequest(
+        workload=wl, env=api.EnvConfig(
+            objective="latency", constraint="area", platform=platform,
+            dataflow=0, levels=12),
+        eps=eps, seed=0, method=method, options=dict(opts), device="cuda")
+    ac = {"episodes_per_epoch": AC_EPISODES}
+    return wl, {"a2c": mk("a2c", AC_EPS, "cloud", ac),
+                "ppo2": mk("ppo2", AC_EPS, "cloud", ac),
+                "relaxed": mk("relaxed", RELAXED_EPS, "iot", {})}
+
+
+def _counted(fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after: (result, seconds, launches, plain versions on the card)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, ops.launch_counts(),
+            dict(ref.cuda_calls))
+
+
+def _check_launches(what, counts, plain_on_card, want):
+    """Each kernel launched exactly as ``want`` says (0 where it does not
+    name it), and no plain version ran on the card."""
+    for kernel, n in counts.items():
+        check(n == want.get(kernel, 0),
+              f"{what}: {kernel} launched {n} times, the run implies "
+              f"{want.get(kernel, 0)}")
+    check(all(v == 0 for v in plain_on_card.values()),
+          f"{what}: a plain version ran on the card: {plain_on_card}")
+
+
+def phase_engines(dev):
+    """Phase 6b: a2c, ppo2 and relaxed through ``api.run_search`` on the
+    card, each run counted and its outcome checked; one relaxed request
+    through the search service against its serial run; then a profiler
+    trace of a short run of each engine."""
+    import dataclasses
+
+    from repro_torch import api
+
+    N = 53
+
+    def want(method, eps):
+        # Per epoch: one cost launch at (E, 1) and one LSTM forward a
+        # rollout step; eval_sequence's forward and its backward once a
+        # step per update (a2c one update, ppo2 ppo_updates = 4).
+        # make_env scores C_max once; relaxed adds one cost launch a
+        # hard probe.
+        epochs, updates = eps // AC_EPISODES, 1 if method == "a2c" else 4
+        if method == "relaxed":
+            return {"cost_eval": 1 + eps}
+        return {"cost_eval": 1 + N * epochs,
+                "lstm_cell": N * (1 + updates) * epochs,
+                "lstm_cell_bwd": N * updates * epochs}
+
+    wl, reqs = _engine_requests()
+    counts, timing = {}, {}
+    for method, req in reqs.items():
+        out, secs, c, plain = _counted(lambda: api.run_search(req))
+        _check_launches(method, c, plain, want(method, req.eps))
+        _check_outcome(out, req.eps)
+        _rescore_on_cpu(out, req.env, wl)
+        counts[method] = c
+        steps = (req.eps // AC_EPISODES if method != "relaxed"
+                 else req.eps)
+        timing[method] = {
+            "platform": req.env.platform, "eps": req.eps, "seconds": secs,
+            "best_value": out.best_value, "extras": {
+                k: v for k, v in out.extras.items() if k != "history"},
+            f"ms_per_{'round' if method == 'relaxed' else 'epoch'}":
+                1e3 * secs / steps}
+        log(f"[engines] {method}: {json.dumps(timing[method])}; launches "
+            f"{json.dumps(c)}")
+
+    # One relaxed request through the service, against its serial run.
+    req = dataclasses.replace(reqs["relaxed"], eps=SERVICE_RELAXED_EPS)
+    serial, serial_s, _, _ = _counted(lambda: api.run_search(req))
+    (svc_outs, tickets, stats, svc_s), secs, c, plain = _counted(
+        lambda: service_run(dev, [req]))
+    check(_same_outcome(svc_outs[0], serial)
+          and svc_outs[0].extras == serial.extras,
+          f"relaxed through the service differs from its serial run: "
+          f"{svc_outs[0].best_value} vs {serial.best_value}")
+    # make_env twice (the adapter's and the service's tables), the probes
+    # through the per-row kernel (cache hits launch nothing).
+    check(c["cost_eval"] == 2 and c["lstm_cell"] == 0
+          and 1 <= c["cost_eval_multi"] <= stats["dispatches"]
+          and stats["items"] == req.eps,
+          f"relaxed through the service: launches {c}, stats {stats}")
+    check(all(v == 0 for v in plain.values()),
+          f"relaxed through the service: a plain version ran on the card: "
+          f"{plain}")
+    counts["relaxed_service"] = c
+    timing["relaxed_service"] = {
+        "eps": req.eps, "serial_s": serial_s, "seconds": svc_s,
+        "dispatches": stats["dispatches"],
+        "cache_hit_rate": stats["cache_hit_rate"],
+        "ms_per_round": 1e3 * svc_s / req.eps}
+    log(f"[engines] relaxed through the service: byte-identical to serial; "
+        f"{json.dumps(timing['relaxed_service'])}; launches {json.dumps(c)}")
+
+    # A profiler trace of one short run of each engine (outside the
+    # counted runs; make_env and the initial state included).
+    traces = {}
+    for method, eps in ENGINE_TRACE_EPS.items():
+        short = dataclasses.replace(reqs[method], eps=eps)
+        trace = _kernel_trace(lambda: api.run_search(short), 1)
+        check(trace is not None, f"the profiler trace of {method} shows no "
+              "device time")
+        trace["eps"] = eps
+        trace["kernels"] = trace["kernels"][:12]
+        traces[method] = trace
+        log(f"[engines] trace of {method} at eps {eps}: "
+            f"{trace['wall_ms_per_call']:.3f} ms, device "
+            f"{trace['device_us_per_call'] / 1e3:.3f} ms, busy "
+            f"{100 * trace['device_busy_share']:.1f}%, "
+            f"{trace['launches_per_call']:.0f} device events; by kernel "
+            f"(µs, launches): {json.dumps(trace['kernels'][:8])}")
+    timing["traces"] = traces
+    return counts, timing
+
+
 def phase_lm(dev):
     """The LM serving path at qwen2.5-3b's full width."""
     import dataclasses
@@ -1723,10 +1908,13 @@ def eval_rows_ms(rows, dev, iters=300, warmup=20):
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
+def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err,
+                  engine_counts):
     """Phase 9: each search kernel at the main path's shapes: CUDA-event ms
     per call, device µs per launch from a profiler trace, the bound, the
-    plain version's and the library call's ms."""
+    plain version's and the library call's ms.  ``launches`` is phase 6's
+    count (phase 7's for the per-row kernel); ``launches_by_path`` adds
+    each of phase 6b's runs."""
     import numpy as np
     import torch
 
@@ -1900,6 +2088,10 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err):
     multi_entry["bound_ms"], multi_entry["bound_by"] = _bound(
         MULTI_BYTES_PER_POINT * M, COST_OPS_PER_POINT * M)
     for e in (cost_entry, lstm_entry, bwd_entry, multi_entry):
+        e["launches_by_path"] = {
+            "main": counts[e["name"]], "service": multi_counts[e["name"]],
+            **{f"engines_{k}": v[e["name"]]
+               for k, v in engine_counts.items()}}
         log(f"[timings] {e['name']}: {e['ms']:.4f} ms per call, "
             f"{e['device_us_per_launch']} µs of device time per launch, "
             f"bound {e['bound_ms']:.3g} ms ({e['bound_by']}), plain "
@@ -1944,10 +2136,11 @@ def main(argv=None):
         flash_err = timed("flash", phase_flash_kernel, dev)
         counts, timing = timed("main", phase_main_path, EPOCHS,
                                GA_GENERATIONS)
+        engine_counts, engines = timed("engines", phase_engines, dev)
         service_counts, service = timed("service", phase_service, dev)
         lm_counts, lm = timed("lm", phase_lm, dev)
         kernels = timed("timings", phase_timings, dev, counts, cost_err,
-                        lstm_err, service_counts, multi_err)
+                        lstm_err, service_counts, multi_err, engine_counts)
         kernels.append(timed("flash_timings", _flash_entry, dev, lm_counts,
                              flash_err))
     except SmokeFailure as e:
@@ -1962,6 +2155,7 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "main_path": timing,
+             "engines_path": engines, "engines_launches": engine_counts,
              "service_path": service, "service_launches": service_counts,
              "lm_path": lm, "lm_launches": lm_counts, "phase_s": phase_s,
              "kernels": kernels, **result}, indent=1))

@@ -1,12 +1,13 @@
 """Built-in optimizer adapters: the ported search methods behind one API.
 
-Port of the ``random``, ``grid``, ``sa``, ``bo``, ``ga``, ``reinforce`` and
-``two_stage`` adapters of ``repro.api.optimizers``.  Each translates a
-``SearchRequest`` into the engine's config, runs it on ``request.device``
-and normalizes the result into ``SearchOutcome`` (trace length == eps,
-monotone best-so-far, per-layer (pe, kt, df) arrays).  ``random``,
-``grid``, ``bo``, ``sa`` and ``ga`` pass ``options["eval_fn"]`` on to their
-engine: the search service's batcher comes in there.
+Port of the ``random``, ``grid``, ``sa``, ``bo``, ``ga``, ``relaxed``,
+``reinforce``, ``two_stage``, ``a2c`` and ``ppo2`` adapters of
+``repro.api.optimizers``.  Each translates a ``SearchRequest`` into the
+engine's config, runs it on ``request.device`` and normalizes the result
+into ``SearchOutcome`` (trace length == eps, monotone best-so-far,
+per-layer (pe, kt, df) arrays).  ``random``, ``grid``, ``bo``, ``sa``,
+``ga`` and ``relaxed`` pass ``options["eval_fn"]`` on to their engine: the
+search service's batcher comes in there.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.core import env as env_lib
 from repro_torch.core import ga as ga_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core import reinforce
+from repro_torch.core import relaxed as relaxed_lib
+from repro_torch.core import rl_baselines
 from repro_torch.core import search as search_lib
 
 _outcome = types.build_outcome
@@ -170,6 +173,57 @@ class GeneticAlgorithmOptimizer:
                         streamed=request.on_progress is not None)
 
 
+@register("relaxed", aliases=("oneshot", "gradient"))
+class RelaxedOptimizer:
+    """One-shot gradient descent through the differentiable soft cost model.
+
+    Chunked like SA: descent rounds stream live through ``on_chunk`` (the
+    search service's cancellation point), and an injected ``eval_fn``
+    routes the per-round hard probes through the batcher -- byte-identical
+    outcomes either way.  ``eps`` counts hard evaluations; the gradient
+    steps in between ride on the soft model.
+    """
+
+    name = "relaxed"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        opts = request.options
+        cfg = relaxed_lib.RelaxedConfig(
+            lr=opts.get("lr", 0.05),
+            steps_per_eval=opts.get("steps_per_eval", 25),
+            restarts=opts.get("restarts", 4),
+            tau_start=opts.get("tau_start", 1.0),
+            tau_min=opts.get("tau_min", 0.05),
+            tau_decay=opts.get("tau_decay", 0.92),
+            penalty=opts.get("penalty", 10.0),
+            topk=opts.get("topk", 4),
+            seed=request.seed)
+        wl = request.resolve_workload()
+        env = env_lib.make_env(wl, request.env, request.device)
+        if request.on_progress is None:
+            chunk, on_chunk = None, None
+        else:
+            def on_chunk(state, hist, evals_done):
+                request.on_progress(Trial(
+                    min(evals_done, request.eps),
+                    float(np.min(hist)), float(state.best_fit)))
+
+            chunk = max(request.progress_every, 1)
+        state, hist = relaxed_lib.run_relaxed_search(
+            wl, request.env, eps=request.eps, cfg=cfg, chunk=chunk,
+            on_chunk=on_chunk, eval_fn=opts.get("eval_fn"), env=env)
+        pe, kt, df = relaxed_lib.relaxed_solution(state)
+        feasible = bool(np.isfinite(float(state.best_fit)))
+        return _outcome(request, self.name, float(state.best_fit),
+                        pe if feasible else None, kt if feasible else None,
+                        df if feasible else None, hist, t0,
+                        extras={"gradient_steps": int(state.gstep),
+                                "hard_evals": int(state.evals),
+                                "final_tau": float(state.tau)},
+                        streamed=request.on_progress is not None)
+
+
 # ---------------------------------------------------------------------------
 # RL family (chunked engines; stream live through on_chunk).
 # ---------------------------------------------------------------------------
@@ -282,3 +336,54 @@ class TwoStageOptimizer:
                     "ga_history": np.asarray(res.ga_history),
                     "history": res.history, "epochs": rcfg.epochs},
             streamed=request.on_progress is not None)
+
+
+class _ActorCriticOptimizer:
+    """A2C / PPO2 on the stage-1 environment and LSTM trunk plus a critic.
+    ``episodes_per_epoch`` defaults to 1 here (``ACConfig``'s is 4), as in
+    the reference's adapter."""
+
+    algo = "a2c"
+    name = "a2c"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        t0 = time.time()
+        wl = request.resolve_workload()
+        opts = request.options
+        E = int(opts.get("episodes_per_epoch", 1))
+        epochs = max(request.eps // E, 1)
+        acfg = rl_baselines.ACConfig(
+            algo=self.algo, epochs=epochs, episodes_per_epoch=E,
+            lr=opts.get("lr", 1e-3),
+            discount=opts.get("discount", 0.9),
+            gae_lambda=opts.get("gae_lambda", 0.95),
+            clip_eps=opts.get("clip_eps", 0.2),
+            ppo_updates=opts.get("ppo_updates", 4),
+            value_coef=opts.get("value_coef", 0.5),
+            entropy_coef=opts.get("entropy_coef", 0.01),
+            seed=request.seed)
+        pcfg = _policy_config(request.env, opts)
+        chunk, on_chunk = _chunk_args(request, E)
+        env = env_lib.make_env(wl, request.env, request.device)
+        state, hist = rl_baselines.run_ac_search(
+            wl, request.env, acfg, pcfg, chunk=chunk, on_chunk=on_chunk,
+            env=env)
+        pe, kt, df = reinforce.solution_arrays(state, env)
+        trace = types.expand_trace(hist["best_value"], E)
+        return _outcome(
+            request, self.name, float(state.best_value), _np(pe), _np(kt),
+            _np(df), trace, t0,
+            extras={"epochs": epochs, "history": hist},
+            streamed=request.on_progress is not None)
+
+
+@register("a2c")
+class A2COptimizer(_ActorCriticOptimizer):
+    algo = "a2c"
+    name = "a2c"
+
+
+@register("ppo2", aliases=("ppo",))
+class PPO2Optimizer(_ActorCriticOptimizer):
+    algo = "ppo2"
+    name = "ppo2"

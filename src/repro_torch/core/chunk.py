@@ -15,16 +15,20 @@ import numpy as np
 
 def drive(state, total: int, chunk: Optional[int],
           run_chunk: Callable,
-          on_chunk: Optional[Callable] = None) -> Tuple[object, List]:
-    """Run ``total`` steps of ``run_chunk`` in chunks.
+          on_chunk: Optional[Callable] = None,
+          *,
+          start: int = 0) -> Tuple[object, List]:
+    """Run ``total - start`` more steps of ``run_chunk`` in chunks.
 
     run_chunk(state, n) -> (state, h): one piece of ``n`` steps.
-    on_chunk(state, h, done): fires after every piece.
+    on_chunk(state, h, done): fires after every piece, with ``done``
+        counted from ``start`` (an engine whose loop has a prologue, such
+        as the relaxed engine's rounding-variant tail, offsets it).
     Returns ``(state, [h, ...])``.
     """
-    chunk = total if not chunk else max(int(chunk), 1)
+    chunk = (total - start) if not chunk else max(int(chunk), 1)
     hist: List = []
-    done = 0
+    done = start
     while done < total:
         n = min(chunk, total - done)
         state, h = run_chunk(state, n)

@@ -8,7 +8,9 @@ optional 3-way dataflow head for the MIX agent (SIV-D).
 The parameters keep the reference's layout and names (``lstm.wx (I, 4H)``,
 ``lstm.wh (H, 4H)``, ``lstm.b (4H,)``, gate order i, f, g, o, and
 ``head_pe.w (H, L)`` ...), so :func:`params_from_jax` carries the
-reference's weights across one to one.  The LSTM step goes through
+reference's weights across one to one.  The actor-critic baselines add a
+linear critic, ``head_v.w (H, 1)`` and ``head_v.b (1,)`` (``critic=True``).
+The LSTM step goes through
 :func:`repro_torch.kernels.ops.lstm_step`: the CUDA kernel on the card,
 the plain version on the CPU.
 """
@@ -44,7 +46,7 @@ class LSTMState(NamedTuple):
     c: torch.Tensor
 
 
-def _param_shapes(cfg: PolicyConfig):
+def _param_shapes(cfg: PolicyConfig, critic: bool = False):
     """{group: {name: shape}} in the reference's layout."""
     H, I, L = cfg.hidden, cfg.obs_dim, cfg.levels
     shapes = {"head_pe": {"w": (H, L), "b": (L,)},
@@ -57,16 +59,20 @@ def _param_shapes(cfg: PolicyConfig):
         shapes["mlp"] = {"w1": (I, H), "b1": (H,), "w2": (H, H), "b2": (H,)}
     else:
         raise ValueError(f"unknown policy kind {cfg.kind!r}")
+    if critic:
+        shapes["head_v"] = {"w": (H, 1), "b": (1,)}
     return shapes
 
 
 class Policy(nn.Module):
-    """The policy's parameters, one ``ParameterDict`` per reference group."""
+    """The policy's parameters, one ``ParameterDict`` per reference group
+    (with the critic's ``head_v`` when ``critic``)."""
 
-    def __init__(self, cfg: PolicyConfig, device="cpu"):
+    def __init__(self, cfg: PolicyConfig, device="cpu", critic=False):
         super().__init__()
         self.cfg = cfg
-        for group, shapes in _param_shapes(cfg).items():
+        self.critic = critic
+        for group, shapes in _param_shapes(cfg, critic).items():
             setattr(self, group, nn.ParameterDict({
                 n: nn.Parameter(torch.zeros(s, dtype=torch.float32,
                                             device=device))
@@ -83,13 +89,15 @@ def _glorot(gen, shape, device):
 
 
 def init_params(cfg: PolicyConfig, generator: torch.Generator,
-                device="cpu") -> Policy:
+                device="cpu", critic=False) -> Policy:
     """A freshly initialized policy: glorot-normal weights, zero biases and
-    forget-gate bias 1.0 (standard LSTM initialization).
+    forget-gate bias 1.0 (standard LSTM initialization).  With ``critic``,
+    then the critic's ``head_v.w`` as N(0, 1) x 0.01 and a zero bias, as
+    the reference's ``rl_baselines.init_ac_params`` draws them.
 
     ``generator`` must live on ``device``.
     """
-    pol = Policy(cfg, device)
+    pol = Policy(cfg, device, critic)
     with torch.no_grad():
         for group, shapes in _param_shapes(cfg).items():
             for name, shape in shapes.items():
@@ -99,15 +107,21 @@ def init_params(cfg: PolicyConfig, generator: torch.Generator,
         if cfg.kind == "rnn":
             H = cfg.hidden
             pol.lstm["b"][H:2 * H] = 1.0
+        if critic:
+            pol.head_v["w"].copy_(torch.randn(
+                (cfg.hidden, 1), generator=generator, device=device) * 0.01)
     return pol
 
 
 def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
                     cfg: PolicyConfig, device="cpu") -> Policy:
     """A policy holding the given reference params (a nested dict of numpy
-    arrays, as ``repro.core.policy.init_params`` lays them out)."""
-    pol = Policy(cfg, device)
-    shapes = _param_shapes(cfg)
+    arrays, as ``repro.core.policy.init_params`` lays them out; with the
+    critic's ``head_v`` where the tree has it, as
+    ``repro.core.rl_baselines.init_ac_params`` adds it)."""
+    critic = "head_v" in tree
+    pol = Policy(cfg, device, critic)
+    shapes = _param_shapes(cfg, critic)
     if set(tree) != set(shapes):
         raise ValueError(f"param groups {sorted(tree)} != {sorted(shapes)}")
     with torch.no_grad():

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -73,16 +73,37 @@ class RolloutOut(NamedTuple):
     feasible: torch.Tensor  # (E,) bool -- never violated
     model_value: torch.Tensor  # (E,) sum of per-layer objective
     pmin: torch.Tensor      # (E,) updated running min
+    obs: Optional[torch.Tensor] = None     # (E, N, obs_dim) with a critic
+    values: Optional[torch.Tensor] = None  # (E, N) with a critic
 
 
-def make_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
-                 env: env_lib.EnvArrays):
-    """Build rollout(params, pmin, generator, E, actions=None) -> RolloutOut.
+class EnvCarry(NamedTuple):
+    """What a batched episode carries from one layer to the next, (E,)
+    each: the last actions as the observation normalizes them, the LP
+    budget left, alive, the accumulated reward and the running pmin."""
 
-    ``actions`` (E, N, 3), when given, replaces the sampled actions (the
-    tests replay the reference's draws through it); log-probs and entropies
-    are then those of the given actions under the policy.
-    """
+    prev_pe: torch.Tensor
+    prev_kt: torch.Tensor
+    prev_df: torch.Tensor
+    budget_left: torch.Tensor
+    alive: torch.Tensor
+    acc_r: torch.Tensor
+    pmin_run: torch.Tensor
+
+
+class EnvStep(NamedTuple):
+    start: Callable     # (E, pmin) -> EnvCarry
+    observe: Callable   # (t, carry) -> (E, obs_dim) observation
+    advance: Callable   # (t, carry, a_pe, a_kt, a_df) ->
+    #                     (carry', reward, alive_f, perf)
+
+
+def make_env_step(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
+                  env: env_lib.EnvArrays) -> EnvStep:
+    """The environment side of a batched rollout, shared by REINFORCE and
+    the actor-critic baselines: Eq. (1)'s observation, and one layer's
+    actions scored with one cost-kernel launch at (E, 1), the reward
+    R = P_t - P_min, the violation penalty and the end of the episode."""
     if ecfg.objective == "blend":
         raise ValueError("objective='blend' is a whole-model scalarization; "
                          "the per-layer RL reward path cannot use it")
@@ -101,24 +122,74 @@ def make_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
     perf_row = 0 if ecfg.objective == "latency" else 1
     cons_row = 2 if ecfg.constraint == "area" else 3
 
+    def start(E: int, pmin) -> EnvCarry:
+        minus1 = torch.full((E,), -1.0, device=dev)
+        return EnvCarry(minus1, minus1, minus1, env.budget.expand(E),
+                        torch.ones((E,), dtype=torch.bool, device=dev),
+                        torch.zeros((E,), device=dev), pmin.expand(E))
+
+    def observe(t: int, c: EnvCarry):
+        E = c.alive.shape[0]
+        dyn = [c.prev_pe, c.prev_kt] + ([c.prev_df] if ecfg.mix else [])
+        return torch.cat([env.static_obs[t].expand(E, 7),
+                          torch.stack(dyn, dim=-1),
+                          t_norm[t].expand(E, 1)], dim=-1)
+
+    def advance(t: int, c: EnvCarry, a_pe, a_kt, a_df):
+        E = c.alive.shape[0]
+        pe = env.pe_table[a_pe]
+        kt = env.kt_table[a_kt]
+        costs = ops.table_cost(
+            rows[t], pe[:, None], kt[:, None],
+            a_df.to(torch.float32)[:, None] if ecfg.mix
+            else fixed_df_value).view(4, E)
+        perf_pos = costs[perf_row]
+        cons = costs[cons_row]
+        P_t = -perf_pos  # higher is better
+        alive, budget_left = c.alive, c.budget_left
+        if ecfg.scenario == "LP":
+            budget_left = budget_left - cons
+            viol = alive & (budget_left < 0)
+        else:  # LS: the single design must fit the budget at every layer
+            viol = alive & (cons > env.budget)
+        pmin_run = torch.where(alive, torch.minimum(c.pmin_run, P_t),
+                               c.pmin_run)
+        r_ok = P_t - pmin_run                    # >= 0 by construction
+        alive_f = alive.to(torch.float32)
+        r = torch.where(viol, -c.acc_r, r_ok) * alive_f
+        acc_r = c.acc_r + torch.where(alive & ~viol, r, 0.0)
+        carry = EnvCarry(2.0 * a_pe / Lm1 - 1.0, 2.0 * a_kt / Lm1 - 1.0,
+                         a_df.to(torch.float32) - 1.0, budget_left,
+                         alive & ~viol, acc_r, pmin_run)
+        return carry, r, alive_f, perf_pos
+
+    return EnvStep(start, observe, advance)
+
+
+def make_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
+                 env: env_lib.EnvArrays, critic: Optional[Callable] = None):
+    """Build rollout(params, pmin, generator, E, actions=None) -> RolloutOut.
+
+    ``actions`` (E, N, 3), when given, replaces the sampled actions (the
+    tests replay the reference's draws through it); log-probs and entropies
+    are then those of the given actions under the policy.  ``critic(params,
+    obs, policy_state)``, when given, is a value head: the rollout then
+    also records each step's observation and value (``obs``, ``values``).
+    """
+    envstep = make_env_step(ecfg, pcfg, env)
+    N = env.num_layers
+    dev = env.device
+
     def rollout(params, pmin, generator, E: int,
                 actions: Optional[torch.Tensor] = None) -> RolloutOut:
         pstate = policy_lib.init_state(pcfg, (E,), dev)
-        minus1 = torch.full((E,), -1.0, device=dev)
-        prev_pe, prev_kt, prev_df = minus1, minus1, minus1
-        budget_left = env.budget.expand(E)
-        alive = torch.ones((E,), dtype=torch.bool, device=dev)
-        acc_r = torch.zeros((E,), device=dev)
-        pmin_run = pmin.expand(E)
+        carry = envstep.start(E, pmin)
         fixed_df = torch.full((E,), ecfg.dataflow, dtype=torch.int64,
                               device=dev)
         zero = torch.zeros((E,), device=dev)
         outs = []
         for t in range(N):
-            dyn = [prev_pe, prev_kt] + ([prev_df] if ecfg.mix else [])
-            obs = torch.cat([env.static_obs[t].expand(E, 7),
-                             torch.stack(dyn, dim=-1),
-                             t_norm[t].expand(E, 1)], dim=-1)
+            obs = envstep.observe(t, carry)
             logits, pstate = policy_lib.step(params, pcfg, obs, pstate)
             if actions is None:
                 a_pe, lp_pe, ent_pe = policy_lib.sample_action(
@@ -138,39 +209,20 @@ def make_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
                                                                 a_df)
             if not ecfg.mix:
                 a_df, lp_df, ent_df = fixed_df, zero, zero
-            pe = env.pe_table[a_pe]
-            kt = env.kt_table[a_kt]
-            costs = ops.table_cost(
-                rows[t], pe[:, None], kt[:, None],
-                a_df.to(torch.float32)[:, None] if ecfg.mix
-                else fixed_df_value).view(4, E)
-            perf_pos = costs[perf_row]
-            cons = costs[cons_row]
-            P_t = -perf_pos  # higher is better
-            if ecfg.scenario == "LP":
-                budget_left = budget_left - cons
-                viol = alive & (budget_left < 0)
-            else:  # LS: the single design must fit the budget at every layer
-                viol = alive & (cons > env.budget)
-            pmin_run = torch.where(alive, torch.minimum(pmin_run, P_t),
-                                   pmin_run)
-            r_ok = P_t - pmin_run                    # >= 0 by construction
-            alive_f = alive.to(torch.float32)
-            r = torch.where(viol, -acc_r, r_ok) * alive_f
-            acc_r = acc_r + torch.where(alive & ~viol, r, 0.0)
-            alive = alive & ~viol
-            prev_pe = 2.0 * a_pe / Lm1 - 1.0
-            prev_kt = 2.0 * a_kt / Lm1 - 1.0
-            prev_df = a_df.to(torch.float32) - 1.0
+            carry, r, alive_f, perf_pos = envstep.advance(t, carry, a_pe,
+                                                          a_kt, a_df)
             outs.append((r, lp_pe + lp_kt + lp_df, ent_pe + ent_kt + ent_df,
                          alive_f, perf_pos,
-                         torch.stack([a_pe, a_kt, a_df], dim=-1)))
-        r, logps, ents, mask, perf, acts = (torch.stack(z, dim=1)
-                                            for z in zip(*outs))
+                         torch.stack([a_pe, a_kt, a_df], dim=-1))
+                        + (() if critic is None
+                           else (obs, critic(params, obs, pstate))))
+        r, logps, ents, mask, perf, acts, *recorded = (
+            torch.stack(z, dim=1) for z in zip(*outs))
         return RolloutOut(
             rewards=r, logps=logps, entropy=ents, mask=mask, perf=perf,
-            actions=acts, feasible=alive,
-            model_value=torch.sum(perf * mask, dim=1), pmin=pmin_run)
+            actions=acts, feasible=carry.alive,
+            model_value=torch.sum(perf * mask, dim=1), pmin=carry.pmin_run,
+            **dict(zip(("obs", "values"), recorded)))
 
     return rollout
 

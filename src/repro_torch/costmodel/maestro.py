@@ -1,11 +1,22 @@
-"""MAESTRO-style analytical cost model, the hard path, in PyTorch.
+"""MAESTRO-style analytical cost model in PyTorch, hard and soft.
 
 The port of ``repro.costmodel.maestro``: given a layer descriptor, a
 dataflow style and a design point (#PEs ``pe``, per-PE tile count ``kt``
 which sets the L1 buffer), it returns latency / energy / area / power.
 The operations and their order follow the reference line by line, so the
 plain version here agrees with it to float32 rounding; the CUDA kernel
-(``kernels/csrc/costmodel_eval.cu``) repeats the same arithmetic.
+(``kernels/csrc/costmodel_eval.cu``) repeats the hard path's arithmetic.
+
+One model body (:func:`_gated_cost`) serves two sets of primitives:
+
+  * the **hard** path (:func:`core_cost` / :func:`evaluate` /
+    :func:`model_cost`) with the exact ops of ``primitives.HARD``;
+  * the **soft** path (:func:`soft_core_cost` / :func:`soft_evaluate` /
+    :func:`soft_model_cost`) with ``primitives.soft(tau)`` and a dataflow
+    simplex, differentiable by autograd in ``pe``, ``kt`` and the
+    dataflow weights -- the relaxed engine (:mod:`repro_torch.core.relaxed`)
+    descends it.  It is plain PyTorch, as the reference's is plain
+    ``jnp``: no kernel of either package computes it.
 
 Every function is branch-free and broadcasts over leading dims.  Inputs
 are float32 tensors; all of them must lie on one device.
@@ -20,7 +31,13 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.costmodel import primitives as prim_lib
-from repro_torch.costmodel.dataflows import DLA, EYE, SHI, l1_bytes_formula
+from repro_torch.costmodel.dataflows import (
+    DLA,
+    EYE,
+    SHI,
+    l1_bytes_by_style,
+    l1_bytes_formula,
+)
 from repro_torch.costmodel.layers import (
     DWCONV,
     F_C,
@@ -87,8 +104,9 @@ def _dataflow_terms(df_is, is_dw, K_out, C_red, Yp, Xp, R, S, pe, kt,
                     W_u, A_u, O_u, prims=HARD):
     """Compute cycles + (W, A, O) L2 traffic for the selected style.
 
-    ``df_is`` are exact one-hot weights over (dla, eye, shi); returns
-    (compute_cycles, l2_traffic, passes_w, passes_a).
+    ``df_is`` are weights over (dla, eye, shi): exact one-hots on the hard
+    path, a simplex on the soft one; returns (compute_cycles, l2_traffic,
+    passes_w, passes_a).
     """
     is_dla, is_eye, is_shi = df_is
     cdiv = prims.ceil_div
@@ -206,6 +224,27 @@ def core_cost(K, C, Y, X, R, S, ltype, repeat, pe, kt, df):
                        l1_bytes, HARD)
 
 
+def soft_core_cost(K, C, Y, X, R, S, ltype, repeat, pe, kt, df_weights, tau):
+    """The SOFT model core: smooth surrogates + a dataflow simplex.
+
+    ``df_weights``: (..., 3) weights over (dla, eye, shi), any convex
+    combination (an exact one-hot for a fixed-dataflow relaxation).
+    ``tau`` is the surrogate temperature (a 0-d tensor or a number).
+    Gradients w.r.t. ``pe``, ``kt`` and ``df_weights`` are finite and
+    non-zero everywhere, including on the hard model's plateaus.
+    """
+    prims = prim_lib.soft(tau)
+    pe = prims.maximum(pe, 1.0)
+    kt = prims.maximum(kt, 1.0)
+    df_weights = torch.as_tensor(df_weights, dtype=torch.float32)
+    df_w = tuple(torch.movedim(df_weights, -1, 0))
+    is_dw = prims.eq_gate(ltype, DWCONV)
+    dla_b, eye_b, shi_b = l1_bytes_by_style(kt, R, S)
+    l1_bytes = df_w[0] * dla_b + df_w[1] * eye_b + df_w[2] * shi_b
+    return _gated_cost(K, C, Y, X, R, S, repeat, pe, kt, df_w, is_dw,
+                       l1_bytes, prims)
+
+
 def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -252,6 +291,55 @@ def model_cost(layers, pe, kt, dataflow, scenario: str = "LP"):
     "LS": one shared accelerator -> latency/energy sum, area/power max.
     """
     return aggregate(evaluate(layers, pe, kt, dataflow), scenario)
+
+
+# ---------------------------------------------------------------------------
+# Soft (differentiable) evaluators -- same core, smooth primitives.
+# ---------------------------------------------------------------------------
+def soft_evaluate(layers, pe, kt, df_weights, tau=1.0):
+    """Differentiable twin of :func:`evaluate`.
+
+    layers: (..., NUM_FIELDS) descriptors (data, not smoothed); pe, kt:
+    (...,) continuous design variables; df_weights: (..., 3) dataflow
+    simplex weights; tau: surrogate temperature (``tau -> 0`` recovers the
+    hard model away from the staircase jumps).  Returns a :class:`CostOut`
+    smooth in ``pe``, ``kt`` and ``df_weights``.
+    """
+    layers = torch.as_tensor(layers)
+    dev = layers.device
+    f = lambda i: layers[..., i].to(torch.float32)
+    return soft_core_cost(
+        f(F_K), f(F_C), f(F_Y), f(F_X), f(F_R), f(F_S),
+        f(F_TYPE), f(F_REPEAT), _f32(pe, dev), _f32(kt, dev),
+        _f32(df_weights, dev), tau)
+
+
+def soft_model_cost(layers, pe, kt, df_weights, tau=1.0,
+                    scenario: str = "LP"):
+    """Differentiable twin of :func:`model_cost`.
+
+    Objectives sum over layers in both scenarios; the LS constraint's max
+    over layers becomes the scale-invariant smooth maximum, so constraint
+    gradients reach every layer's variables.
+    """
+    out = soft_evaluate(layers, pe, kt, df_weights, tau)
+    lat = torch.sum(out.latency, dim=-1)
+    en = torch.sum(out.energy, dim=-1)
+    if scenario == "LP":
+        area = torch.sum(out.area, dim=-1)
+        power = torch.sum(out.power, dim=-1)
+    elif scenario == "LS":
+        p = 12.0 / torch.clamp(torch.as_tensor(tau, dtype=torch.float32),
+                               1e-3, 1.0)
+        area = prim_lib.smooth_amax(out.area, p)
+        power = prim_lib.smooth_amax(out.power, p)
+    else:
+        raise ValueError(f"unknown scenario {scenario!r}")
+    return CostOut(lat, en, area, power,
+                   torch.amax(out.l1_bytes, dim=-1),
+                   torch.amax(out.l2_bytes, dim=-1),
+                   torch.sum(out.macs, dim=-1),
+                   torch.mean(out.util, dim=-1))
 
 
 @functools.lru_cache(maxsize=1)

@@ -8,11 +8,12 @@ as a CLI.
 
 The flags and the last-line JSON are those of ``repro.launch.search`` for
 the methods this package registers (``api.list_optimizers()``: two_stage,
-reinforce, ga, sa, bo, random and grid), plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain versions of the kernels).  On the card,
-stage 1 (two_stage, reinforce) replays its epoch as one CUDA graph.  The
-flags of methods and layers not ported yet are absent, and ``--arch``
-fails with a "not ported yet" error.
+reinforce, a2c, ppo2, relaxed, ga, sa, bo, random and grid), plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
+kernels).  On the card, stage 1 (two_stage, reinforce) replays its epoch
+as one CUDA graph; a2c and ppo2 run their epochs eagerly.  The flags of
+methods and layers not ported yet are absent, and ``--arch`` fails with a
+"not ported yet" error.
 """
 from __future__ import annotations
 
@@ -54,6 +55,13 @@ def build_request(args) -> api.SearchRequest:
     }
     if args.lr is not None:      # unset keeps each method's own default
         options["lr"] = args.lr
+    # Relaxed-engine knobs (ignored by every other method).
+    for k, v in (("steps_per_eval", args.relaxed_steps),
+                 ("restarts", args.relaxed_restarts),
+                 ("tau_start", args.tau_start),
+                 ("tau_min", args.tau_min)):
+        if v is not None:
+            options[k] = v
     # eps counts whole-model evaluations; --epochs keeps the paper's
     # epoch semantics (one epoch = --episodes samples for the RL family).
     return api.SearchRequest(
@@ -94,7 +102,8 @@ def main(argv=None):
     ap.add_argument("--episodes", type=int, default=1,
                     help="episodes per epoch (1 = the paper's setting)")
     ap.add_argument("--lr", type=float, default=None,
-                    help="default: 3e-3 for reinforce/two_stage")
+                    help="default: 3e-3 for reinforce/two_stage, "
+                    "1e-3 for a2c/ppo2")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-finetune", action="store_true",
                     help="skip the stage-2 local GA (two_stage only)")
@@ -104,6 +113,17 @@ def main(argv=None):
     ap.add_argument("--ga-population", type=int, default=None,
                     help="default: 20 for the two_stage fine-tuner, "
                     "100 for --method ga")
+    ap.add_argument("--relaxed-steps", type=int, default=None,
+                    help="--method relaxed: gradient steps per hard "
+                    "evaluation (default 25)")
+    ap.add_argument("--relaxed-restarts", type=int, default=None,
+                    help="--method relaxed: parallel descent replicas "
+                    "(default 4)")
+    ap.add_argument("--tau-start", type=float, default=None,
+                    help="--method relaxed: initial surrogate temperature "
+                    "(default 1.0)")
+    ap.add_argument("--tau-min", type=float, default=None,
+                    help="--method relaxed: annealing floor (default 0.05)")
     ap.add_argument("--progress-every", type=int, default=0,
                     help="stream best-so-far every N samples (0 = off)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

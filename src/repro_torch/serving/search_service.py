@@ -13,10 +13,11 @@ device:
     :class:`~repro_torch.serving.batcher.CostEvalBatcher`, so N users'
     searches produce one fused dispatch stream and share the per-point
     :class:`~repro_torch.serving.cost_cache.CostMemoCache`;
-  * ``ga`` and ``sa`` route each generation's / candidate's fitness through
-    the same batcher via a raw-array ``eval_fn``;
-  * the RL family (``reinforce``, ``two_stage``) interleaves at chunk
-    granularity, streaming progress through the service's wrapper, which
+  * ``ga``, ``sa`` and ``relaxed`` route each generation's / candidate's /
+    round's hard fitness through the same batcher via a raw-array
+    ``eval_fn``;
+  * the RL family (``reinforce``, ``two_stage``, ``a2c``, ``ppo2``)
+    interleaves at chunk granularity, streaming progress through the service's wrapper, which
     doubles as the cancellation point;
   * ``ticket.cancel()`` stops a search at its next progress chunk or next
     evaluation batch; a cancelled request never stalls the batcher.
@@ -88,10 +89,11 @@ def _clone_exception(err: BaseException) -> BaseException:
 BATCHED_METHODS = ("random", "grid", "bo")
 
 # Chunked engines whose ``eval_fn`` takes already-decoded raw ``(pe, kt,
-# df)`` arrays: GA populations and SA candidates route through the same
-# batcher via :meth:`SearchService._make_raw_eval_fn`.  The RL family
-# multiplexes at chunk granularity only.
-RAW_BATCHED_METHODS = ("ga", "sa")
+# df)`` arrays: GA populations, SA candidates and the relaxed engine's
+# per-round hard probes route through the same batcher via
+# :meth:`SearchService._make_raw_eval_fn`.  The RL family multiplexes at
+# chunk granularity only.
+RAW_BATCHED_METHODS = ("ga", "sa", "relaxed")
 
 # Engines whose ``eval_fn`` returns (b, 4) aggregated costs.  Empty until
 # NSGA-II and the batcher's ``evaluate_costs`` are ported; the reference
@@ -364,7 +366,7 @@ class SearchService:
         return eval_fn
 
     def _make_raw_eval_fn(self, ticket: SearchTicket):
-        """Raw-array eval hook for the chunked GA/SA engines:
+        """Raw-array eval hook for the chunked GA/SA/relaxed engines:
         ``eval_fn(pe, kt, df) -> (b,) fitness`` with already-decoded values.
         Every call doubles as a cancellation point."""
         request = ticket.request

@@ -837,3 +837,91 @@ def test_a_capture_waits_for_another_threads_capture(dev):
     torch.cuda.synchronize()
     assert torch.equal(outs["a"], want) and torch.equal(outs["b"], want)
     assert all(torch.equal(a, b) for a, b in zip(outs["a2"], bwd))
+
+
+def _to(state, dev):
+    """A copy of an A2C/PPO2 search state on ``dev`` (generator aside)."""
+    from repro_torch.core import reinforce
+    from repro_torch.training import optim
+
+    c = reinforce.clone_state(state)
+    mv = lambda t: t.to(dev)
+    return c._replace(
+        params=c.params.to(dev),
+        opt_state=optim.OptState(mv(c.opt_state.step),
+                                 {k: mv(v) for k, v in c.opt_state.mu.items()},
+                                 {k: mv(v) for k, v in c.opt_state.nu.items()}),
+        pmin=mv(c.pmin), best_value=mv(c.best_value),
+        best_pe_lvl=mv(c.best_pe_lvl), best_kt_lvl=mv(c.best_kt_lvl),
+        best_df=mv(c.best_df), generator=torch.Generator(device=dev),
+        epoch=mv(c.epoch))
+
+
+@pytest.mark.parametrize("algo", ["a2c", "ppo2"])
+def test_actor_critic_epoch_on_card_matches_the_cpu(dev, algo):
+    """One A2C / PPO2 epoch (E = 4, mobilenet_v2, LSTM(128)) through the
+    kernels against the same epoch on the CPU's plain versions, the CPU
+    rollout's actions replayed: rewards exact to the cost model's bound,
+    the post-Adam params within 1e-5 per update; each kernel launched as
+    the epoch implies, and no plain version on the card."""
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core import rl_baselines as rl
+    from repro_torch.training import optim
+
+    wl = workloads.get_workload("mobilenet_v2")
+    ecfg = api.EnvConfig(platform="cloud")
+    pcfg = policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim)
+    acfg = rl.ACConfig(algo=algo, epochs=1, episodes_per_epoch=4, seed=0)
+    opt = optim.Adam(lr=acfg.lr, clip_norm=1.0)
+    envs = {d: env_lib.make_env(wl, ecfg, d) for d in ("cpu", dev)}
+    cpu = rl.init_ac_search(envs["cpu"], ecfg, pcfg, acfg, opt)
+    card = _to(cpu, dev)
+    rolls = rl.make_ac_rollout(ecfg, pcfg, envs["cpu"])(
+        cpu.params, cpu.pmin, cpu.generator, 4)
+    new_cpu, _ = rl.make_ac_epoch_fn(ecfg, pcfg, acfg, envs["cpu"], opt)(
+        cpu, rolls.actions)
+    ops.reset_launch_counts()
+    new_card, _ = rl.make_ac_epoch_fn(ecfg, pcfg, acfg, envs[dev], opt)(
+        card, rolls.actions.to(dev))
+    torch.cuda.synchronize()
+    N, updates = len(wl), 1 if algo == "a2c" else acfg.ppo_updates
+    counts = ops.launch_counts()
+    assert (counts["cost_eval"], counts["lstm_cell"],
+            counts["lstm_cell_bwd"]) == (N, N * (1 + updates), N * updates)
+    assert all(v == 0 for v in ref.cuda_calls.values())
+    for (k, a), b in zip(new_card.params.named_parameters(),
+                         new_cpu.params.parameters()):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5 * updates, rtol=0,
+                                   msg=k)
+    torch.testing.assert_close(new_card.best_value.cpu(), new_cpu.best_value,
+                               rtol=1e-5, atol=0)
+
+
+def test_relaxed_round_on_card_matches_the_cpu(dev):
+    """One relaxed round (4 restarts, 25 Adam steps through the soft model
+    on mobilenet_v2) on the card against the CPU from the same state:
+    params within 1e-4, the same rounded candidate; no kernel runs in the
+    descent."""
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import relaxed
+
+    wl = workloads.get_workload("mobilenet_v2")
+    ecfg = api.EnvConfig(platform="iot")
+    cfg = relaxed.RelaxedConfig(seed=0)
+    envs = {d: env_lib.make_env(wl, ecfg, d) for d in ("cpu", dev)}
+    st = relaxed._init_state(envs["cpu"], cfg)
+    mv = lambda ts: tuple(t.to(dev) for t in ts)
+    card = st._replace(params=mv(st.params), m=mv(st.m), v=mv(st.v),
+                       tau=st.tau.to(dev), gstep=st.gstep.to(dev),
+                       best_pe=st.best_pe.to(dev), best_kt=st.best_kt.to(dev),
+                       best_df=st.best_df.to(dev))
+    want, *cand_cpu = relaxed.make_round_fn(envs["cpu"], ecfg, cfg)[0](st)
+    ops.reset_launch_counts()
+    got, *cand = relaxed.make_round_fn(envs[dev], ecfg, cfg)[0](card)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in ops.launch_counts().values())
+    for a, b in zip(got.params, want.params):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    for a, b in zip(cand, cand_cpu):
+        assert torch.equal(a.cpu(), b)

@@ -90,6 +90,9 @@ def _check_outcome(out, eps, ecfg_kw):
     ("two_stage", {"ga": {"generations": 60}}),
     ("ga", {"population": 20}),
     ("reinforce", {"episodes_per_epoch": 2}),
+    ("a2c", {"episodes_per_epoch": 4}),
+    ("ppo2", {"episodes_per_epoch": 4, "ppo_updates": 2}),
+    ("relaxed", {"steps_per_eval": 4, "restarts": 2}),
 ])
 def test_run_search_on_cpu_holds_schema_and_rescores(method, options):
     ecfg_kw = dict(platform="cloud")
@@ -104,6 +107,33 @@ def test_run_search_on_cpu_holds_schema_and_rescores(method, options):
     _check_outcome(out, eps, ecfg_kw)
     assert trials and all(t.step <= eps for t in trials)
     assert trials[-1].best_value >= out.best_value
+
+
+# The reference's registry without what the port has not ported yet
+# (NSGA-II, and the distributed wrappers).
+NOT_PORTED = {"nsga2", "fanout", "dist_reinforce"}
+
+
+def test_registry_is_the_references_minus_the_unported():
+    from repro import api as japi
+    from repro.api import registry as jregistry
+
+    want = tuple(m for m in japi.list_optimizers() if m not in NOT_PORTED)
+    assert tapi.list_optimizers() == want
+    for alias, name in jregistry._ALIASES.items():
+        if name not in NOT_PORTED:
+            assert tapi.get_optimizer(alias).name == name, alias
+
+
+@pytest.mark.parametrize("alias,name", [("ppo", "ppo2"),
+                                        ("oneshot", "relaxed"),
+                                        ("gradient", "relaxed")])
+def test_new_aliases_run_their_method(alias, name):
+    out = tapi.run_search(tapi.SearchRequest(
+        workload="ncf", env=tapi.EnvConfig(platform="cloud"), eps=8,
+        method=alias, device="cpu",
+        options={"steps_per_eval": 2, "restarts": 1, "ppo_updates": 1}))
+    assert out.method == name and len(out.history) == 8
 
 
 def test_two_stage_fine_tune_never_worse_than_stage1():
@@ -176,3 +206,36 @@ def test_cli_text_names_every_registered_method(capsys):
         assert re.search(pattern, help_text), method
     assert "(sampling methods only)" in help_text
     assert "ga only" not in help_text
+    assert "1e-3 for a2c/ppo2" in help_text
+
+
+def test_cli_maps_the_relaxed_flags_into_options():
+    from repro.launch import search as jlaunch
+    from repro_torch.launch import search as tlaunch
+
+    flags = ["--workload", "ncf", "--method", "relaxed", "--epochs", "6",
+             "--relaxed-steps", "3", "--relaxed-restarts", "2",
+             "--tau-start", "0.5", "--tau-min", "0.1"]
+    captured = {}
+
+    def grab(mod, argv):
+        orig = mod.build_request
+
+        def spy(args):
+            captured[mod.__name__] = orig(args)
+            raise SystemExit(0)
+
+        mod.build_request = spy
+        try:
+            with pytest.raises(SystemExit):
+                mod.main(argv)
+        finally:
+            mod.build_request = orig
+
+    grab(tlaunch, flags + ["--device", "cpu"])
+    grab(jlaunch, flags)
+    got = captured["repro_torch.launch.search"].options
+    want = captured["repro.launch.search"].options
+    for k in ("steps_per_eval", "restarts", "tau_start", "tau_min"):
+        assert got[k] == want[k], k
+    assert (got["steps_per_eval"], got["restarts"]) == (3, 2)

@@ -89,6 +89,29 @@ def test_service_byte_identical_to_serial(dispatch_workers):
     assert st["points"] > 0 and st["dispatch_workers"] == dispatch_workers
 
 
+@pytest.mark.parametrize("mix", [False, True])
+def test_relaxed_through_the_service_equals_serial(mix):
+    """The relaxed engine's hard probes go through the batcher (one (1, N)
+    item a probe): the outcome equals the serial run's byte for byte, and
+    every probe reached the batcher."""
+    ecfg = env_lib.EnvConfig(platform="iot", mix=mix)
+    opts = {"steps_per_eval": 3, "restarts": 2}
+    req = lambda: api.SearchRequest(workload="ncf", env=ecfg, eps=24,
+                                    seed=2, method="relaxed",
+                                    options=dict(opts), device="cpu")
+    serial = api.run_search(req())
+    s = _svc(max_workers=2)
+    try:
+        got = s.submit(req()).result(timeout=300)
+        st = s.stats()
+    finally:
+        s.close()
+    _assert_same(got, serial)
+    assert got.extras == serial.extras
+    N = len(workloads.get_workload("ncf"))
+    assert st["points"] == 24 * N and st["items"] == 24
+
+
 def test_same_query_from_two_users_agrees_and_hits_cache(svc):
     tickets = [svc.submit(_req("ga", eps=400, seed=5,
                                options={"population": 20}))
