@@ -23,8 +23,11 @@ and no result line:
    Then the per-row cost kernel vs its plain version (rtol 1e-5, atol
    1e-2): the six paper workloads as ragged rows padded with repeat = 0
    rows x 3 dataflows x random level points, random raw points at
-   (1, 5300) and (1, 27136) (a GA generation of 100 and a random-search
-   batch of 512 on mobilenet_v2), ragged (1, 1), (3, 7), (13, 130);
+   (1, 3392), (1, 5300) and (1, 27136) (an NSGA-II generation of 64, a
+   GA generation of 100 and a random-search batch of 512 on
+   mobilenet_v2), the mix3 co-design workload's ragged rows (30 points of
+   ``multi_dnn`` over qwen1.5-0.5b, whisper-small and mamba2-130m),
+   ragged (1, 1), (3, 7), (13, 130);
    padding rows exactly 0, and rows of one workload bit-equal to the
    single-table kernel.  Every case is also read in place from one
    packed (M, 11) row block (the service's upload, stride 11), through
@@ -87,6 +90,37 @@ and no result line:
    a profiler trace of one short run of each engine (``[engines] trace
    ...``: a2c and ppo2 at 3 epochs, relaxed at 3 rounds and its 4
    rounding variants; busy share, device events, time by kernel).
+6c. The latency-energy frontier on the card.  (a) ``api.run_search``
+   with method nsga2 on mobilenet_v2 (53 layers, latency / area / iot /
+   dla, LP, seed 0), population 64, archive 128, eps 6,400 (100
+   generations), counters set to 0 just before and read just after:
+   the per-row kernel must launch once a generation at M = 3,392 (the
+   adapter evaluates through ``make_local_costs_eval``), the table
+   kernel once (make_env), and no plain version may run on the card; the
+   outcome feasible with a monotone history of length eps and its best
+   re-scored on the CPU; every frontier point non-dominated, within
+   budget and re-scored by the plain version on the CPU (rtol 1e-5).
+   Then 10 generations check the engine's own fitness (the table
+   kernel at (64, 53)) bit-equal to the adapter's (the per-row kernel).
+   It prints ms per generation, a profiler trace of 20 generations
+   (busy share, device events a generation, device time by kernel),
+   each selection step's ms and device time alone, and front peeling's
+   ms at several check intervals (``FRONT_CHECK_INTERVALS``) on the
+   first generation's costs and a warm state's.  (b) The counterpart of
+   ``benchmarks/bench_frontier.py`` at its quick budget (eps 600, seed
+   0, its populations): nsga2 against ``scalarized_frontier_sweep`` (5
+   GA runs, w in {0, .25, .5, .75, 1}) on its four standard configs and
+   the mix3 co-design row; hypervolume at 1.1x the nadir of both
+   frontiers, and both frontiers scored at the reference point stored
+   in ``results/frontier.json`` beside the JAX package's HVs; nsga2 >=
+   sweep on at least 3 of the 4 (mix3 reported, not counted).  (c) The
+   nsga2 request of (a) at eps 640 (streaming progress every 3
+   generations) beside a ga request through ``SearchService``: each
+   equal to its serial run byte for byte, the frontier and every
+   frontier snapshot included; the per-row kernel launched at least
+   once and at most once a dispatch.  (d) ``heuristic_a`` and
+   ``heuristic_b`` on mobilenet_v2 / iot on the card, exact table-kernel
+   launch counts, each value re-scored on the CPU.
 7. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
    ``SERVICE_REQUESTS``) run serially through ``api.run_search`` on the
    card, then submitted together to
@@ -126,13 +160,13 @@ and no result line:
    (``search_kernel_times`` for the search path's calls: the cost kernel
    at the rollout's (1, 1) and at (20, 53), the LSTM forward, and its
    backward both alone and under autograd; the backward also on its tiled
-   kernel); the per-row kernel at (1, 53), (1, 5300) and (1, 27136)
-   (``MULTI_SHAPES``) as the batcher calls it and on contiguous inputs
-   (both forms' device µs), with the batcher's whole
+   kernel); the per-row kernel at (1, 53), (1, 3392), (1, 5300) and
+   (1, 27136) (``MULTI_SHAPES``) as the batcher calls it and on
+   contiguous inputs (both forms' device µs), with the batcher's whole
    ``eval_point_rows``; printed as one
    ``{"kernels": [...]}`` line, whose ``launches`` are phase 6's counts
    (phase 7's for the per-row kernel) and ``launches_by_path`` each
-   counted run's.
+   counted run's (phases 6b and 6c included).
    ``tools/profile_search_kernels.py`` runs the same search-path
    measurements on another tree, such as a parent commit.
 
@@ -186,12 +220,38 @@ BASELINE_GA_GENERATIONS = 5000
 # (3 epochs; 3 rounds and the 4 rounding variants).
 AC_EPS, AC_EPISODES, RELAXED_EPS, SERVICE_RELAXED_EPS = 400, 4, 100, 25
 ENGINE_TRACE_EPS = {"a2c": 12, "ppo2": 12, "relaxed": 7}
+# Phase 6c: NSGA-II on mobilenet_v2 at population 64, archive 128, 100
+# generations (eps 6,400), its trace's generations, the check intervals
+# of front peeling it times (128 = never before the end), and the
+# requests it sends through the service (10 generations beside a GA of
+# population 100 and 20 generations).
+NSGA2_POPULATION, NSGA2_ARCHIVE, NSGA2_EPS = 64, 128, 6400
+NSGA2_TRACE_GENERATIONS = 20
+FRONT_CHECK_INTERVALS = (1, 2, 4, 8, 16, 32, 128)
+SERVICE_NSGA2_EPS, SERVICE_GA_EPS = 640, 2000
+# ... and benchmarks/bench_frontier.py's configs at its quick budget:
+# (name, workload, env, counts toward "nsga2 >= sweep on 3 of 4").
+FRONTIER_EPS = 600
+FRONTIER_CONFIGS = (
+    ("ncf/cloud/lat", "ncf", dict(platform="cloud"), True),
+    ("ncf/iot/energy", "ncf", dict(platform="iot", objective="energy",
+                                   constraint="power"), True),
+    ("mnasnet/cloud/lat", "mnasnet", dict(platform="cloud"), True),
+    ("mobilenet/iot/lat", "mobilenet_v2", dict(platform="iot"), True),
+    ("mix3/cloud/lat", "multi_dnn", dict(platform="cloud", mix=True), False),
+)
+MIX3_ARCHS = ("qwen1p5_0p5b", "whisper_small", "mamba2_130m")
+# The paper's six workloads (phase 3's sweeps; the workload registry also
+# holds the ten architectures).
+PAPER_WORKLOADS = ("gnmt", "mnasnet", "mobilenet_v2", "ncf", "resnet50",
+                   "transformer")
 # Bytes the per-row cost kernel moves per point: 8 layer fields, pe, kt,
 # df in, four costs out, all float32.
 MULTI_BYTES_PER_POINT = 4 * (8 + 3 + 4)
-# Its timed shapes (1, M): an sa step on mobilenet_v2 (one genome), a GA
-# generation of population 100, a random-search batch of 512.
-MULTI_SHAPES = (53, 5300, 27136)
+# Its timed shapes (1, M): an sa step on mobilenet_v2 (one genome), an
+# NSGA-II generation of population 64, a GA generation of population 100,
+# a random-search batch of 512.
+MULTI_SHAPES = (53, 3392, 5300, 27136)
 BF16_FLOP_PER_S = 989e12
 # Flash-decode shapes (B, Hq, Hkv, D, T) checked against the plain version:
 # the LM path's (qwen2.5-3b, 8 requests, a 520-token prompt), a 32k cache,
@@ -339,7 +399,7 @@ def phase_cost_kernel(dev):
     L = 12
     pe_g, kt_g = np.meshgrid(dfl.pe_levels(L), dfl.kt_levels(L),
                              indexing="ij")
-    for name in workloads.workload_names():
+    for name in PAPER_WORKLOADS:
         arr = layers_lib.layers_to_array(workloads.get_workload(name))
         N = arr.shape[0]
         lt = _layers_table(arr, dev)
@@ -501,7 +561,7 @@ def phase_multi_kernel(dev):
     rng = np.random.default_rng(2)
     # The six paper workloads as ragged rows, padded with repeat = 0 rows.
     packs = [layers_lib.layers_to_array(workloads.get_workload(n))
-             for n in workloads.workload_names()]
+             for n in PAPER_WORKLOADS]
     N = max(len(p) for p in packs)
     pad = dataclasses.replace(layers_lib.LayerSpec.gemm(1, 1, 1),
                               repeat=0).as_row()
@@ -545,15 +605,21 @@ def phase_multi_kernel(dev):
 
     mobilenet = layers_lib.layers_to_array(workloads.get_workload(
         "mobilenet_v2"))
-    for M in (5300, 27136):
+    for M in (NSGA2_POPULATION * len(mobilenet), 5300, 27136):
         compare(*_flat_points(mobilenet, M, rng, dev),
                 f"random raw points (1, {M})")
+    # NSGA-II's mix3 co-design rows: a population of 30 over the ragged
+    # three-architecture workload, per-layer dataflows.
+    mix3 = layers_lib.layers_to_array(workloads.multi_dnn(list(MIX3_ARCHS),
+                                                         tokens=32))
+    compare(*_flat_points(mix3, 30 * len(mix3), rng, dev),
+            f"mix3 rows (30 x {len(mix3)})")
     for B, n in ((1, 1), (3, 7), (13, 130)):
         compare(*_flat_points(_rand_layers(rng, B * n), B * n, rng, dev),
                 f"random ragged ({B}, {n})")
 
     # Rows that all carry one workload: bit-equal to the table kernel.
-    for name in workloads.workload_names():
+    for name in PAPER_WORKLOADS:
         arr = layers_lib.layers_to_array(workloads.get_workload(name))
         n = len(arr)
         B = 100
@@ -1639,6 +1705,363 @@ def phase_engines(dev):
     return counts, timing
 
 
+class _MultiShapes:
+    """Records M of every per-row kernel call (``costmodel_eval.
+    cost_eval_multi``, looked up by name on each call) while active."""
+
+    def __enter__(self):
+        from repro_torch.kernels import costmodel_eval
+
+        self.ms, self._orig = [], costmodel_eval.cost_eval_multi
+
+        def wrapper(layers, *a):
+            self.ms.append(int(layers.shape[0]))
+            return self._orig(layers, *a)
+
+        costmodel_eval.cost_eval_multi = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import costmodel_eval
+
+        costmodel_eval.cost_eval_multi = self._orig
+
+
+def _frontier_ecfg(**kw):
+    from repro_torch import api
+
+    return api.EnvConfig(**dict(dict(objective="latency", constraint="area",
+                                     platform="iot", scenario="LP",
+                                     dataflow=0, levels=12), **kw))
+
+
+def _nsga2_request(wl, eps, **kw):
+    from repro_torch import api
+
+    return api.SearchRequest(
+        workload=wl, env=_frontier_ecfg(), eps=eps, seed=0, method="nsga2",
+        options={"population": NSGA2_POPULATION, "archive": NSGA2_ARCHIVE},
+        device="cuda", **kw)
+
+
+def _check_frontier_on_cpu(out, ecfg, wl, what):
+    """The frontier is non-dominated, sorted by latency, within budget, and
+    each point re-scored by the plain version on the CPU (rtol 1e-5)."""
+    import numpy as np
+
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import nsga2
+
+    f = out.frontier
+    F = len(f["lat"])
+    check(F >= 1 and out.extras["frontier_size"] == F,
+          f"{what}: empty frontier")
+    check(bool(nsga2.non_dominated_mask(np.stack([f["lat"], f["en"]],
+                                                 -1)).all()),
+          f"{what}: a frontier point dominates another")
+    check(bool(np.all(np.diff(f["lat"]) >= 0)), f"{what}: frontier unsorted")
+    env = env_lib.make_env(wl, ecfg, device="cpu")
+    tl, te, ta, tp, feas = env_lib.genome_costs_multi(
+        env, ecfg, f["pe"], f["kt"], f["df"])
+    got = np.stack([t.numpy() for t in (tl, te, ta, tp)], -1)
+    want = np.stack([f[k] for k in ("lat", "en", "area", "pw")], -1)
+    check(bool(np.allclose(got, want, rtol=1e-5, atol=0)),
+          f"{what}: a frontier point does not re-score on the CPU")
+    cons = ta if ecfg.constraint == "area" else tp
+    check(bool((cons.numpy() <= float(env.budget) * (1 + 1e-6)).all()),
+          f"{what}: a frontier point is over the budget on re-scoring")
+    return F
+
+
+def nsga2_generation_traces(dev, generations=NSGA2_TRACE_GENERATIONS):
+    """Phase 6c's traces of NSGA-II on mobilenet_v2 at (a)'s size: 20
+    generations as the adapter runs them (fitness through
+    ``make_local_costs_eval``, then ``evolve``), after 10 warm-up
+    generations, each of which also checks the engine's table-kernel
+    fitness bit-equal to that; then each selection step alone on the
+    state's own costs;
+    and ``_front_ranks`` at several check intervals, on the first
+    generation's costs and the warm state's."""
+    import torch
+
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import ga as ga_lib
+    from repro_torch.core import nsga2
+    from repro_torch.costmodel import workloads
+    from repro_torch.serving import batcher
+
+    wl = workloads.get_workload("mobilenet_v2")
+    ecfg = _frontier_ecfg()
+    env = env_lib.make_env(wl, ecfg, dev)
+    cfg = nsga2.NSGA2Config(population=NSGA2_POPULATION,
+                            archive=NSGA2_ARCHIVE)
+    engine = nsga2.make_nsga2_engine(env, ecfg, cfg)
+    fitness = ga_lib.host_fitness(engine.decode,
+                                  batcher.make_local_costs_eval(env, ecfg))
+    st = [engine.init_carry(0)]
+
+    def costs_of(state):
+        return torch.cat([state.parent_costs, fitness(state.pop)])
+
+    first = costs_of(st[0])
+
+    def generation():
+        st[0], _ = engine.evolve(st[0], fitness(st[0].pop))
+
+    # The warm-up also holds the engine's own fitness (the table kernel at
+    # (P, N)) to the adapter's (the per-row kernel): the same bits.
+    for _ in range(10):
+        check(torch.equal(engine.fitness(st[0].pop), fitness(st[0].pop)),
+              "nsga2: the table-kernel fitness differs from the per-row "
+              "kernel's")
+        generation()
+    ms = time_ms(generation, generations, warmup=0)
+    trace = _kernel_trace(generation, generations)
+    check(trace is not None, "the profiler trace of NSGA-II shows no device "
+          "time")
+    trace["unprofiled_ms"] = ms
+    trace["device_busy_share_unprofiled"] = (
+        trace["device_us_per_call"] / 1e3 / ms)
+    trace["kernels"] = trace["kernels"][:12]
+
+    P, cons_col = cfg.population, 2
+    costs = costs_of(st[0])
+    viol = nsga2._violation(costs, cons_col, env.budget)
+    dom = nsga2._constrained_dominance(costs, viol)
+    rank = nsga2._front_ranks(dom)
+    crowd = nsga2._crowding(costs[:, :2], rank)
+    sel = nsga2._select_best(rank, crowd, P)
+    genes = st[0].pop.shape[-1]
+    pop = st[0].pop
+    steps = {
+        "fitness": lambda: fitness(pop),
+        "dominance": lambda: nsga2._constrained_dominance(
+            costs, nsga2._violation(costs, cons_col, env.budget)),
+        "front_ranks": lambda: nsga2._front_ranks(dom),
+        "crowding": lambda: nsga2._crowding(costs[:, :2], rank),
+        "select_best": lambda: nsga2._select_best(rank, crowd, P),
+        "archive": lambda: nsga2._update_archive(
+            st[0].arch_genomes, st[0].arch_costs, pop, costs[P:], cons_col,
+            env.budget),
+        "draws_and_breeding": lambda: nsga2._tournament(
+            *nsga2._draws(st[0].generator, P, env.num_layers, genes,
+                          ecfg.levels, False).tour_a, rank[sel], crowd[sel]),
+    }
+    by_step = {}
+    for name, fn in steps.items():
+        t = _kernel_trace(fn, generations)
+        check(t is not None, f"the profiler trace of {name} shows no device "
+              "time")
+        by_step[name] = {"ms": time_ms(fn, generations, warmup=2),
+                         "device_us": t["device_us_per_call"],
+                         "device_events": t["launches_per_call"]}
+    fronts = {}
+    for label, c in (("first_generation", first), ("warm", costs)):
+        d = nsga2._constrained_dominance(
+            c, nsga2._violation(c, cons_col, env.budget))
+        row = {"fronts": int(nsga2._front_ranks(d).max()) + 1}
+        for every in FRONT_CHECK_INTERVALS:
+            row[f"ms_every_{every}"] = time_ms(
+                lambda: nsga2._front_ranks(d, every), generations, warmup=2)
+        fronts[label] = row
+    return {"generation": trace, "by_step": by_step,
+            "front_ranks_by_check_interval": fronts}
+
+
+def frontier_bench(dev):
+    """Phase 6c (b): ``benchmarks/bench_frontier.py``'s configs at its quick
+    budget through the port, NSGA-II against the 5-weight scalarized GA
+    sweep at equal eps, each scored by hypervolume at 1.1x the nadir of
+    both frontiers, and at the reference point stored beside the JAX
+    package's own run in ``results/frontier.json``."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core import nsga2
+    from repro_torch.core import search
+    from repro_torch.costmodel import workloads
+
+    ref = json.loads((ROOT / "results" / "frontier.json").read_text())
+    rows = {}
+    for cname, wname, env_kw, counts in FRONTIER_CONFIGS:
+        if wname == "multi_dnn":
+            wl = workloads.multi_dnn(list(MIX3_ARCHS), tokens=32)
+            eps = max(FRONTIER_EPS // 3, 96)
+        else:
+            wl = workloads.get_workload(wname)
+            eps = FRONTIER_EPS
+        ecfg = api.EnvConfig(**env_kw)
+        pop = max(min(30, eps // 10), 8)
+        t0 = time.perf_counter()
+        out = api.run_search(api.SearchRequest(
+            workload=wl, env=ecfg, eps=eps, seed=0, method="nsga2",
+            options={"population": pop, "archive": 128}, device="cuda"))
+        t_nsga2 = time.perf_counter() - t0
+        _check_frontier_on_cpu(out, ecfg, wl, f"nsga2 {cname}")
+        front = np.stack([out.frontier["lat"], out.frontier["en"]], -1)
+        t0 = time.perf_counter()
+        sweep = search.scalarized_frontier_sweep(
+            wl, ecfg, eps=eps, method="ga", seed=0,
+            options={"population": max(min(30, eps // 5 // 4), 8)},
+            device="cuda")
+        t_sweep = time.perf_counter() - t0
+        pts = sweep["points"][:, :2]
+        both = np.concatenate([front, pts])
+        point = both[np.all(np.isfinite(both), 1)].max(0) * 1.1
+        want = ref["configs"][cname]
+        stored = np.asarray(want["reference_point"])
+        rows[cname] = {
+            "eps": eps, "population": pop, "counts": counts,
+            "hv_nsga2": nsga2.hypervolume_2d(front, point),
+            "hv_sweep": nsga2.hypervolume_2d(pts, point),
+            "frontier_size": len(front), "sweep_points": len(pts),
+            "reference_point": point.tolist(),
+            "hv_nsga2_at_stored_point": nsga2.hypervolume_2d(front, stored),
+            "hv_sweep_at_stored_point": nsga2.hypervolume_2d(pts, stored),
+            "jax_hv_nsga2": want["hv_nsga2"], "jax_hv_sweep":
+                want["hv_sweep"], "jax_frontier_size": want["frontier_size"],
+            "best_value": out.best_value,
+            "jax_best_value": want["best_value_nsga2"],
+            "seconds_nsga2": t_nsga2, "seconds_sweep": t_sweep}
+        r = rows[cname]
+        r["nsga2_ge_sweep"] = r["hv_nsga2"] >= r["hv_sweep"]
+        log(f"[frontier] {cname}: HV nsga2 {r['hv_nsga2']:.6g} vs sweep "
+            f"{r['hv_sweep']:.6g} (|front| {r['frontier_size']}, |sweep| "
+            f"{r['sweep_points']}); at the JAX run's reference point: port "
+            f"nsga2 {r['hv_nsga2_at_stored_point']:.6g}, port sweep "
+            f"{r['hv_sweep_at_stored_point']:.6g}, JAX nsga2 "
+            f"{r['jax_hv_nsga2']:.6g}, JAX sweep {r['jax_hv_sweep']:.6g}"
+            + ("" if counts else " (reported, not counted)"))
+    n_pass = sum(r["nsga2_ge_sweep"] for r in rows.values() if r["counts"])
+    check(n_pass >= 3, f"nsga2 hypervolume >= the sweep's on {n_pass} of "
+          "4 standard configs, fewer than 3")
+    return {"configs": rows, "n_pass": n_pass}
+
+
+def phase_frontier(dev):
+    """Phase 6c: NSGA-II at full width, the frontier benchmark's
+    counterpart, NSGA-II through the service, and Fig. 5's heuristics."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import search
+    from repro_torch.costmodel import workloads
+
+    wl = workloads.get_workload("mobilenet_v2")
+    N, G = len(wl), NSGA2_EPS // NSGA2_POPULATION
+    counts, timing = {}, {}
+
+    # (a) One counted run: make_env scores C_max once; each generation is
+    # one per-row launch over its P x N points.
+    req = _nsga2_request(wl, NSGA2_EPS)
+    with _MultiShapes() as shapes:
+        out, secs, c, plain = _counted(lambda: api.run_search(req))
+    _check_launches("nsga2", c, plain, {"cost_eval": 1,
+                                        "cost_eval_multi": G})
+    check(shapes.ms == [NSGA2_POPULATION * N] * G,
+          f"nsga2: per-row kernel M over its launches {set(shapes.ms)}, "
+          f"expected {NSGA2_POPULATION * N}")
+    _check_outcome(out, req.eps)
+    _rescore_on_cpu(out, req.env, wl)
+    F = _check_frontier_on_cpu(out, req.env, wl, "nsga2")
+    counts["nsga2"] = c
+    timing["nsga2"] = {"eps": req.eps, "generations": G, "seconds": secs,
+                       "ms_per_generation": 1e3 * secs / G,
+                       "best_value": out.best_value, "frontier_size": F}
+    log(f"[frontier] nsga2 mobilenet_v2 P={NSGA2_POPULATION} A="
+        f"{NSGA2_ARCHIVE} eps={req.eps}: {json.dumps(timing['nsga2'])}; "
+        f"launches {json.dumps(c)}, per-row M {NSGA2_POPULATION * N}")
+    traces = nsga2_generation_traces(dev)
+    tr = traces["generation"]
+    log(f"[frontier] trace of {tr['calls']} generations: "
+        f"{tr['unprofiled_ms']:.3f} ms each unprofiled, device "
+        f"{tr['device_us_per_call'] / 1e3:.3f} ms, busy "
+        f"{100 * tr['device_busy_share_unprofiled']:.1f}% of the "
+        f"unprofiled time, {tr['launches_per_call']:.1f} device events "
+        f"each; by kernel (µs, launches each): "
+        f"{json.dumps(tr['kernels'][:8])}")
+    log(f"[frontier] by selection step (ms, device µs, device events a "
+        f"call): {json.dumps(traces['by_step'])}")
+    log(f"[frontier] _front_ranks by check interval (ms a call): "
+        f"{json.dumps(traces['front_ranks_by_check_interval'])}")
+    timing["traces"] = traces
+
+    # (b) The frontier benchmark's counterpart.
+    bench, secs, c, plain = _counted(lambda: frontier_bench(dev))
+    check(all(v == 0 for v in plain.values()),
+          f"frontier bench: a plain version ran on the card: {plain}")
+    counts["bench"] = c
+    timing["bench"] = dict(bench, seconds=secs)
+
+    # (c) NSGA-II through the service beside a ga request, against serial
+    # runs.  The NSGA-II request streams progress (the service always
+    # does), so both runs take the same chunks and frontier snapshots.
+    def reqs():
+        return [_nsga2_request(wl, SERVICE_NSGA2_EPS,
+                               on_progress=lambda t: None,
+                               progress_every=3 * NSGA2_POPULATION),
+                dataclasses.replace(_service_requests(
+                    [SERVICE_REQUESTS[0]])[0], eps=SERVICE_GA_EPS)]
+    serial, serial_s, _, _ = _counted(lambda: [api.run_search(r)
+                                               for r in reqs()])
+    (svc_outs, _, stats, svc_s), secs, c, plain = _counted(
+        lambda: service_run(dev, reqs()))
+    for got, want in zip(svc_outs, serial):
+        check(_same_outcome(got, want), f"{got.method} through the service "
+              f"differs from its serial run: {got.best_value} vs "
+              f"{want.best_value}")
+    got, want = svc_outs[0], serial[0]
+    check(all(np.array_equal(got.frontier[k], want.frontier[k])
+              for k in want.frontier)
+          and len(got.extras["frontier_trace"])
+          == len(want.extras["frontier_trace"]) > 1
+          and all(a.tobytes() == b.tobytes() for a, b in zip(
+              got.extras["frontier_trace"], want.extras["frontier_trace"])),
+          "nsga2 through the service: frontier or frontier trace differs "
+          "from the serial run")
+    check(1 <= c["cost_eval_multi"] <= stats["dispatches"]
+          and all(v == 0 for v in plain.values()),
+          f"nsga2 through the service: launches {c}, plain versions on the "
+          f"card {plain}, {stats['dispatches']} dispatches")
+    counts["service"] = c
+    timing["service"] = {
+        "eps": SERVICE_NSGA2_EPS, "ga_eps": SERVICE_GA_EPS,
+        "serial_s": serial_s, "seconds": svc_s,
+        "dispatches": stats["dispatches"],
+        "cache_hit_rate": stats["cache_hit_rate"],
+        "frontier_trace_snapshots": len(got.extras["frontier_trace"])}
+    log(f"[frontier] nsga2 + ga through the service: byte-identical to "
+        f"serial, frontier and trace included; "
+        f"{json.dumps(timing['service'])}; launches {json.dumps(c)}")
+
+    # (d) Fig. 5's heuristics, each re-scored on the CPU.
+    ecfg = _frontier_ecfg()
+    heur = {}
+    for name, want_cost in (("heuristic_a", 4), ("heuristic_b", 2)):
+        h, secs, c, plain = _counted(
+            lambda: getattr(search, name)(wl, ecfg, device="cuda"))
+        _check_launches(name, c, plain, {"cost_eval": want_cost})
+        env = env_lib.make_env(wl, ecfg, device="cpu")
+        perf, _, feas = env_lib.genome_cost(env, ecfg, h["pe"], h["kt"],
+                                            float(ecfg.dataflow))
+        cpu = float(perf) if bool(feas) else float("inf")
+        check(cpu == h["value"] or abs(cpu - h["value"])
+              <= 1e-5 * abs(h["value"]),
+              f"{name}: {h['value']} on the card, {cpu} re-scored on the CPU")
+        counts[name] = c
+        heur[name] = {"value": h["value"], "seconds": secs,
+                      "hot_layer": h.get("hot_layer"),
+                      "pe": sorted(set(h["pe"].tolist())),
+                      "kt": sorted(set(h["kt"].tolist()))}
+    timing["heuristics"] = heur
+    log(f"[frontier] Fig. 5 heuristics on mobilenet_v2 / iot: "
+        f"{json.dumps(heur)}")
+    return counts, timing
+
+
 def phase_lm(dev):
     """The LM serving path at qwen2.5-3b's full width."""
     import dataclasses
@@ -1909,12 +2332,13 @@ def eval_rows_ms(rows, dev, iters=300, warmup=20):
 
 
 def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err,
-                  engine_counts):
+                  path_counts):
     """Phase 9: each search kernel at the main path's shapes: CUDA-event ms
     per call, device µs per launch from a profiler trace, the bound, the
     plain version's and the library call's ms.  ``launches`` is phase 6's
     count (phase 7's for the per-row kernel); ``launches_by_path`` adds
-    each of phase 6b's runs."""
+    each counted run of phases 6b and 6c (``path_counts``: run -> counts).
+    """
     import numpy as np
     import torch
 
@@ -2090,8 +2514,7 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err,
     for e in (cost_entry, lstm_entry, bwd_entry, multi_entry):
         e["launches_by_path"] = {
             "main": counts[e["name"]], "service": multi_counts[e["name"]],
-            **{f"engines_{k}": v[e["name"]]
-               for k, v in engine_counts.items()}}
+            **{k: v[e["name"]] for k, v in path_counts.items()}}
         log(f"[timings] {e['name']}: {e['ms']:.4f} ms per call, "
             f"{e['device_us_per_launch']} µs of device time per launch, "
             f"bound {e['bound_ms']:.3g} ms ({e['bound_by']}), plain "
@@ -2137,10 +2560,15 @@ def main(argv=None):
         counts, timing = timed("main", phase_main_path, EPOCHS,
                                GA_GENERATIONS)
         engine_counts, engines = timed("engines", phase_engines, dev)
+        frontier_counts, frontier = timed("frontier", phase_frontier, dev)
         service_counts, service = timed("service", phase_service, dev)
         lm_counts, lm = timed("lm", phase_lm, dev)
         kernels = timed("timings", phase_timings, dev, counts, cost_err,
-                        lstm_err, service_counts, multi_err, engine_counts)
+                        lstm_err, service_counts, multi_err,
+                        {f"{phase}_{k}": v
+                         for phase, by_run in (("engines", engine_counts),
+                                               ("frontier", frontier_counts))
+                         for k, v in by_run.items()})
         kernels.append(timed("flash_timings", _flash_entry, dev, lm_counts,
                              flash_err))
     except SmokeFailure as e:
@@ -2156,6 +2584,7 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "main_path": timing,
              "engines_path": engines, "engines_launches": engine_counts,
+             "frontier_path": frontier, "frontier_launches": frontier_counts,
              "service_path": service, "service_launches": service_counts,
              "lm_path": lm, "lm_launches": lm_counts, "phase_s": phase_s,
              "kernels": kernels, **result}, indent=1))

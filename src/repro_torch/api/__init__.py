@@ -7,8 +7,9 @@
         eps=5000, method="two_stage", device="cuda"))
     print(out.best_value, out.samples_to_convergence)
 
-Registered methods: random, grid, sa, bo (alias bayes), ga, reinforce,
-two_stage.
+Registered methods: random, grid, sa, bo (alias bayes), ga, nsga2
+(pareto, moo), relaxed (oneshot, gradient), reinforce (rl, conx_global),
+two_stage (conx, confuciux), a2c, ppo2 (ppo).
 """
 from repro_torch.api.registry import (Optimizer, get_optimizer,
                                       list_optimizers, register, run_search)

@@ -1,13 +1,15 @@
 """Built-in optimizer adapters: the ported search methods behind one API.
 
-Port of the ``random``, ``grid``, ``sa``, ``bo``, ``ga``, ``relaxed``,
-``reinforce``, ``two_stage``, ``a2c`` and ``ppo2`` adapters of
-``repro.api.optimizers``.  Each translates a ``SearchRequest`` into the
+Port of the adapters of ``repro.api.optimizers`` except the distributed
+wrappers (``fanout``, ``dist_reinforce``): ``random``, ``grid``, ``sa``,
+``bo``, ``ga``, ``nsga2``, ``relaxed``, ``reinforce``, ``two_stage``,
+``a2c`` and ``ppo2``.  Each translates a ``SearchRequest`` into the
 engine's config, runs it on ``request.device`` and normalizes the result
 into ``SearchOutcome`` (trace length == eps, monotone best-so-far,
-per-layer (pe, kt, df) arrays).  ``random``, ``grid``, ``bo``, ``sa``,
-``ga`` and ``relaxed`` pass ``options["eval_fn"]`` on to their engine: the
-search service's batcher comes in there.
+per-layer (pe, kt, df) arrays; ``nsga2`` adds the frontier).  ``random``,
+``grid``, ``bo``, ``sa``, ``ga``, ``nsga2`` and ``relaxed`` pass
+``options["eval_fn"]`` on to their engine: the search service's batcher
+comes in there.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.api.types import SearchOutcome, SearchRequest, Trial
 from repro_torch.core import baselines
 from repro_torch.core import env as env_lib
 from repro_torch.core import ga as ga_lib
+from repro_torch.core import nsga2 as nsga2_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core import reinforce
 from repro_torch.core import relaxed as relaxed_lib
@@ -171,6 +174,76 @@ class GeneticAlgorithmOptimizer:
                         extras={"generations": cfg.generations,
                                 "population": cfg.population},
                         streamed=request.on_progress is not None)
+
+
+def _nsga2_cfg(request: SearchRequest) -> nsga2_lib.NSGA2Config:
+    opts = request.options
+    pop = int(opts.get("population", 64))
+    gens = int(opts.get("generations", 0)) or max(request.eps // pop, 1)
+    return nsga2_lib.NSGA2Config(
+        population=pop, generations=gens,
+        mutation_rate=opts.get("mutation_rate", 0.05),
+        crossover_rate=opts.get("crossover_rate", 0.5),
+        archive=int(opts.get("archive", 128)),
+        seed=request.seed)
+
+
+@register("nsga2", aliases=("pareto", "moo"))
+class NSGA2Optimizer:
+    """Constrained multi-objective NSGA-II over (latency, energy).
+
+    Chunked like GA: ``eps`` buys population * generations evaluations,
+    generations run in ``progress_every``-sized chunks when a callback is
+    set, and an injected ``eval_fn(pe, kt, df) -> (P, 4) costs`` routes
+    whole populations through the search service's batcher -- the same
+    bytes either way, since without one the run evaluates through
+    :func:`~repro_torch.serving.batcher.make_local_costs_eval`, the
+    batcher's own programs.
+
+    ``best_value``/``history`` follow the single-objective contract (the
+    env's primary objective, feasible points only); the trade-off curve
+    lands in ``SearchOutcome.frontier`` and its per-chunk snapshots in
+    ``extras["frontier_trace"]``.
+    """
+
+    name = "nsga2"
+
+    def run(self, request: SearchRequest) -> SearchOutcome:
+        from repro_torch.serving import batcher as batcher_lib
+
+        t0 = time.time()
+        cfg = _nsga2_cfg(request)
+        wl = request.resolve_workload()
+        env = env_lib.make_env(wl, request.env, request.device)
+        snapshots = []
+        user_cb = request.on_progress
+
+        def on_chunk(state, hist, gens_done):
+            snapshots.append(nsga2_lib.frontier_points(state))
+            if user_cb is not None:
+                user_cb(Trial(
+                    min(gens_done * cfg.population, request.eps),
+                    float(np.min(hist)), float(state.best_val)))
+
+        chunk = (max(request.progress_every // cfg.population, 1)
+                 if user_cb is not None else None)
+        eval_fn = request.options.get("eval_fn")
+        if eval_fn is None:
+            eval_fn = batcher_lib.make_local_costs_eval(env, request.env)
+        state, hist = nsga2_lib.run_nsga2_search(
+            wl, request.env, cfg, chunk=chunk, on_chunk=on_chunk,
+            eval_fn=eval_fn, env=env)
+        pe, kt, df = nsga2_lib.nsga2_solution(env, request.env, state)
+        trace = types.expand_trace(hist, cfg.population)
+        frontier = nsga2_lib.nsga2_frontier(env, request.env, state)
+        return _outcome(request, self.name, float(state.best_val),
+                        _np(pe), _np(kt), _np(df), trace, t0,
+                        extras={"generations": cfg.generations,
+                                "population": cfg.population,
+                                "archive": cfg.archive,
+                                "frontier_size": len(frontier["lat"]),
+                                "frontier_trace": snapshots},
+                        streamed=user_cb is not None, frontier=frontier)
 
 
 @register("relaxed", aliases=("oneshot", "gradient"))

@@ -83,7 +83,15 @@ class SearchOutcome:
     non-increasing, +inf while nothing feasible has been seen (the paper's
     "NAN").  pe/kt/df are the per-layer raw assignment of the best solution
     (NaN-filled when the method never found a feasible point).
-    telemetry stays None: the port has no telemetry yet.
+
+    frontier is set by the multi-objective engines only (``nsga2``): the
+    final Pareto frontier of feasible designs as a dict of arrays sorted
+    by latency -- ``lat``/``en``/``area``/``pw`` of shape (F,) plus the
+    realizing per-layer ``pe``/``kt``/``df`` of shape (F, N); no point
+    dominates another on (lat, en) and each fits the platform budget.
+    Chunk-by-chunk snapshots ride in ``extras["frontier_trace"]`` (a list
+    of (F_i, 4) cost arrays).  telemetry stays None: the port has no
+    telemetry yet.
     """
 
     method: str
@@ -98,7 +106,27 @@ class SearchOutcome:
     wall_seconds: float
     feasible: bool
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    frontier: Optional[Dict[str, np.ndarray]] = None
     telemetry: Optional[Dict[str, Any]] = None
+
+    def summary(self) -> str:
+        """A human-readable report of the run."""
+        lines = [
+            f"method={self.method}  seed={self.seed}  eps={self.eps}",
+            (f"best_value={self.best_value:.6g}  "
+             f"feasible={self.feasible}  "
+             f"converged@{self.samples_to_convergence}  "
+             f"wall={self.wall_seconds:.2f}s"),
+        ]
+        if self.feasible:
+            lines.append(
+                f"assignment: pe={np.asarray(self.pe).tolist()} "
+                f"kt={np.asarray(self.kt).tolist()} "
+                f"df={np.asarray(self.df).tolist()}")
+        if self.frontier is not None:
+            lines.append(f"frontier: {len(self.frontier['lat'])} "
+                         "non-dominated feasible designs")
+        return "\n".join(lines)
 
 
 def samples_to_convergence(trace: np.ndarray, tol: float = 0.05) -> int:
@@ -140,11 +168,13 @@ def fit_trace(trace, eps: int) -> np.ndarray:
 
 def build_outcome(request: SearchRequest, method: str, best_value, pe, kt,
                   df, trace, t0: float, extras=None,
-                  streamed: bool = False) -> SearchOutcome:
+                  streamed: bool = False,
+                  frontier=None) -> SearchOutcome:
     """Normalize a finished run into the unified schema.
 
     ``pe``/``kt`` may be None (nothing feasible found -> NaN-filled arrays);
     ``df`` may be None (fixed-dataflow method -> the env's dataflow id).
+    ``frontier`` is the Pareto-frontier dict of a multi-objective engine.
     """
     best_value = float(best_value)
     N = request.num_layers
@@ -164,7 +194,7 @@ def build_outcome(request: SearchRequest, method: str, best_value, pe, kt,
         samples_to_convergence=samples_to_convergence(history),
         wall_seconds=time.time() - t0,
         feasible=bool(np.isfinite(best_value)),
-        extras=dict(extras or {}))
+        extras=dict(extras or {}), frontier=frontier)
 
 
 def emit_trace(request: SearchRequest, history: np.ndarray) -> None:

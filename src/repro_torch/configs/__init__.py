@@ -1,12 +1,12 @@
-"""Architecture configs of the PyTorch port: the dense family.
+"""Architecture configs of the PyTorch port: the ten assigned architectures.
 
 ``get(name)`` accepts both canonical ids (qwen2p5_3b) and the brief's ids
 (qwen2.5-3b).  Each module exposes CONFIG (exact published shape) and
-smoke() (reduced same-family config for CPU tests).  Other architectures
-raise ``NotImplementedError`` ("not ported yet").
+smoke() (reduced same-family config for CPU tests).  An unknown id raises
+``ValueError``.
 """
-from repro_torch.configs.base import (ALIASES, ARCH_IDS, PORTED, ArchConfig,
+from repro_torch.configs.base import (ALIASES, ARCH_IDS, ArchConfig,
                                       canonical, get, get_smoke)
 
-__all__ = ["ALIASES", "ARCH_IDS", "PORTED", "ArchConfig", "canonical", "get",
+__all__ = ["ALIASES", "ARCH_IDS", "ArchConfig", "canonical", "get",
            "get_smoke"]

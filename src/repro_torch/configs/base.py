@@ -1,16 +1,18 @@
 """Architecture config schema + registry of the PyTorch port.
 
 A copy of the JAX package's ``configs/base.py`` (the port imports nothing
-of it).  One file per ported architecture lives in this package; each
-exposes ``CONFIG`` (the exact published shape) and ``smoke()`` (a reduced
-same-family config for CPU tests).  Only the dense family is ported:
-``get`` and ``get_smoke`` on any other architecture raise.
+of it).  One file per assigned architecture lives in this package, all
+ten of them; each exposes ``CONFIG`` (the exact published shape) and
+``smoke()`` (a reduced same-family config for CPU tests).  ``get`` and
+``get_smoke`` look either up; an unknown id raises ``ValueError``.  The
+LM itself runs the dense family only (``models.lm.check_family``); every
+family lowers to a search workload (``costmodel.arch_workloads``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,10 +117,6 @@ ARCH_IDS: List[str] = [
     "llama3p2_vision_90b",
 ]
 
-# The architectures whose config files are ported (the dense family).
-PORTED: Tuple[str, ...] = ("qwen1p5_0p5b", "qwen2p5_3b", "qwen3_32b",
-                           "starcoder2_3b")
-
 # CLI-friendly aliases (the brief's ids).
 ALIASES = {
     "zamba2-1.2b": "zamba2_1p2b",
@@ -140,12 +138,9 @@ def canonical(name: str) -> str:
 
 def _module(name: str):
     arch = canonical(name)
-    if arch not in PORTED:
-        known = arch in ARCH_IDS
-        raise NotImplementedError(
-            f"architecture {name!r} is "
-            + ("not ported yet in the PyTorch port (only the dense family "
-               f"is: {', '.join(PORTED)})" if known else "unknown"))
+    if arch not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {name!r}; one of "
+                         f"{', '.join(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -190,6 +190,13 @@ def aggregate_costs_multi(lat, en, area, pw, cfg: EnvConfig, budget):
     return total_lat, total_en, total_area, total_pw, total_cons <= budget
 
 
+def stacked_costs_multi(lat, en, area, pw, cfg: EnvConfig, budget):
+    """Per-layer costs (..., N) -> (..., 4) whole-model (lat, en, area, pw):
+    NSGA-II's fitness, whichever kernel made the per-layer costs."""
+    tl, te, ta, tp, _ = aggregate_costs_multi(lat, en, area, pw, cfg, budget)
+    return torch.stack([tl, te, ta, tp], dim=-1)
+
+
 def aggregate_costs(lat, en, area, pw, cfg: EnvConfig, budget):
     """Per-layer costs (..., N) -> whole-model (objective, constraint,
     feasible): the single-objective view of :func:`aggregate_costs_multi`."""

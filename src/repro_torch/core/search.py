@@ -1,13 +1,15 @@
 """ConfuciuX two-stage orchestration (Fig. 3): RL global search -> GA local
 fine-tune, plus the LS per-layer analysis of SIV-B.
 
-Port of ``repro.core.search`` (``confuciux_search``, ``per_layer_optima``).
+Port of ``repro.core.search``: ``confuciux_search``, ``per_layer_optima``,
+Fig. 5's ``heuristic_a`` / ``heuristic_b``, and the scalarized frontier
+sweep NSGA-II is measured against.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -116,3 +118,83 @@ def per_layer_optima(workload, ecfg: env_lib.EnvConfig, device="cuda"):
     return {"latency": lat, "energy": en, "area": area,
             "optima_latency": opt_lat, "optima_energy": opt_en,
             "pe_table": _np(env.pe_table), "kt_table": _np(env.kt_table)}
+
+
+def heuristic_a(workload, ecfg: env_lib.EnvConfig,
+                device="cuda") -> Dict[str, Any]:
+    """Fig. 5 'Heuristic A': tune on the most compute-intensive layer, apply
+    that (PE, Buf) pair to every layer."""
+    if isinstance(workload, str):
+        workload = workloads_lib.get_workload(workload)
+    grids = per_layer_optima(workload, ecfg, device)
+    hot = int(np.argmax([l.macs() for l in workload]))
+    key = "optima_latency" if ecfg.objective == "latency" else "optima_energy"
+    pi, ki = grids[key][hot]
+    env = env_lib.make_env(workload, ecfg, device)
+    N = env.num_layers
+    pe = env.pe_table[pi].expand(N)
+    kt = env.kt_table[ki].expand(N)
+    perf, _, feas = env_lib.genome_cost(env, ecfg, pe, kt,
+                                        float(ecfg.dataflow))
+    return {"value": float(perf) if bool(feas) else float("inf"),
+            "pe": _np(pe), "kt": _np(kt), "hot_layer": hot}
+
+
+def heuristic_b(workload, ecfg: env_lib.EnvConfig,
+                device="cuda") -> Dict[str, Any]:
+    """Fig. 5 'Heuristic B': the single uniform (PE, Buf) pair that optimizes
+    the end-to-end whole-model objective (one cost-kernel launch at
+    (L*L, N))."""
+    if isinstance(workload, str):
+        workload = workloads_lib.get_workload(workload)
+    env = env_lib.make_env(workload, ecfg, device)
+    N = env.num_layers
+    L = ecfg.levels
+    pe_g, kt_g = torch.meshgrid(env.pe_table, env.kt_table, indexing="ij")
+    pe = pe_g.reshape(-1, 1).expand(L * L, N)
+    kt = kt_g.reshape(-1, 1).expand(L * L, N)
+    perf, _, feas = env_lib.genome_cost(env, ecfg, pe, kt,
+                                        float(ecfg.dataflow))
+    fit = _np(torch.where(feas, perf, torch.inf))
+    i = int(fit.argmin())
+    return {"value": float(fit[i]), "pe": _np(pe[i]), "kt": _np(kt[i])}
+
+
+def scalarized_frontier_sweep(workload, ecfg: env_lib.EnvConfig,
+                              eps: int, weights=(0.0, 0.25, 0.5, 0.75, 1.0),
+                              method: str = "ga", seed: int = 0,
+                              options: Optional[Dict[str, Any]] = None,
+                              device="cuda"):
+    """Approximate the latency-energy frontier with k scalarized searches.
+
+    The eval budget is split across ``len(weights)`` single-objective runs
+    of ``method`` on ``device``, each minimizing ``lat^w * en^(1-w)`` (a
+    weighted sum in log space: every minimizer is Pareto-optimal); the
+    feasible (lat, en, area, pw) points the winners realize are collected.
+    This is the baseline NSGA-II is scored against at equal budget.
+
+    Returns ``{"points": (k', 4) array, "weights", "outcomes"}`` with one
+    row per feasible winner (k' <= k).
+    """
+    from repro_torch import api   # lazy: the api imports this module
+
+    if isinstance(workload, str):
+        workload = workloads_lib.get_workload(workload)
+    env = env_lib.make_env(workload, ecfg, device)
+    per_run = max(eps // len(weights), 1)
+    points, outcomes = [], []
+    for w in weights:
+        wcfg = dataclasses.replace(ecfg, objective="blend", blend_weight=w)
+        out = api.run_search(api.SearchRequest(
+            workload=workload, env=wcfg, eps=per_run, seed=seed,
+            method=method, options=dict(options or {}), device=device))
+        outcomes.append(out)
+        if not out.feasible:
+            continue
+        tl, te, ta, tp, feas = env_lib.genome_costs_multi(
+            env, wcfg, out.pe, out.kt, out.df)
+        if bool(feas):
+            points.append([float(tl), float(te), float(ta), float(tp)])
+    pts = (np.asarray(points, np.float64) if points
+           else np.empty((0, 4), np.float64))
+    return {"points": pts, "weights": list(weights), "outcomes": outcomes}

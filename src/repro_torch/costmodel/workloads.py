@@ -8,13 +8,17 @@ Strided convolutions: the cost model computes output spatial dims as
 Y' = Y - R + 1, so strided layers are encoded with *effective* input size
 Y = Y_out + R - 1 (MAC counts then match the true strided layer).
 
-Only the six paper workloads exist in this package; lowering of assigned
-architectures and the multi-DNN mix are not ported yet.
+The assigned architectures (qwen3 / zamba2 / ...) are lowered by
+``repro_torch.costmodel.arch_workloads`` from their configs; both
+registries, and the ``multi_dnn`` co-design mix, are reachable through
+:func:`get_workload`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List
 
+from repro_torch.costmodel import arch_workloads
 from repro_torch.costmodel.layers import LayerSpec
 
 
@@ -163,15 +167,37 @@ _PAPER_WORKLOADS: Dict[str, Callable[..., List[LayerSpec]]] = {
 }
 
 
+def multi_dnn(names: List[str] = None, tokens: int = 32) -> List[LayerSpec]:
+    """Concatenate several models into one workload (the co-design mix).
+
+    Each member's layers keep their own per-layer (PE, Buf) slots and are
+    renamed ``<member>.<layer>``; under LP they share one chip budget,
+    under LS one shared design.  ``names`` defaults to every assigned
+    architecture; a paper workload's name takes that model.  Layer counts
+    are ragged across members.
+    """
+    if names is None:
+        names = arch_workloads.arch_names()
+    out: List[LayerSpec] = []
+    for n in names:
+        if n in _PAPER_WORKLOADS:
+            layers = _PAPER_WORKLOADS[n]()
+        else:
+            layers = arch_workloads.lower_arch(n, tokens=tokens)
+        out.extend(dataclasses.replace(l, name=f"{n}.{l.name}")
+                   for l in layers)
+    return out
+
+
 def get_workload(name: str, **kwargs) -> List[LayerSpec]:
-    """Look up one of the paper's workloads by name."""
+    """Look up a workload by name (paper models + assigned architectures +
+    the ``multi_dnn`` co-design mix)."""
     if name in _PAPER_WORKLOADS:
         return _PAPER_WORKLOADS[name](**kwargs)
-    raise ValueError(
-        f"workload {name!r} is not ported yet: the PyTorch port has only the "
-        f"paper workloads {workload_names()} (assigned-architecture lowering "
-        "and multi_dnn are still to come)")
+    if name == "multi_dnn":
+        return multi_dnn(**kwargs)
+    return arch_workloads.lower_arch(name, **kwargs)
 
 
 def workload_names() -> List[str]:
-    return sorted(_PAPER_WORKLOADS)
+    return sorted(_PAPER_WORKLOADS) + arch_workloads.arch_names()

@@ -6,14 +6,20 @@ as a CLI.
         --platform iot --dataflow dla --epochs 5000 --device cuda \
         --out results/search_torch.json
 
+    # The latency-energy frontier of an assigned architecture's serving
+    # workload (NSGA-II; the record gains ``frontier``):
+    PYTHONPATH=src python -m repro_torch.launch.search --arch qwen3-32b \
+        --tokens 512 --method nsga2 --epochs 6400 --archive 128
+
 The flags and the last-line JSON are those of ``repro.launch.search`` for
 the methods this package registers (``api.list_optimizers()``: two_stage,
-reinforce, a2c, ppo2, relaxed, ga, sa, bo, random and grid), plus
+reinforce, a2c, ppo2, relaxed, ga, nsga2, sa, bo, random and grid), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels).  On the card, stage 1 (two_stage, reinforce) replays its epoch
-as one CUDA graph; a2c and ppo2 run their epochs eagerly.  The flags of
-methods and layers not ported yet are absent, and ``--arch`` fails with a
-"not ported yet" error.
+kernels).  ``--arch`` lowers an assigned architecture at ``--tokens``
+positions (``costmodel.arch_workloads``).  On the card, stage 1
+(two_stage, reinforce) replays its epoch as one CUDA graph; a2c and ppo2
+run their epochs eagerly.  The flags of what is not ported (fanout, the
+telemetry outputs) are absent.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import numpy as np
 
 from repro_torch import api
 from repro_torch.core import env as env_lib
+from repro_torch.costmodel import arch_workloads
 from repro_torch.costmodel import dataflows as dfl
 from repro_torch.costmodel import workloads as workloads_lib
 from repro_torch.costmodel.layers import total_macs
@@ -33,7 +40,10 @@ from repro_torch.costmodel.layers import total_macs
 
 def build_request(args) -> api.SearchRequest:
     """Translate CLI flags into the canonical SearchRequest."""
-    wl = workloads_lib.get_workload(args.workload)
+    if args.workload:
+        wl = workloads_lib.get_workload(args.workload)
+    else:
+        wl = arch_workloads.lower_arch(args.arch, tokens=args.tokens)
     mix = args.dataflow == "mix"
     ecfg = env_lib.EnvConfig(
         objective=args.objective, constraint=args.constraint,
@@ -43,7 +53,8 @@ def build_request(args) -> api.SearchRequest:
         mix=mix, levels=args.levels,
         blend_weight=args.blend_weight)
     # GA flags feed both the two_stage fine-tuner (nested "ga" dict) and
-    # --method ga (top-level keys); unset flags keep each method's defaults.
+    # --method ga / nsga2 (top-level keys); unset flags keep each method's
+    # defaults.
     ga_opts = {k: v for k, v in (("population", args.ga_population),
                                  ("generations", args.ga_generations))
                if v is not None}
@@ -53,6 +64,8 @@ def build_request(args) -> api.SearchRequest:
         "ga": ga_opts,
         **ga_opts,
     }
+    if args.archive is not None:
+        options["archive"] = args.archive
     if args.lr is not None:      # unset keeps each method's own default
         options["lr"] = args.lr
     # Relaxed-engine knobs (ignored by every other method).
@@ -75,8 +88,8 @@ def main(argv=None):
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--workload", help="paper workload name "
                      f"(one of {workloads_lib.workload_names()})")
-    src.add_argument("--arch", help="assigned architecture id (not ported "
-                     "yet in the PyTorch port)")
+    src.add_argument("--arch", help="assigned architecture id (the model is "
+                     "lowered to its per-layer GEMM/CONV descriptors)")
     ap.add_argument("--tokens", type=int, default=256,
                     help="tokens per forward for --arch lowering")
     ap.add_argument("--method", default="two_stage",
@@ -89,6 +102,9 @@ def main(argv=None):
                     "methods only)")
     ap.add_argument("--blend-weight", type=float, default=0.5,
                     help="--objective blend: latency weight w in [0, 1]")
+    ap.add_argument("--archive", type=int, default=None,
+                    help="--method nsga2: Pareto-archive capacity "
+                    "(default 128)")
     ap.add_argument("--constraint", default="area",
                     choices=["area", "power"])
     ap.add_argument("--platform", default="iot",
@@ -131,10 +147,6 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
-    if args.arch:
-        ap.error("--arch is not ported yet in the PyTorch port: "
-                 "assigned-architecture lowering is still to come; use "
-                 "--workload or the JAX package's launcher")
     try:
         api.get_optimizer(args.method)
     except KeyError as e:
@@ -142,7 +154,7 @@ def main(argv=None):
 
     request = build_request(args)
     wl = request.workload
-    target = args.workload
+    target = args.workload or args.arch
     print(f"target={target} method={args.method} layers={len(wl)} "
           f"macs={total_macs(wl)/1e6:.0f}M obj={args.objective} "
           f"cstr={args.constraint}:{args.platform} df={args.dataflow} "
@@ -179,6 +191,12 @@ def main(argv=None):
         "samples_to_convergence": out.samples_to_convergence,
         "wall_seconds": round(out.wall_seconds, 2),
     }
+    if out.frontier is not None:
+        # Multi-objective methods: the latency-energy trade-off curve.
+        rec["frontier"] = {
+            k: np.asarray(v).tolist()
+            for k, v in out.frontier.items() if k not in ("pe", "kt", "df")}
+        rec["frontier_size"] = len(out.frontier["lat"])
     if out.feasible:
         rec["assignment"] = {
             "pe": np.asarray(out.pe).astype(int).tolist(),

@@ -12,7 +12,8 @@ the bucketed engine.
 The flags and the last line (the stats JSON) are those of
 ``repro.launch.serve``, plus ``--device`` (default ``cuda``; without a card
 it fails, and nothing falls back to the CPU).  Only the dense family is
-ported; ``--mesh`` (sharded decode) is not ported yet and is rejected.
+served (another family's config loads, and the launcher rejects it as not
+ported yet); ``--mesh`` (sharded decode) is not ported yet and is rejected.
 The weights are a random init from ``--seed``; nothing is downloaded.
 """
 from __future__ import annotations
@@ -55,7 +56,8 @@ def main(argv=None):
     try:
         cfg = (configs.get_smoke(args.arch) if args.smoke
                else configs.get(args.arch))
-    except NotImplementedError as e:
+        lm.check_family(cfg)
+    except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     if args.f32:
         cfg = dataclasses.replace(cfg, param_dtype="float32",

@@ -15,7 +15,8 @@ Parameter names follow the reference's tree (``blocks.3.attn.wq`` is
 carries a reference tree across.
 
 The MoE, SSM, hybrid, audio and VLM families, and the forward, loss and
-train steps, are not ported yet: :class:`LM` raises on another family.
+train steps, are not ported yet: :class:`LM` raises on another family
+(:func:`check_family`).
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from torch import nn
 from repro_torch.models import common
 
 
-def _check_family(cfg):
+def check_family(cfg):
+    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense family."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet in the "
@@ -53,7 +55,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_family(cfg)
+        check_family(cfg)
         self.cfg = cfg
         self.embed = common.Embed(cfg, device)
         self.blocks = nn.ModuleList(Block(cfg, device)
@@ -148,7 +150,7 @@ class Cache(NamedTuple):
 def init_cache(cfg, batch: int, max_len: int, device="cpu") -> Cache:
     """A zeroed cache in ``cfg.compute_dtype``, the dtype of every q the
     decode step makes (the kernel takes k and v only in q's dtype)."""
-    _check_family(cfg)
+    check_family(cfg)
     dt = common.dtype(cfg.compute_dtype)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd())
     return Cache(attn_k=torch.zeros(shape, dtype=dt, device=device),
@@ -159,7 +161,7 @@ def init_cache(cfg, batch: int, max_len: int, device="cpu") -> Cache:
 def decode_step(params: LM, cfg, cache: Cache, token):
     """One decode step.  token: (B,) int -> (logits (B, V), cache with
     pos + 1).  The cache's tensors are updated in place."""
-    _check_family(cfg)
+    check_family(cfg)
     pos = cache.pos
     if pos >= cache.attn_k.shape[2]:
         raise ValueError(f"cache full: position {pos} of "

@@ -3,7 +3,8 @@
 Port of ``repro.serving.batcher`` without its telemetry.  Concurrent
 searches running on worker threads each hand it batches of genome
 evaluations (random/grid/bo through their ``eval_fn``, GA populations and
-SA candidates through their raw ``eval_fn``).  Dispatcher threads take
+SA candidates through their raw ``eval_fn``, NSGA-II populations through
+:meth:`CostEvalBatcher.evaluate_costs`).  Dispatcher threads take
 everything pending and:
 
   1. flatten every pending item into per-layer *points* ``(layer fields,
@@ -20,8 +21,12 @@ everything pending and:
      CPU);
   4. reassemble each item's values to the ``(b, N)`` shape the serial
      engine reduces over and aggregate them with the serial engine's own
-     :func:`repro_torch.core.env.aggregate_costs`, on the batcher's device
+     :func:`repro_torch.core.env.aggregate_costs` (``(b,)`` fitness), or
+     :func:`~repro_torch.core.env.stacked_costs_multi` for a costs item
+     (``(b, 4)`` whole-model costs), on the batcher's device
      (:func:`aggregate_items`: one upload and one download for all items).
+     Scalar and costs items share the cache's per-point entries: a point
+     is the same row either way.
 
 On a card each dispatcher thread has a CUDA stream of its own and pinned
 host buffers (:class:`_DeviceIO`), and a dispatch waits on that stream
@@ -67,14 +72,15 @@ _ROW_BYTES = np.dtype((np.void, 4 * ROW_WIDTH))   # one packed row, opaque
 class _Item:
     """One in-flight eval request: points + how to aggregate them."""
 
-    __slots__ = ("points", "shape", "ecfg", "budget", "event", "fit",
-                 "error")
+    __slots__ = ("points", "shape", "ecfg", "budget", "multi", "event",
+                 "fit", "error")
 
-    def __init__(self, points, shape, ecfg, budget):
+    def __init__(self, points, shape, ecfg, budget, multi=False):
         self.points = points          # (b*N, ROW_WIDTH) f32
         self.shape = shape            # (b, N)
         self.ecfg = ecfg              # the request's EnvConfig
         self.budget = budget          # np.float32
+        self.multi = multi            # (b, 4) aggregated costs, not (b,) fit
         self.event = threading.Event()
         self.fit: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
@@ -138,11 +144,22 @@ class CostEvalBatcher:
         to the serial engines' evaluation of the same genomes on the
         batcher's device.
         """
+        return self._submit(layers, pe, kt, df, ecfg, budget, multi=False)
+
+    def evaluate_costs(self, layers, pe, kt, df, ecfg, budget) -> np.ndarray:
+        """Like :meth:`evaluate`, but returns (b, 4) aggregated whole-model
+        (lat, en, area, pw) costs: the eval hook of the ``nsga2`` engine,
+        bit-identical to its in-graph fitness and to
+        :func:`make_local_costs_eval` on the same genomes."""
+        return self._submit(layers, pe, kt, df, ecfg, budget, multi=True)
+
+    def _submit(self, layers, pe, kt, df, ecfg, budget,
+                multi: bool) -> np.ndarray:
         if self._closed:
             raise RuntimeError("CostEvalBatcher is closed")
         pe = np.asarray(pe, np.float32)
         item = _Item(pack_point_rows(layers, pe, kt, df), pe.shape, ecfg,
-                     np.float32(budget))
+                     np.float32(budget), multi)
         with self._cv:
             if self._closed:
                 raise RuntimeError("CostEvalBatcher is closed")
@@ -341,10 +358,12 @@ def _point_costs(t: torch.Tensor) -> torch.Tensor:
 def aggregate_items(vals: np.ndarray, items, device,
                     io: Optional[_DeviceIO] = None) -> List[np.ndarray]:
     """(P, 4) per-point values of ``items``, in order -> each item's (b,)
-    f32 fitness, +inf where infeasible.
+    f32 fitness, +inf where infeasible, or for a costs item (``multi``)
+    its (b, 4) f32 whole-model (lat, en, area, pw).
 
     Each item gets the serial engines' reduction
-    (:func:`env.aggregate_costs`) over its own (b, N) shape, on
+    (:func:`env.aggregate_costs`, or NSGA-II's
+    :func:`env.stacked_costs_multi`) over its own (b, N) shape, on
     ``device``: its four (b, N) tensors are views of one freshly
     allocated (4, b, N) block, as the cost kernel returns them, filled on
     the device from the dispatch's upload (PyTorch picks vectorised loads
@@ -378,17 +397,24 @@ def aggregate_items(vals: np.ndarray, items, device,
             block = torch.empty((4, b, N), dtype=torch.float32,
                                 device=device)
             block.copy_(per_point[off:off + size].T.reshape(4, b, N))
-            perf, _, feas = env_lib.aggregate_costs(*block.unbind(0),
-                                                    it.ecfg, budgets[k])
-            fits.append(torch.where(feas, perf, torch.inf))
+            if it.multi:
+                fits.append(env_lib.stacked_costs_multi(
+                    *block.unbind(0), it.ecfg, budgets[k]).view(-1))
+            else:
+                perf, _, feas = env_lib.aggregate_costs(*block.unbind(0),
+                                                        it.ecfg, budgets[k])
+                fits.append(torch.where(feas, perf, torch.inf))
             off += size
         fit = torch.cat(fits)
         if on_card:
             fit = io.host("fitness", fit.shape[0]).copy_(fit,
                                                          non_blocking=True)
             io.stream.synchronize()
-    bounds = np.cumsum([it.shape[0] for it in items])[:-1]
-    return [f.copy() for f in np.split(fit.numpy(), bounds)]
+    shapes = [(it.shape[0], 4) if it.multi else (it.shape[0],)
+              for it in items]
+    bounds = np.cumsum([int(np.prod(sh)) for sh in shapes])[:-1]
+    return [f.reshape(sh).copy()
+            for sh, f in zip(shapes, np.split(fit.numpy(), bounds))]
 
 
 def pack_point_rows(layers, pe, kt, df) -> np.ndarray:
@@ -406,3 +432,29 @@ def pack_point_rows(layers, pe, kt, df) -> np.ndarray:
     points[:, _KT_COL] = kt.ravel()
     points[:, _DF_COL] = df.ravel()
     return points
+
+
+def make_local_costs_eval(env: env_lib.EnvArrays,
+                          ecfg: env_lib.EnvConfig):
+    """Serial NSGA-II's default fitness hook: ``eval_fn(pe, kt, df) ->
+    (b, 4)`` aggregated costs through the programs a
+    :class:`CostEvalBatcher` dispatch runs -- :func:`eval_point_rows` (one
+    per-row kernel launch on the card) and :func:`aggregate_items` on the
+    env's device -- without the queue, fusion window and memo cache.
+    Per-point results do not depend on the batch, so a serial
+    ``run_search`` and a service-batched one give the same bytes by
+    construction.
+    """
+    layers = env.layers.cpu().numpy()
+    budget = np.float32(env.budget.cpu().numpy())
+    device = env.device
+    io = _DeviceIO(device) if device.type == "cuda" else None
+
+    def eval_fn(pe, kt, df):
+        pe = np.asarray(pe, np.float32)
+        item = _Item(pack_point_rows(layers, pe, kt, df), pe.shape, ecfg,
+                     budget, multi=True)
+        vals = eval_point_rows(item.points, device, io)
+        return aggregate_items(vals, [item], device, io)[0]
+
+    return eval_fn

@@ -15,7 +15,9 @@ device:
     :class:`~repro_torch.serving.cost_cache.CostMemoCache`;
   * ``ga``, ``sa`` and ``relaxed`` route each generation's / candidate's /
     round's hard fitness through the same batcher via a raw-array
-    ``eval_fn``;
+    ``eval_fn``; ``nsga2`` does the same through a (b, 4)-costs variant
+    of the hook (:meth:`CostEvalBatcher.evaluate_costs`), sharing the
+    per-point cache entries with the scalar searches;
   * the RL family (``reinforce``, ``two_stage``, ``a2c``, ``ppo2``)
     interleaves at chunk granularity, streaming progress through the service's wrapper, which
     doubles as the cancellation point;
@@ -95,10 +97,12 @@ BATCHED_METHODS = ("random", "grid", "bo")
 # chunk granularity only.
 RAW_BATCHED_METHODS = ("ga", "sa", "relaxed")
 
-# Engines whose ``eval_fn`` returns (b, 4) aggregated costs.  Empty until
-# NSGA-II and the batcher's ``evaluate_costs`` are ported; the reference
-# routes nsga2 here, and ``_instrument`` will then read it.
-COSTS_BATCHED_METHODS: Tuple[str, ...] = ()
+# Chunked multi-objective engines whose ``eval_fn(pe, kt, df)`` returns
+# (b, 4) aggregated whole-model costs: NSGA-II populations fuse through the
+# same batcher (a point evaluated for a scalar search is a cache hit for a
+# frontier search and vice versa) via
+# :meth:`SearchService._make_costs_eval_fn`.
+COSTS_BATCHED_METHODS = ("nsga2",)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -112,6 +116,9 @@ class ServiceConfig:
     window_ms: float = 2.0        # batcher accumulation window
     device: str = "cuda"          # where every search and dispatch runs
     dispatch_workers: int = 1     # fused-dispatch pool size (batcher threads)
+    # Methods whose (b, 4) costs go through the batcher; () keeps nsga2 on
+    # its own per-request evaluation (the same bytes, no fusion or cache).
+    costs_batched_methods: Tuple[str, ...] = COSTS_BATCHED_METHODS
     default_progress_every: int = 200   # service-side chunking when the
     #                                     request carries no callback
     cache_dir: Optional[str] = None     # persistent CostMemoCache root; the
@@ -340,6 +347,8 @@ class SearchService:
             options["eval_fn"] = self._make_eval_fn(ticket)
         elif method in RAW_BATCHED_METHODS:
             options["eval_fn"] = self._make_raw_eval_fn(ticket)
+        elif method in self.cfg.costs_batched_methods:
+            options["eval_fn"] = self._make_costs_eval_fn(ticket)
         return dataclasses.replace(
             request, options=options, on_progress=on_progress,
             progress_every=progress_every)
@@ -378,6 +387,23 @@ class SearchService:
             if ticket.cancelled:
                 raise SearchCancelled(f"search {ticket.uid} cancelled")
             return batcher.evaluate(layers, pe, kt, df, ecfg, budget)
+
+        return eval_fn
+
+    def _make_costs_eval_fn(self, ticket: SearchTicket):
+        """Raw-array eval hook for the multi-objective engines: the batcher
+        routing of :meth:`_make_raw_eval_fn`, returning (b, 4) aggregated
+        (lat, en, area, pw) costs -- what NSGA-II's constrained dominance
+        ranks on.  Also the per-generation cancellation point."""
+        request = ticket.request
+        ecfg = request.env
+        layers, _, _, budget = self._decode_tables(request)
+        batcher = self.batcher
+
+        def eval_fn(pe, kt, df):
+            if ticket.cancelled:
+                raise SearchCancelled(f"search {ticket.uid} cancelled")
+            return batcher.evaluate_costs(layers, pe, kt, df, ecfg, budget)
 
         return eval_fn
 

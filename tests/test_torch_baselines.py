@@ -240,13 +240,15 @@ CASES = {
     "bo": (150, {"init_random": 32, "batch": 16}),
     "sa": (150, {}),
     "ga": (120, {"population": 30}),
+    "nsga2": (120, {"population": 30}),
     "reinforce": (30, {}),
     "two_stage": (30, {"ga": {"generations": 40}}),
     "a2c": (30, {"episodes_per_epoch": 3}),
     "ppo2": (30, {"episodes_per_epoch": 3, "ppo_updates": 1}),
     "relaxed": (30, {"steps_per_eval": 4, "restarts": 2}),
 }
-CHUNKED = ("reinforce", "two_stage", "ga", "sa", "a2c", "ppo2", "relaxed")
+CHUNKED = ("reinforce", "two_stage", "ga", "nsga2", "sa", "a2c", "ppo2",
+           "relaxed")
 
 
 def _req(method, **kw):

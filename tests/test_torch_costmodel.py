@@ -71,9 +71,18 @@ def test_workload_arrays_equal_reference(name):
 
 
 def test_workload_names_are_the_paper_six():
-    assert tworkloads.workload_names() == PAPER
-    with pytest.raises(ValueError, match="not ported yet"):
-        tworkloads.get_workload("qwen3-32b")
+    """The paper's six first, then the ten assigned architectures: the
+    reference's ``workload_names``, each name resolving as it does there;
+    an unknown name raises."""
+    names = tworkloads.workload_names()
+    assert names == jworkloads.workload_names()
+    assert names[:6] == PAPER
+    for name in names[6:]:
+        np.testing.assert_array_equal(
+            tlayers.layers_to_array(tworkloads.get_workload(name)),
+            jlayers.layers_to_array(jworkloads.get_workload(name)))
+    with pytest.raises(ValueError, match="unknown architecture"):
+        tworkloads.get_workload("no_such_workload")
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

@@ -925,3 +925,66 @@ def test_relaxed_round_on_card_matches_the_cpu(dev):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
     for a, b in zip(cand, cand_cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("mix", [False, True])
+def test_nsga2_in_graph_fitness_equals_flat_path_on_card(dev, mix):
+    """On the card the engine's fitness (the table kernel at (P, N)) and
+    the adapter's default (the per-row kernel on packed rows, then the
+    batcher's aggregation) give the same bits, so whole runs by both paths
+    are byte-identical; each generation launches one kernel."""
+    from repro_torch.core import env as env_lib
+    from repro_torch.core import nsga2
+    from repro_torch.serving import batcher
+
+    ecfg = env_lib.EnvConfig(platform="iot", mix=mix)
+    env = env_lib.make_env(workloads.get_workload("mobilenet_v2"), ecfg,
+                           dev)
+    cfg = nsga2.NSGA2Config(population=64, generations=6, seed=3)
+    eval_fn = batcher.make_local_costs_eval(env, ecfg)
+    engine = nsga2.make_nsga2_engine(env, ecfg, cfg)
+    state = engine.init_carry(cfg.seed)
+    for _ in range(cfg.generations):
+        before = ops.launch_counts()
+        in_graph = engine.fitness(state.pop)
+        after = ops.launch_counts()
+        assert after["cost_eval"] == before["cost_eval"] + 1
+        flat = eval_fn(*(v.cpu().numpy() if torch.is_tensor(v)
+                         else np.float32(v)
+                         for v in engine.decode(state.pop)))
+        assert ops.launch_counts()["cost_eval_multi"] == (
+            after["cost_eval_multi"] + 1)
+        assert in_graph.cpu().numpy().tobytes() == flat.tobytes()
+        state, _ = engine.evolve(state, in_graph)
+    s1, h1 = nsga2.run_nsga2_search(None, ecfg, cfg, env=env)
+    s2, h2 = nsga2.run_nsga2_search(None, ecfg, cfg, env=env,
+                                    eval_fn=eval_fn)
+    assert h1.tobytes() == h2.tobytes()
+    for a, b in zip(s1, s2):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b)
+    assert torch.equal(s1.generator.get_state(), s2.generator.get_state())
+
+
+def test_nsga2_selection_on_card_matches_the_cpu(dev):
+    """Selection on the card (front peeling, crowding, survivors, the
+    archive) gives the CPU's bits on the same costs."""
+    from repro_torch.core import nsga2
+
+    rng = np.random.default_rng(4)
+    c = rng.integers(1, 40, (128, 4)).astype(np.float32) * 1.5
+    c[:64] = np.inf
+    budget = np.float32(30.0)
+    out = {}
+    for d in ("cpu", dev):
+        costs, b = torch.tensor(c, device=d), torch.tensor(budget, device=d)
+        viol = nsga2._violation(costs, 2, b)
+        rank = nsga2._front_ranks(nsga2._constrained_dominance(costs, viol))
+        crowd = nsga2._crowding(costs[:, :2], rank)
+        sel = nsga2._select_best(rank, crowd, 64)
+        g = torch.arange(128 * 3 * 2, device=d).reshape(128, 3, 2)
+        arch = nsga2._update_archive(g[:32], costs[96:], g[32:96],
+                                     costs[64:].flip(0), 2, b)
+        out[str(d)] = [t.cpu() for t in (rank, crowd, sel, *arch)]
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(a, b)

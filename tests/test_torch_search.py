@@ -109,9 +109,9 @@ def test_run_search_on_cpu_holds_schema_and_rescores(method, options):
     assert trials[-1].best_value >= out.best_value
 
 
-# The reference's registry without what the port has not ported yet
-# (NSGA-II, and the distributed wrappers).
-NOT_PORTED = {"nsga2", "fanout", "dist_reinforce"}
+# The reference's registry without what the port has not ported yet: the
+# distributed wrappers.
+NOT_PORTED = {"fanout", "dist_reinforce"}
 
 
 def test_registry_is_the_references_minus_the_unported():
@@ -182,12 +182,49 @@ def test_cli_prints_the_reference_last_line_keys():
 
 
 def test_cli_rejects_arch_as_not_ported():
+    """``--arch`` (rejected before the port had the lowering) now runs,
+    and lowers the architecture at ``--tokens`` as the reference's
+    launcher does: equal layer arrays and names, the same target."""
+    from repro.costmodel import layers as jlayers
+    from repro.launch import search as jlaunch
+    from repro_torch.costmodel import layers as tlayers
+    from repro_torch.launch import search as tlaunch
+
+    flags = ["--arch", "qwen3-32b", "--tokens", "128", "--method", "ga"]
+    got = tlaunch.build_request(
+        _cli_args(tlaunch, flags + ["--device", "cpu"]))
+    want = jlaunch.build_request(_cli_args(jlaunch, flags))
+    np.testing.assert_array_equal(tlayers.layers_to_array(got.workload),
+                                  jlayers.layers_to_array(want.workload))
+    assert ([l.name for l in got.workload]
+            == [l.name for l in want.workload])
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.search", "--arch",
-         "qwen3-32b", "--device", "cpu"], env=env, cwd=REPO,
-        capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2 and "not ported yet" in proc.stderr
+        [sys.executable, "-m", "repro_torch.launch.search", *flags,
+         "--device", "cpu", "--epochs", "60", "--ga-population", "10",
+         "--platform", "cloud"], env=env, cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith("target=qwen3-32b method=ga layers=7 ")
+    assert json.loads(proc.stdout.splitlines()[-1])["method"] == "ga"
+
+
+def _cli_args(mod, argv):
+    """The argparse namespace ``mod.main(argv)`` would build."""
+    captured = {}
+    orig = mod.build_request
+
+    def spy(args):
+        captured["args"] = args
+        raise SystemExit(0)
+
+    mod.build_request = spy
+    try:
+        with pytest.raises(SystemExit):
+            mod.main(argv)
+    finally:
+        mod.build_request = orig
+    return captured["args"]
 
 
 def test_cli_text_names_every_registered_method(capsys):

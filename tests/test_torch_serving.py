@@ -112,6 +112,90 @@ def test_relaxed_through_the_service_equals_serial(mix):
     assert st["points"] == 24 * N and st["items"] == 24
 
 
+def _nsga2_req(**kw):
+    return _req("nsga2", eps=180, seed=4,
+                options={"population": 12, "archive": 16}, **kw)
+
+
+def _assert_same_frontier(got, want):
+    _assert_same(got, want)
+    assert set(got.frontier) == set(want.frontier)
+    for k in want.frontier:
+        assert got.frontier[k].tobytes() == want.frontier[k].tobytes(), k
+    gt, wt = got.extras["frontier_trace"], want.extras["frontier_trace"]
+    assert len(gt) == len(wt) > 0
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(gt, wt))
+    assert ({k: v for k, v in got.extras.items() if k != "frontier_trace"}
+            == {k: v for k, v in want.extras.items()
+                if k != "frontier_trace"})
+
+
+@pytest.mark.parametrize("costs_batched", [True, False])
+def test_nsga2_through_the_service_equals_serial(costs_batched):
+    """NSGA-II beside a ga request on the same workload: through the
+    batcher's costs path (or, with ``costs_batched_methods=()``, on its own
+    evaluation), the outcome equals the serial run byte for byte,
+    frontier and frontier trace included; the ga request too."""
+    cb = _nsga2_req(on_progress=lambda t: None, progress_every=36)
+    serial = [api.run_search(r) for r in (_nsga2_req(), cb, _req(
+        "ga", eps=200, seed=4, options={"population": 10}))]
+    assert len(serial[1].extras["frontier_trace"]) == 5
+    s = _svc(max_workers=3, **({} if costs_batched
+                               else {"costs_batched_methods": ()}))
+    try:
+        tickets = [s.submit(r) for r in (
+            _nsga2_req(), _nsga2_req(on_progress=lambda t: None,
+                                     progress_every=36),
+            _req("ga", eps=200, seed=4, options={"population": 10}))]
+        outs = [t.result(timeout=300) for t in tickets]
+        st = s.stats()
+    finally:
+        s.close()
+    for got, want in zip(outs[:2], serial[:2]):
+        _assert_same_frontier(got, want)
+    _assert_same(outs[2], serial[2])
+    N = len(workloads.get_workload("ncf"))
+    nsga2_items = 2 * 15 if costs_batched else 0
+    assert st["items"] == nsga2_items + 20
+    assert st["points"] == (nsga2_items * 12 + 20 * 10) * N
+
+
+def test_costs_and_scalar_items_share_the_cache_bitwise():
+    """``evaluate_costs`` gives NSGA-II's in-graph fitness byte for byte,
+    a scalar item over the same genomes evaluates nothing fresh, and one
+    dispatch of both kinds gives each its serial values."""
+    from repro_torch.core import nsga2
+    from repro_torch.serving.batcher import _Item
+
+    env = _ncf_env()
+    ecfg = env_lib.EnvConfig(platform="cloud", objective="energy")
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy(rng.integers(0, ecfg.levels,
+                                      (9, env.num_layers, 2)))
+    want_costs = nsga2._multi_costs(env, ecfg, env.pe_table[g[..., 0]],
+                                    env.kt_table[g[..., 1]],
+                                    float(ecfg.dataflow))
+    want_fit, pe, kt = baselines._decode_and_eval(env, ecfg, g)
+    args = (env.layers.numpy(), pe.numpy(), kt.numpy(),
+            np.float32(ecfg.dataflow), ecfg, env.budget.numpy())
+    b = CostEvalBatcher(window_ms=0.0, device="cpu")
+    try:
+        got = b.evaluate_costs(*args)
+        assert got.shape == (9, 4) and got.dtype == np.float32
+        assert got.tobytes() == want_costs.numpy().tobytes()
+        fresh = b.stats()["fresh_points"]
+        assert b.evaluate(*args).tobytes() == want_fit.numpy().tobytes()
+        assert b.stats()["fresh_points"] == fresh
+        rows = pack_point_rows(*args[:4])
+        items = [_Item(rows, (9, env.num_layers), ecfg, args[5], multi=m)
+                 for m in (True, False, True)]
+        b._dispatch(items)
+    finally:
+        b.close()
+    assert items[0].fit.tobytes() == items[2].fit.tobytes() == got.tobytes()
+    assert items[1].fit.tobytes() == want_fit.numpy().tobytes()
+
+
 def test_same_query_from_two_users_agrees_and_hits_cache(svc):
     tickets = [svc.submit(_req("ga", eps=400, seed=5,
                                options={"population": 20}))
