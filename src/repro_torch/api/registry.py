@@ -1,9 +1,9 @@
 """String-keyed optimizer registry: ``get_optimizer("two_stage"|...)``.
 
-Port of ``repro.api.registry`` without the telemetry wrapper: ``run_search``
-dispatches straight to the optimizer, and ``SearchOutcome.telemetry`` stays
-None.  The built-in adapters live in :mod:`repro_torch.api.optimizers`,
-imported on first lookup.
+Port of ``repro.api.registry``.  The built-in adapters live in
+:mod:`repro_torch.api.optimizers`, imported on first lookup; with
+:mod:`repro_torch.obs` telemetry on, ``run_search`` fills
+``SearchOutcome.telemetry``.
 """
 from __future__ import annotations
 
@@ -11,6 +11,9 @@ import importlib
 from typing import Callable, Dict, Protocol, Tuple, runtime_checkable
 
 from repro_torch.api.types import SearchOutcome, SearchRequest
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs import state as obs_state
+from repro_torch.obs import trace as obs_trace
 
 # Modules that register optimizers as an import side effect.
 _PLUGIN_MODULES = ("repro_torch.api.optimizers",)
@@ -71,5 +74,22 @@ def list_optimizers() -> Tuple[str, ...]:
 
 
 def run_search(request: SearchRequest) -> SearchOutcome:
-    """One-call entry point: dispatch ``request`` to ``request.method``."""
-    return get_optimizer(request.method).run(request)
+    """One-call entry point: dispatch ``request`` to ``request.method``.
+
+    With :mod:`repro_torch.obs` telemetry on, the run executes under a
+    fresh :class:`~repro_torch.obs.recorder.FlightRecorder` (installed
+    thread-locally, so concurrent service searches each get their own)
+    inside a ``search.run`` span, and the recorder's summary lands on
+    ``outcome.telemetry``.  Telemetry is observational only: the outcome
+    is byte-identical with it on or off.
+    """
+    opt = get_optimizer(request.method)
+    if not obs_state.enabled:
+        return opt.run(request)
+    rec = obs_recorder.FlightRecorder(engine=opt.name)
+    with obs_recorder.recording(rec), \
+            obs_trace.span("search.run", method=opt.name, eps=request.eps,
+                           seed=request.seed):
+        out = opt.run(request)
+    out.telemetry = rec.summary()
+    return out

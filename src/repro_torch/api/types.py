@@ -90,8 +90,14 @@ class SearchOutcome:
     realizing per-layer ``pe``/``kt``/``df`` of shape (F, N); no point
     dominates another on (lat, en) and each fits the platform budget.
     Chunk-by-chunk snapshots ride in ``extras["frontier_trace"]`` (a list
-    of (F_i, 4) cost arrays).  telemetry stays None: the port has no
-    telemetry yet.
+    of (F_i, 4) cost arrays).
+
+    telemetry is the search's flight-recorder summary (hard evals, chunks,
+    cache hit rate, queue-wait / dispatch / device timings, first
+    dispatches) -- filled by :func:`repro_torch.api.run_search` when
+    :mod:`repro_torch.obs` telemetry is on, None otherwise.  Purely
+    observational: the same search with telemetry on and off returns
+    byte-identical results everywhere else.
     """
 
     method: str
@@ -126,6 +132,25 @@ class SearchOutcome:
         if self.frontier is not None:
             lines.append(f"frontier: {len(self.frontier['lat'])} "
                          "non-dominated feasible designs")
+        t = self.telemetry
+        if t:
+            bits = []
+            if "hard_evals" in t:
+                bits.append(f"hard_evals={int(t['hard_evals'])}")
+            if "chunks" in t:
+                bits.append(f"chunks={int(t['chunks'])}")
+            if "cache_hit_rate" in t:
+                bits.append(f"cache_hit_rate={t['cache_hit_rate']:.2%}")
+            if "jit_compiles" in t:
+                bits.append(f"jit_compiles={int(t['jit_compiles'])}")
+            for key, label in (("queue_wait_s", "queue_wait"),
+                               ("dispatch_s", "dispatch"),
+                               ("device_s", "device")):
+                s = t.get(key)
+                if isinstance(s, dict):
+                    bits.append(f"{label}={s['sum']:.3f}s")
+            if bits:
+                lines.append("telemetry: " + "  ".join(bits))
         return "\n".join(lines)
 
 

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import chunk as chunk_lib
 from repro_torch.core import env as env_lib
+from repro_torch.obs import instrument as obs_instrument
 
 
 class BaselineResult(NamedTuple):
@@ -91,6 +92,7 @@ def random_search(workload, ecfg: env_lib.EnvConfig, eps: int = 5000,
         genomes = torch.randint(0, ecfg.levels, (n, N, 2), generator=gen,
                                 device=env.device)
         fit, pe, kt = eval_b(genomes)
+        obs_instrument.hard_evals("random", n)
         # Seed the trace with the best *before* this batch so no sample is
         # credited ahead of being drawn.
         hist.append(np.minimum(np.minimum.accumulate(fit), best))
@@ -130,6 +132,7 @@ def grid_search(workload, ecfg: env_lib.EnvConfig, eps: int = 5000,
                 break
         genomes = np.minimum(digits.reshape(n, N, 2), ecfg.levels - 1)
         fit, pe, kt = eval_b(_levels(genomes, env.device))
+        obs_instrument.hard_evals("grid", n)
         hist.append(np.minimum(np.minimum.accumulate(fit), best))
         i = int(fit.argmin())
         if fit[i] < best:
@@ -272,7 +275,8 @@ def run_sa_search(workload, ecfg: env_lib.EnvConfig, eps: int = 5000,
             hist.append(bf)
         return state, torch.stack(hist).cpu().numpy()
 
-    state, hist = chunk_lib.drive(state, eps, chunk, run_chunk, on_chunk)
+    state, hist = chunk_lib.drive(state, eps, chunk, run_chunk, on_chunk,
+                                  engine="sa")
     return state, chunk_lib.concat_hist(hist)
 
 
@@ -316,6 +320,7 @@ def bayes_opt(workload, ecfg: env_lib.EnvConfig, eps: int = 5000,
 
     X = rng.integers(0, L, size=(min(init_random, eps), N, 2)).astype(np.int32)
     fit, _, _ = eval_b(_levels(X, env.device))
+    obs_instrument.hard_evals("bo", len(X))
     y = np.asarray(fit, dtype=np.float64)
     hist = list(np.minimum.accumulate(np.where(np.isinf(y), np.inf, y)))
 
@@ -350,6 +355,7 @@ def bayes_opt(workload, ecfg: env_lib.EnvConfig, eps: int = 5000,
         # found within eps samples.
         pick = cand[np.argsort(-score)[:min(batch, eps - len(y))]]
         fit, _, _ = eval_b(_levels(pick, env.device))
+        obs_instrument.hard_evals("bo", len(pick))
         fit = np.asarray(fit, dtype=np.float64)
         X = np.concatenate([X, pick], axis=0)
         y = np.concatenate([y, fit])

@@ -161,36 +161,41 @@ def make_ga_engine(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
     return GAEngine(init_carry, decode, fitness, evolve)
 
 
-def host_fitness(decode: Callable, eval_fn: Callable) -> Callable:
+def host_fitness(decode: Callable, eval_fn: Callable,
+                 fixed_df=None) -> Callable:
     """``fitness(pop)`` through a host-side ``eval_fn(pe, kt, df) -> (P,)``.
 
     The population is decoded on its device; ``eval_fn`` gets numpy arrays
-    (``df`` a float32 scalar when the dataflow is fixed) and its fitness
-    goes back to the population's device as float32.
+    (``df`` a float32 scalar when the dataflow is fixed, or ``fixed_df``
+    itself when given) and its fitness goes back to the population's
+    device as float32.
     """
     def as_np(v):
         return v.cpu().numpy() if torch.is_tensor(v) else np.float32(v)
 
     def fitness(pop):
         pe, kt, df = decode(pop)
-        fit = np.asarray(eval_fn(as_np(pe), as_np(kt), as_np(df)),
-                         np.float32)
+        df = as_np(df) if fixed_df is None else fixed_df
+        fit = np.asarray(eval_fn(as_np(pe), as_np(kt), df), np.float32)
         return torch.as_tensor(fit, device=pop.device)
 
     return fitness
 
 
 def run_chunked_engine(engine: GAEngine, state: GAState, generations: int,
-                       chunk: Optional[int], on_chunk, eval_fn=None):
+                       chunk: Optional[int], on_chunk, eval_fn=None,
+                       fixed_df=None, engine_name: str = "ga"):
     """Chunk loop of a population engine.  Returns (state, (gens,)
     history of the best-so-far).
 
     Each generation is ``evolve(state, fitness(state.pop))``; with
     ``eval_fn`` the fitness goes through :func:`host_fitness`, and nothing
-    else changes.
+    else changes.  ``engine_name`` tags each chunk's telemetry: one hard
+    eval per population member per generation.
     """
     fitness = (engine.fitness if eval_fn is None
-               else host_fitness(engine.decode, eval_fn))
+               else host_fitness(engine.decode, eval_fn, fixed_df))
+    pop_size = int(state.pop.shape[0])
 
     def run_chunk(state, n):
         hist = []
@@ -200,7 +205,8 @@ def run_chunked_engine(engine: GAEngine, state: GAState, generations: int,
         return state, torch.stack(hist).cpu().numpy()
 
     state, hist = chunk_lib.drive(state, generations, chunk, run_chunk,
-                                  on_chunk)
+                                  on_chunk, engine=engine_name,
+                                  evals_per_step=pop_size)
     return state, chunk_lib.concat_hist(hist)
 
 
@@ -312,15 +318,22 @@ def run_local_ga(workload, ecfg: env_lib.EnvConfig,
                  state: Optional[GAState] = None,
                  chunk: Optional[int] = None,
                  on_chunk=None,
+                 eval_fn=None,
                  env: Optional[env_lib.EnvArrays] = None,
                  device="cuda"):
     """Chunked, resumable stage-2 fine-tune; same contract as run_ga_search.
 
-    The dataflow assignment is frozen at ``init_df``.
+    The dataflow assignment is frozen at ``init_df`` (stage 2 fine-tunes
+    only the budget split), so ``eval_fn`` always receives that fixed array
+    (``np.asarray(init_df, np.float32)``).
     """
     if env is None:
         env = env_lib.make_env(workload, ecfg, device)
     engine = make_local_ga_engine(env, ecfg, init_pe, init_kt, init_df, cfg)
     if state is None:
         state = engine.init_carry(cfg.seed)
-    return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk)
+    fixed_df = (np.asarray(torch.as_tensor(init_df).cpu(), np.float32)
+                if eval_fn is not None else None)
+    return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk,
+                              eval_fn, fixed_df=fixed_df,
+                              engine_name="local_ga")

@@ -417,7 +417,7 @@ def run_nsga2_search(workload, ecfg: env_lib.EnvConfig,
     if state is None:
         state = engine.init_carry(cfg.seed)
     return ga_lib.run_chunked_engine(engine, state, cfg.generations, chunk,
-                                     on_chunk, eval_fn)
+                                     on_chunk, eval_fn, engine_name="nsga2")
 
 
 def frontier_points(state: NSGA2State) -> np.ndarray:

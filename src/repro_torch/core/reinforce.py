@@ -472,8 +472,9 @@ def run_search(workload, ecfg: env_lib.EnvConfig,
         hist = runner.run(n)
         return clone_state(runner.state), hist
 
-    state, history = chunk_lib.drive(state, rcfg.epochs, chunk, run_chunk,
-                                     on_chunk)
+    state, history = chunk_lib.drive(
+        state, rcfg.epochs, chunk, run_chunk, on_chunk,
+        engine="reinforce", evals_per_step=rcfg.episodes_per_epoch)
     return state, chunk_lib.concat_hist_dict(history)
 
 

@@ -288,7 +288,7 @@ def run_relaxed_search(workload, ecfg: env_lib.EnvConfig, eps: int = 100,
         return state, h
 
     state, hist = chunk_lib.drive(state, rounds, chunk, run_round_chunk,
-                                  on_chunk)
+                                  on_chunk, engine="relaxed")
     if n_var:
         # Final budget: hard-score the floor/ceil rounding variants of the
         # best replica's continuous point, as one chunk offset past the
@@ -307,7 +307,7 @@ def run_relaxed_search(workload, ecfg: env_lib.EnvConfig, eps: int = 100,
 
         state, vhist = chunk_lib.drive(
             state, rounds + n_var, n_var, run_variant_chunk, on_chunk,
-            start=rounds)
+            engine="relaxed", start=rounds)
         hist.extend(vhist)
     return state, chunk_lib.concat_hist(hist)
 

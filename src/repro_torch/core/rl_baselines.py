@@ -280,6 +280,7 @@ def run_ac_search(workload, ecfg: env_lib.EnvConfig,
         return (reinforce.clone_state(live[0]),
                 {k: h[i] for i, k in enumerate(m)})
 
-    state, history = chunk_lib.drive(state, acfg.epochs, chunk, run_chunk,
-                                     on_chunk)
+    state, history = chunk_lib.drive(
+        state, acfg.epochs, chunk, run_chunk, on_chunk,
+        engine=acfg.algo, evals_per_step=acfg.episodes_per_epoch)
     return state, chunk_lib.concat_hist_dict(history)

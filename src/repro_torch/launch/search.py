@@ -18,8 +18,9 @@ reinforce, a2c, ppo2, relaxed, ga, nsga2, sa, bo, random and grid), plus
 kernels).  ``--arch`` lowers an assigned architecture at ``--tokens``
 positions (``costmodel.arch_workloads``).  On the card, stage 1
 (two_stage, reinforce) replays its epoch as one CUDA graph; a2c and ppo2
-run their epochs eagerly.  The flags of what is not ported (fanout, the
-telemetry outputs) are absent.
+run their epochs eagerly.  ``--trace-out`` / ``--metrics-out`` /
+``--profile`` turn on telemetry (``repro_torch.obs``), as in the
+reference; the flags of what is not ported (fanout) are absent.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import sys
 
 import numpy as np
 
-from repro_torch import api
+from repro_torch import api, obs
 from repro_torch.core import env as env_lib
 from repro_torch.costmodel import arch_workloads
 from repro_torch.costmodel import dataflows as dfl
@@ -145,6 +146,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the search runs; cuda fails without a card")
     ap.add_argument("--out", default="")
+    ap.add_argument("--trace-out", default="",
+                    help="write a span trace here (.jsonl = one span per "
+                    "line, else Chrome-trace JSON for chrome://tracing / "
+                    "ui.perfetto.dev); enables telemetry")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics registry here (.prom text "
+                    "exposition, or .json snapshot); enables telemetry")
+    ap.add_argument("--profile", action="store_true",
+                    help="enable telemetry and print the flight-recorder "
+                    "summary even without --trace-out/--metrics-out")
     args = ap.parse_args(argv)
 
     try:
@@ -167,7 +178,21 @@ def main(argv=None):
             f"  [{t.step}/{request.eps}] best={t.best_value:.4e}",
             flush=True)
 
+    profile = bool(args.profile or args.trace_out or args.metrics_out)
+    if profile:
+        obs.enable(trace=True)
+
     out = api.run_search(request)
+
+    if profile:
+        print(out.summary(), flush=True)
+        if args.trace_out:
+            obs.save_trace(args.trace_out)
+            print(f"wrote {args.trace_out}", flush=True)
+        if args.metrics_out:
+            obs.write_prometheus(args.metrics_out)
+            print(f"wrote {args.metrics_out}", flush=True)
+        obs.disable()
 
     stage1 = out.extras.get("stage1_value")
     initial = out.extras.get("initial_valid_value")
@@ -204,6 +229,8 @@ def main(argv=None):
             "dataflow": [dfl.DATAFLOW_NAMES[int(d)] for d in out.df],
             "layers": [l.name or f"layer{i}" for i, l in enumerate(wl)],
         }
+    if out.telemetry is not None:
+        rec["telemetry"] = out.telemetry
     print(json.dumps({k: rec[k] for k in
                       ("method", "best_value", "stage1_value",
                        "initial_valid_value", "samples_to_convergence",

@@ -16,8 +16,9 @@ one card.
 
 The flags and the summary line are those of ``repro.launch.serve_search``,
 plus ``--device`` (default ``cuda``; without a card it fails, and nothing
-falls back to the CPU).  The telemetry flags are absent: the port has no
-telemetry yet.  Every request is a unified-API ``SearchRequest``
+falls back to the CPU).  ``--trace-out`` / ``--metrics-out`` /
+``--profile`` turn on telemetry (``repro_torch.obs``) and add each
+search's flight-recorder summary to its result row.  Every request is a unified-API ``SearchRequest``
 dispatched through :class:`repro_torch.serving.SearchService`:
 random/grid/bo, ga and sa fuse their cost evaluations into one
 cross-request dispatch stream with a shared per-point memo cache; the RL
@@ -33,7 +34,7 @@ import os
 import sys
 import time
 
-from repro_torch import api
+from repro_torch import api, obs
 from repro_torch.core import env as env_lib
 from repro_torch.costmodel import dataflows as dfl
 from repro_torch.serving import SearchService, ServiceConfig
@@ -104,7 +105,20 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the service runs; cuda fails without a card")
     ap.add_argument("--out", default="")
+    ap.add_argument("--trace-out", default="",
+                    help="write a span trace here (.jsonl = one span per "
+                    "line, else Chrome-trace JSON); enables telemetry")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics registry here (.prom text "
+                    "exposition, or .json snapshot); enables telemetry")
+    ap.add_argument("--profile", action="store_true",
+                    help="enable telemetry and print per-search "
+                    "flight-recorder summaries")
     args = ap.parse_args(argv)
+
+    profile = bool(args.profile or args.trace_out or args.metrics_out)
+    if profile:
+        obs.enable(trace=True)
 
     if args.spec:
         with open(args.spec) as f:
@@ -135,11 +149,14 @@ def main(argv=None):
     for i, (t, spec) in enumerate(zip(tickets, specs)):
         try:
             out = t.result()
-            rows.append({"req": i, "workload": str(spec.get("workload")),
-                         "method": out.method, "seed": out.seed,
-                         "best_value": out.best_value,
-                         "feasible": out.feasible,
-                         "wall_seconds": round(t.wall_seconds, 2)})
+            row = {"req": i, "workload": str(spec.get("workload")),
+                   "method": out.method, "seed": out.seed,
+                   "best_value": out.best_value,
+                   "feasible": out.feasible,
+                   "wall_seconds": round(t.wall_seconds, 2)}
+            if out.telemetry is not None:
+                row["telemetry"] = out.telemetry
+            rows.append(row)
         except Exception as e:  # noqa: BLE001 -- reported per request
             rows.append({"req": i, "status": t.status, "error": repr(e)})
     wall = time.time() - t0
@@ -162,6 +179,14 @@ def main(argv=None):
             1.0 - stats["fresh_points"] / max(stats["points"], 1), 4),
     }
     print(json.dumps(summary), flush=True)
+    if profile:
+        if args.trace_out:
+            obs.save_trace(args.trace_out)
+            print(f"wrote {args.trace_out}", flush=True)
+        if args.metrics_out:
+            obs.write_prometheus(args.metrics_out)
+            print(f"wrote {args.metrics_out}", flush=True)
+        obs.disable()
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

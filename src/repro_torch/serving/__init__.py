@@ -3,10 +3,10 @@
   cost_cache     -- per-point memo cache (in memory, or persistent shards)
   batcher        -- cross-request cost-eval batcher (per-row cost kernel)
   search_service -- SearchService / SearchTicket / ServiceConfig
+  http_service   -- the HTTP/JSON front door over the service
+                    (SearchHTTPService / SearchClient / HttpConfig)
   engine         -- batched greedy LM decoding for the dense family
                     (Engine / ServeConfig / Request, flash-decode kernel)
-
-The reference's HTTP front door is not ported yet.
 """
 from repro_torch.serving.batcher import CostEvalBatcher  # noqa: F401
 from repro_torch.serving.cost_cache import (  # noqa: F401
@@ -18,6 +18,14 @@ from repro_torch.serving.engine import (  # noqa: F401
     Request,
     ServeConfig,
     synthetic_requests,
+)
+from repro_torch.serving.http_service import (  # noqa: F401
+    HttpConfig,
+    QueueFull,
+    SearchClient,
+    SearchHTTPService,
+    outcome_to_json,
+    request_from_spec,
 )
 from repro_torch.serving.search_service import (  # noqa: F401
     BATCHED_METHODS,

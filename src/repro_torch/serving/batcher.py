@@ -1,6 +1,6 @@
 """Cross-request cost-eval batcher: one dispatch stream for N searches.
 
-Port of ``repro.serving.batcher`` without its telemetry.  Concurrent
+Port of ``repro.serving.batcher``, telemetry included.  Concurrent
 searches running on worker threads each hand it batches of genome
 evaluations (random/grid/bo through their ``eval_fn``, GA populations and
 SA candidates through their raw ``eval_fn``, NSGA-II populations through
@@ -43,6 +43,14 @@ the budget as the same float32 value.  So a search through the batcher
 returns bit-identical fitness to the same search run serially, cache hits
 and cross-request fusion included.
 
+Telemetry (:mod:`repro_torch.obs`, off by default) is observational: the
+queue-depth gauge, one ``batcher.dispatch`` span per dispatch, the
+submitted / unique / fresh point counters, and per-rider flight-recorder
+credit (each item carries the recorder of the search that submitted it).
+The per-row launch sits in a ``dispatch_span`` that closes after the
+stream's own synchronize, so it times the device round trip and adds no
+sync, no device read and no other stream.
+
 The batcher evaluates on one device: ``device="cuda"`` (the default) needs
 a card and raises without one; on a CUDA device the per-row kernel runs or
 the dispatch fails, and nothing falls back to the CPU.
@@ -60,6 +68,10 @@ import torch
 from repro_torch.core import env as env_lib
 from repro_torch.costmodel.layers import NUM_FIELDS
 from repro_torch.kernels import ops
+from repro_torch.obs import instrument as obs_instrument
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs import state as obs_state
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.cost_cache import CostMemoCache
 
 _PE_COL = NUM_FIELDS
@@ -73,7 +85,7 @@ class _Item:
     """One in-flight eval request: points + how to aggregate them."""
 
     __slots__ = ("points", "shape", "ecfg", "budget", "multi", "event",
-                 "fit", "error")
+                 "fit", "error", "recorder", "t_enqueue")
 
     def __init__(self, points, shape, ecfg, budget, multi=False):
         self.points = points          # (b*N, ROW_WIDTH) f32
@@ -84,6 +96,12 @@ class _Item:
         self.event = threading.Event()
         self.fit: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
+        # Telemetry attribution: the submitting search's flight recorder is
+        # captured at submit time (on the search worker's thread), so the
+        # dispatcher thread credits queue-wait / fuse / cache stats to the
+        # right search even when one dispatch fuses N searches' requests.
+        self.recorder = None
+        self.t_enqueue = 0.0
 
 
 class CostEvalBatcher:
@@ -160,10 +178,14 @@ class CostEvalBatcher:
         pe = np.asarray(pe, np.float32)
         item = _Item(pack_point_rows(layers, pe, kt, df), pe.shape, ecfg,
                      np.float32(budget), multi)
+        if obs_state.enabled:
+            item.recorder = obs_recorder.current_recorder()
+            item.t_enqueue = time.perf_counter()
         with self._cv:
             if self._closed:
                 raise RuntimeError("CostEvalBatcher is closed")
             self._pending.append(item)
+            obs_instrument.BATCHER_QUEUE_DEPTH.set(len(self._pending))
             self._cv.notify()
         item.event.wait()
         if item.error is not None:
@@ -219,6 +241,7 @@ class CostEvalBatcher:
                 time.sleep(self._window_s)
             with self._cv:
                 items, self._pending = self._pending, []
+                obs_instrument.BATCHER_QUEUE_DEPTH.set(0)
             if not items:
                 continue
             with self._stats_lock:
@@ -249,29 +272,43 @@ class CostEvalBatcher:
     def _dispatch(self, items: List[_Item]) -> None:
         t0 = time.perf_counter()
         io = self._device_io()
-        rows = (items[0].points if len(items) == 1
-                else np.concatenate([it.points for it in items], axis=0))
-        # Dedupe on each row's bytes, the cache's key: one sort of (P,)
-        # opaque 44-byte items (np.unique(rows, axis=0) sorts a structured
-        # dtype field by field, several times slower).
-        flat = np.ascontiguousarray(rows).view(_ROW_BYTES).reshape(-1)
-        uniq, first, inv = np.unique(flat, return_index=True,
-                                     return_inverse=True)
-        inv = inv.reshape(-1)
-        keys = uniq.tolist()                        # bytes, as u.tobytes()
-        values, miss_index = self.cache.get_many(keys)
-        if miss_index:
-            fresh = eval_point_rows(rows[first[miss_index]], self.device, io)
-            # Cache per-row COPIES: a row view would pin the whole dispatch's
-            # result array in memory for as long as any one point stays hot.
-            self.cache.put_many([keys[i] for i in miss_index],
-                                [f.copy() for f in fresh])
-            for i, v in zip(miss_index, fresh):
-                values[i] = v
-        per_point = np.stack(values)[inv]          # (P, 4)
-
-        for it, fit in zip(items, aggregate_items(per_point, items,
-                                                  self.device, io)):
+        with obs_trace.span("batcher.dispatch") as sp:
+            rows = (items[0].points if len(items) == 1
+                    else np.concatenate([it.points for it in items], axis=0))
+            # Dedupe on each row's bytes, the cache's key: one sort of (P,)
+            # opaque 44-byte items (np.unique(rows, axis=0) sorts a
+            # structured dtype field by field, several times slower).
+            flat = np.ascontiguousarray(rows).view(_ROW_BYTES).reshape(-1)
+            uniq, first, inv = np.unique(flat, return_index=True,
+                                         return_inverse=True)
+            inv = inv.reshape(-1)
+            keys = uniq.tolist()                    # bytes, as u.tobytes()
+            values, miss_index = self.cache.get_many(keys)
+            t_eval = 0.0
+            if miss_index:
+                te = time.perf_counter() if obs_state.enabled else 0.0
+                fresh = eval_point_rows(rows[first[miss_index]], self.device,
+                                        io)
+                if obs_state.enabled:
+                    t_eval = time.perf_counter() - te
+                # Cache per-row COPIES: a row view would pin the whole
+                # dispatch's result array in memory for as long as any one
+                # point stays hot.
+                self.cache.put_many([keys[i] for i in miss_index],
+                                    [f.copy() for f in fresh])
+                for i, v in zip(miss_index, fresh):
+                    values[i] = v
+            per_point = np.stack(values)[inv]      # (P, 4)
+            fits = aggregate_items(per_point, items, self.device, io)
+            sp.set(items=len(items), points=len(rows), unique=len(uniq),
+                   fresh=len(miss_index))
+        dt = time.perf_counter() - t0
+        # Credit the riders before releasing them, so a search's summary
+        # already holds its last dispatch when its run returns.
+        if obs_state.enabled:
+            self._record_dispatch(items, t0, dt, t_eval, len(uniq),
+                                  miss_index, first)
+        for it, fit in zip(items, fits):
             it.fit = fit
             it.event.set()
 
@@ -287,7 +324,50 @@ class CostEvalBatcher:
                 s["max_items_per_dispatch"], len(items))
             s["max_points_per_dispatch"] = max(
                 s["max_points_per_dispatch"], len(rows))
-            s["dispatch_seconds"] += time.perf_counter() - t0
+            s["dispatch_seconds"] += dt
+
+    def _record_dispatch(self, items: List[_Item], t0: float, dt: float,
+                         t_eval: float, n_uniq: int, miss_index,
+                         first) -> None:
+        """Telemetry for one finished dispatch: process-wide metrics plus
+        per-item flight-recorder attribution (each rider is credited its
+        own share of the fused batch, its own cached-vs-fresh split too).
+
+        Fresh credit is *first-claim*: when several submitted points (of
+        one item or of different riders) collapse onto one fresh unique
+        row, only the first submitted occurrence (``first``, from
+        ``np.unique``) is credited ``fresh`` -- the rest ride the same
+        evaluation and count ``cached``.  So ``sum(per-rider fresh) ==
+        dispatcher fresh_points`` exactly."""
+        n_points = sum(it.points.shape[0] for it in items)
+        obs_instrument.BATCHER_DISPATCHES.inc()
+        obs_instrument.BATCHER_POINTS.inc(n_points, kind="submitted")
+        obs_instrument.BATCHER_POINTS.inc(n_uniq, kind="unique")
+        obs_instrument.BATCHER_POINTS.inc(len(miss_index), kind="fresh")
+        obs_instrument.BATCHER_FUSE_WIDTH.observe(len(items))
+        obs_instrument.BATCHER_DISPATCH_SECONDS.observe(dt)
+        fresh_pp = None
+        if any(it.recorder is not None for it in items):
+            fresh_pp = np.zeros(n_points, bool)   # per submitted point
+            fresh_pp[first[miss_index]] = True    # first claimant only
+        off = 0
+        for it in items:
+            n = it.points.shape[0]
+            wait = (t0 - it.t_enqueue) if it.t_enqueue else 0.0
+            obs_instrument.BATCHER_QUEUE_WAIT.observe(max(wait, 0.0))
+            rec = it.recorder
+            if rec is not None:
+                n_fresh = int(fresh_pp[off:off + n].sum())
+                rec.add("eval_batches")
+                rec.add("points", n)
+                rec.add("fresh_points", n_fresh)
+                rec.add("cached_points", n - n_fresh)
+                if it.t_enqueue:
+                    rec.observe("queue_wait_s", max(wait, 0.0))
+                rec.observe("dispatch_s", dt)
+                rec.observe("device_s", t_eval)
+                rec.observe("fuse_width", len(items))
+            off += n
 
 
 class _DeviceIO:
@@ -334,17 +414,22 @@ def eval_point_rows(rows: np.ndarray, device,
     the memo cache and serial == service-batched byte identity rest on.
     """
     rows = np.asarray(rows, np.float32)
-    if device.type == "cpu":
-        return _point_costs(torch.from_numpy(rows)).numpy()
-    io = io or _DeviceIO(device)
     M = rows.shape[0]
+    if device.type == "cpu":
+        with obs_instrument.dispatch_span("cost_eval_torch", key=M):
+            return _point_costs(torch.from_numpy(rows)).numpy()
+    io = io or _DeviceIO(device)
     host_rows = io.host("rows", M * ROW_WIDTH).view(M, ROW_WIDTH)
     host_rows.numpy()[...] = rows
     host_out = io.host("costs", M * 4).view(M, 4)
-    with torch.cuda.stream(io.stream):
-        host_out.copy_(_point_costs(host_rows.to(device, non_blocking=True)),
-                       non_blocking=True)
-    io.stream.synchronize()
+    # The span ends after the stream's synchronize below, which the
+    # function makes anyway: it times the device round trip, no extra sync.
+    with obs_instrument.dispatch_span("cost_eval_kernel", key=M):
+        with torch.cuda.stream(io.stream):
+            host_out.copy_(
+                _point_costs(host_rows.to(device, non_blocking=True)),
+                non_blocking=True)
+        io.stream.synchronize()
     return host_out.numpy().copy()
 
 

@@ -1,6 +1,6 @@
 """Cost-model memo cache: per-point results shared across searches.
 
-Port of ``repro.serving.cost_cache`` without its telemetry.  The cache key
+Port of ``repro.serving.cost_cache``, telemetry included.  The cache key
 is one *point* of the cost model -- ``(layer descriptor, PE, buffer,
 dataflow)`` packed as the raw float32 bytes of the batcher's row -- and the
 value is the point's ``(latency, energy, area, power)`` 4-vector.  Keying
@@ -29,10 +29,14 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.obs import instrument as obs_instrument
+from repro_torch.obs import state as obs_state
 
 
 def model_version() -> str:
@@ -74,6 +78,7 @@ class CostMemoCache:
         ``keys`` (None where missing); ``miss_index`` the positions to
         evaluate.  Counts one hit/miss per key.
         """
+        t0 = time.perf_counter() if obs_state.enabled else 0.0
         values = []
         miss_index = []
         pre = self._vprefix
@@ -88,6 +93,15 @@ class CostMemoCache:
                     self.hits += 1
                     self._data.move_to_end(k)
                 values.append(v)
+        if obs_state.enabled:
+            obs_instrument.CACHE_LOOKUP_SECONDS.observe(
+                time.perf_counter() - t0)
+            n_miss = len(miss_index)
+            if n_miss:
+                obs_instrument.CACHE_LOOKUPS.inc(n_miss, result="miss")
+            if len(values) - n_miss:
+                obs_instrument.CACHE_LOOKUPS.inc(
+                    len(values) - n_miss, result="hit")
         return values, miss_index
 
     def put_many(self, keys, vals) -> None:
@@ -95,6 +109,7 @@ class CostMemoCache:
         pre = self._vprefix
         fresh: List[Tuple[bytes, np.ndarray]] = []
         with self._lock:
+            ev0 = self.evictions
             for k, v in zip(keys, vals):
                 pk = pre + k
                 if pk not in self._data:
@@ -104,6 +119,9 @@ class CostMemoCache:
             while len(self._data) > self.capacity:
                 self._data.popitem(last=False)
                 self.evictions += 1
+            evicted = self.evictions - ev0
+        if evicted and obs_state.enabled:
+            obs_instrument.CACHE_EVICTIONS.inc(evicted)
         if fresh:
             self._on_insert(fresh)
 

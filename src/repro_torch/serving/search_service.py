@@ -1,6 +1,6 @@
 """ConfuciuX-as-a-service: concurrent resource-assignment searches.
 
-Port of ``repro.serving.search_service`` without its telemetry, for the
+Port of ``repro.serving.search_service``, telemetry included, for the
 methods the port has.  ``SearchService`` accepts any number of unified-API
 :class:`~repro_torch.api.types.SearchRequest`\\ s and runs them on one
 device:
@@ -58,6 +58,9 @@ from repro_torch.api import registry as api_registry
 from repro_torch.api import types as api_types
 from repro_torch.core import env as env_lib
 from repro_torch.costmodel.layers import layers_to_array
+from repro_torch.obs import instrument as obs_instrument
+from repro_torch.obs import state as obs_state
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.batcher import CostEvalBatcher
 from repro_torch.serving.cost_cache import CostMemoCache, PersistentCostCache
 
@@ -304,27 +307,38 @@ class SearchService:
                    "failed": "failed"}
 
     def _on_ticket_done(self, ticket: SearchTicket) -> None:
-        """Single counting point for every way a ticket can finish."""
+        """Single counting point for every way a ticket can finish --
+        worker completion, worker error, and a queued cancel that never
+        reaches a worker."""
+        key = self._STATUS_KEY[ticket.status]
+        if obs_state.enabled:
+            obs_instrument.SERVICE_REQUESTS.inc(status=key)
         with self._lock:
-            self._counts[self._STATUS_KEY[ticket.status]] += 1
+            self._counts[key] += 1
 
     def _run(self, ticket: SearchTicket) -> None:
         if not ticket._begin():
             return   # cancelled while queued: already finished and counted
-        try:
-            if ticket.cancelled:
-                raise SearchCancelled(f"search {ticket.uid} cancelled")
-            dev = torch.device(ticket.request.device)
-            if not _same_device(dev, self.device):
-                raise ValueError(
-                    f"search {ticket.uid} asks for device {dev}, but this "
-                    f"service runs on {self.device}")
-            out = api_registry.run_search(self._instrument(ticket))
-            ticket._finish("done", outcome=out)
-        except SearchCancelled as e:
-            ticket._finish("cancelled", error=e)
-        except Exception as e:  # noqa: BLE001 -- reported via the ticket
-            ticket._finish("failed", error=e)
+        obs_instrument.SERVICE_ACTIVE.inc()
+        with obs_trace.span("service.search", uid=ticket.uid,
+                            method=ticket.request.method) as sp:
+            try:
+                if ticket.cancelled:
+                    raise SearchCancelled(f"search {ticket.uid} cancelled")
+                dev = torch.device(ticket.request.device)
+                if not _same_device(dev, self.device):
+                    raise ValueError(
+                        f"search {ticket.uid} asks for device {dev}, but "
+                        f"this service runs on {self.device}")
+                out = api_registry.run_search(self._instrument(ticket))
+                ticket._finish("done", outcome=out)
+            except SearchCancelled as e:
+                ticket._finish("cancelled", error=e)
+            except Exception as e:  # noqa: BLE001 -- reported via the ticket
+                ticket._finish("failed", error=e)
+            finally:
+                obs_instrument.SERVICE_ACTIVE.dec()
+            sp.set(status=self._STATUS_KEY[ticket.status])
 
     def _instrument(self, ticket: SearchTicket) -> api_types.SearchRequest:
         """Wrap the request with progress recording, cancellation and --
