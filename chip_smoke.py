@@ -74,8 +74,9 @@ and no result line:
    full width (LSTM(128), L = 12, latency / area / dla, LP, seed 0),
    each through ``api.run_search`` with every launch counter set to 0
    just before and read just after: ``a2c`` and ``ppo2`` under the cloud
-   budget at eps = 400 with 4 episodes an epoch (100 epochs; the paper
-   runs 5000), and ``relaxed`` under iot at eps = 100 (4 restarts, 25
+   budget at eps = 80 with 4 episodes an epoch (20 epochs; the paper
+   runs 5000; cut from 100 epochs to make room for phase 6d), and
+   ``relaxed`` under iot at eps = 20 (cut from 100; 4 restarts, 25
    Adam steps a round).  Each kernel must have launched exactly as the
    run implies (a2c per epoch: 53 cost launches at (4, 1), 2 x 53 LSTM
    forward steps, rollout and ``eval_sequence``, 53 backward; ppo2: 53,
@@ -88,8 +89,9 @@ and no result line:
    equal its serial run byte for byte, its probes through the per-row
    kernel.  The phase prints ms per epoch / round of each counted run and
    a profiler trace of one short run of each engine (``[engines] trace
-   ...``: a2c and ppo2 at 3 epochs, relaxed at 3 rounds and its 4
-   rounding variants; busy share, device events, time by kernel).
+   ...``: a2c and ppo2 at 1 epoch, relaxed at 1 round and its 4
+   rounding variants, cut from 3 epochs / rounds to make room for phase
+   6d; busy share, device events, time by kernel).
 6c. The latency-energy frontier on the card.  (a) ``api.run_search``
    with method nsga2 on mobilenet_v2 (53 layers, latency / area / iot /
    dla, LP, seed 0), population 64, archive 128, eps 6,400 (100
@@ -121,6 +123,36 @@ and no result line:
    once and at most once a dispatch.  (d) ``heuristic_a`` and
    ``heuristic_b`` on mobilenet_v2 / iot on the card, exact table-kernel
    launch counts, each value re-scored on the CPU.
+6d. Fanout (``repro_torch.distributed.dist_search``) on mobilenet_v2 at
+   full width (latency / area / dla, LP, seed 0), every run through
+   ``api.run_search`` with the launch counters set to 0 just before and
+   read just after.  (a) At 4 shards (``FANOUT_CHECK_RUNS``, cloud):
+   ``device`` against ``serial`` for reinforce (eps 200) and ga
+   (population 20, eps 400), ``threads`` against ``serial`` for
+   reinforce and sa (eps 200): best value, history, pe, kt, df and the
+   extras byte for byte, the launches exact and equal to serial's
+   (replays counted), no plain version on the card, at least one shard
+   feasible.  (b) Wall seconds of ``serial``, ``threads`` and ``device``
+   at 4 and 10 shards for reinforce (eps 1000, iot) and ga (population
+   100, 500 generations, cloud), each held to serial's bytes and
+   launches; then the device backend's reinforce fleet alone at 1, 4
+   and 10 shards: ms a fleet epoch over 50 unprofiled epochs (and its
+   rate against one shard's), the host ms one replay call takes with the
+   card idle, and a profiler trace of 3, 2 and 1 fleet
+   epochs: ms a fleet epoch, the busy share (the union of the kernels'
+   device intervals over the wall), device time summed and as that
+   union, and the concurrency.  (Under the profiler the shards' kernels
+   barely overlap: the trace slows the replays.)
+   (c) The search-quality check: each config of
+   ``results/search_quality_ref.json`` (the JAX package's seeds 0-9,
+   ``tools/search_quality_ref.py``) through fanout at 10 shards, seed 0
+   (two_stage on ``threads``, reinforce and ga on ``device``; the
+   reinforce config is (b)'s 10-shard run): each side's median and
+   interquartile range, the median ratio, Mann-Whitney U p-values
+   (two-sided, and one-sided for the port worse) and the Hodges-Lehmann
+   shift with its 95% interval.  It fails where the port is worse at
+   one-sided p < 0.01, or infeasible where the reference is feasible on
+   more than 2 seeds.  ``--quality-out`` writes the table as JSON.
 7. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
    ``SERVICE_REQUESTS``) run serially through ``api.run_search`` on the
    card, then submitted together to
@@ -142,13 +174,15 @@ and no result line:
    round trips (``sa``'s is the service's critical path).
 7b. HTTP front door and telemetry (``repro_torch.obs``).  (a) Every
    method the port registers (``TELEMETRY_RUNS``: random, grid, bo, sa,
-   ga, nsga2, relaxed, reinforce, two_stage, a2c, ppo2) on mobilenet_v2
-   at full width through ``api.run_search``, once with telemetry off and
-   once on, each run counted: the two outcomes byte-identical (best
-   value, history, pe, kt, df, frontier), the launches equal and as the
-   run implies, no plain version on the card, and
-   ``telemetry["engine"]`` the method with exactly the hard evaluations
-   the run implies; reinforce and two_stage replay stage 1's CUDA graph.
+   ga, nsga2, relaxed, reinforce, two_stage, a2c, ppo2, fanout) on
+   mobilenet_v2 at full width through ``api.run_search``, once with
+   telemetry off and once on, each run counted: the two outcomes
+   byte-identical (best value, history, pe, kt, df, frontier), the
+   launches equal and as the run implies, no plain version on the card,
+   and ``telemetry["engine"]`` the method with exactly the hard
+   evaluations the run implies; reinforce, two_stage and fanout (two
+   reinforce shards on the device backend) replay stage 1's CUDA graph;
+   bo, sa and ga run under cloud and must end feasible.
    Then phase 6's 20 graphed epochs against 20 eager ones with telemetry
    on, bit-equal.  (b) ``SearchHTTPService(ServiceConfig(max_workers=8,
    window_ms=2.0, device="cuda"))`` on an ephemeral port, telemetry on:
@@ -195,7 +229,7 @@ and no result line:
    ``eval_point_rows``; printed as one
    ``{"kernels": [...]}`` line, whose ``launches`` are phase 6's counts
    (phase 7's for the per-row kernel) and ``launches_by_path`` each
-   counted run's (phases 6b, 6c and 7b included).
+   counted run's (phases 6b, 6c, 6d and 7b included).
    ``tools/profile_search_kernels.py`` runs the same search-path
    measurements on another tree, such as a parent commit.
 
@@ -242,13 +276,15 @@ GA_GENERATIONS = 2000
 GRAPH_CHECK_EPOCHS = 20
 GRAPHED_TRACE_EPOCHS = 20
 BASELINE_GA_GENERATIONS = 5000
-# Phase 6b: a2c and ppo2 at 100 epochs of 4 episodes (the paper runs 5000
-# epochs; this is the only cut), relaxed at 100 hard evaluations (its
+# Phase 6b: a2c and ppo2 at 20 epochs of 4 episodes (the paper runs 5000
+# epochs; this is the only cut, from 100 epochs to make room for phase
+# 6d), relaxed at 20 hard evaluations (cut from 100 likewise; its
 # default 4 restarts and 25 steps a round), the relaxed request it sends
 # through the service (25 probes), and the eps of each traced short run
-# (3 epochs; 3 rounds and the 4 rounding variants).
-AC_EPS, AC_EPISODES, RELAXED_EPS, SERVICE_RELAXED_EPS = 400, 4, 100, 25
-ENGINE_TRACE_EPS = {"a2c": 12, "ppo2": 12, "relaxed": 7}
+# (1 epoch; 1 round and the 4 rounding variants; cut from 3 likewise: an
+# eager trace's post-processing costs the script more than the run).
+AC_EPS, AC_EPISODES, RELAXED_EPS, SERVICE_RELAXED_EPS = 80, 4, 20, 25
+ENGINE_TRACE_EPS = {"a2c": 4, "ppo2": 4, "relaxed": 5}
 # Phase 6c: NSGA-II on mobilenet_v2 at population 64, archive 128, 100
 # generations (eps 6,400), its trace's generations, the check intervals
 # of front peeling it times (128 = never before the end), and the
@@ -258,6 +294,36 @@ NSGA2_POPULATION, NSGA2_ARCHIVE, NSGA2_EPS = 64, 128, 6400
 NSGA2_TRACE_GENERATIONS = 20
 FRONT_CHECK_INTERVALS = (1, 2, 4, 8, 16, 32, 128)
 SERVICE_NSGA2_EPS, SERVICE_GA_EPS = 640, 2000
+# Phase 6d: fanout on mobilenet_v2 at full width (latency / area / dla,
+# LP, seed 0).  (a) Each backend against serial at 4 shards: inner ->
+# (eps, inner options, platform, backends held to serial).  (b) Walls of
+# serial, threads and device at 4 and 10 shards: reinforce at eps 1000
+# (iot) and ga at population 100 and 500 generations (cloud); shards ->
+# epochs of the device backend's traced fleet runs, and the unprofiled
+# fleet epochs timed before each trace.  (c) The search-quality
+# check: ten shards (seeds 0-9) of each config of the JAX package's
+# file, on the backend named here.
+FANOUT_ENV = {"objective": "latency", "constraint": "area",
+              "scenario": "LP", "dataflow": 0, "levels": 12}
+FANOUT_CHECK_SHARDS = 4
+FANOUT_CHECK_RUNS = {
+    "reinforce": (200, {}, "cloud", ("device", "threads")),
+    "ga": (400, {"population": 20}, "cloud", ("device",)),
+    "sa": (200, {}, "cloud", ("threads",)),
+}
+FANOUT_WALL_SHARDS = (4, 10)
+FANOUT_WALL_RUNS = {"reinforce": (1000, {}, "iot"),
+                    "ga": (50_000, {"population": 100}, "cloud")}
+FANOUT_TRACE_EPOCHS = {1: 3, 4: 2, 10: 1}
+FANOUT_TIMED_EPOCHS = 50
+QUALITY_REF = ROOT / "results" / "search_quality_ref.json"
+QUALITY_SHARDS = 10
+QUALITY_BACKENDS = {"two_stage": "threads", "reinforce": "device",
+                    "ga": "device"}
+# The quality check fails where the port is worse at one-sided p below
+# this, or infeasible where the reference is feasible on more than
+# QUALITY_MAX_LOST seeds.
+QUALITY_P_WORSE, QUALITY_MAX_LOST = 0.01, 2
 # ... and benchmarks/bench_frontier.py's configs at its quick budget:
 # (name, workload, env, counts toward "nsga2 >= sweep on 3 of 4").
 FRONTIER_EPS = 600
@@ -326,21 +392,28 @@ SERVICE_REQUESTS = (
 
 # Phase 7b (a): every registered method on mobilenet_v2 at full width,
 # once with telemetry off and once on: (eps, options, platform).  a2c and
-# ppo2 under the cloud budget as in phase 6b; two_stage's local GA runs
-# population 20 x 100 generations after its 40 epochs.
+# ppo2 under the cloud budget as in phase 6b, and bo, sa and ga too: under
+# iot all three end infeasible at these budgets, and their on / off
+# comparison would hold infeasible traces only (``TELEMETRY_FEASIBLE``
+# must end feasible); two_stage's local GA runs population 20 x 100
+# generations after its 40 epochs; fanout runs two reinforce shards on
+# the device backend.
 TELEMETRY_RUNS = {
     "random": (1024, {}, "iot"),
     "grid": (1024, {}, "iot"),
-    "bo": (160, {}, "iot"),
-    "sa": (400, {}, "iot"),
-    "ga": (2000, {"population": 100}, "iot"),
+    "bo": (160, {}, "cloud"),
+    "sa": (400, {}, "cloud"),
+    "ga": (2000, {"population": 100}, "cloud"),
     "nsga2": (640, {"population": 64, "archive": 128}, "iot"),
     "relaxed": (10, {}, "iot"),
     "reinforce": (40, {}, "iot"),
     "two_stage": (40, {"ga": {"population": 20, "generations": 100}}, "iot"),
     "a2c": (40, {"episodes_per_epoch": 4}, "cloud"),
     "ppo2": (40, {"episodes_per_epoch": 4}, "cloud"),
+    "fanout": (40, {"inner": "reinforce", "n_shards": 2,
+                    "backend": "device"}, "iot"),
 }
+TELEMETRY_FEASIBLE = ("bo", "sa", "ga")
 # Phase 7b (b): the front door's tenants and WRR weights; each request of
 # SERVICE_REQUESTS goes to the tenant at its index, the nsga2 request to
 # the last; the request whose progress is streamed; the client's timeout.
@@ -1405,24 +1478,33 @@ def _telemetry_launches(method, N=53):
         return {"cost_eval": 1 + N * epochs,
                 "lstm_cell": N * (1 + updates) * epochs,
                 "lstm_cell_bwd": N * updates * epochs}
+    if method == "fanout":
+        return _fanout_launches(opts["inner"], eps, {}, opts["n_shards"])
     gens = opts["ga"]["generations"] if method == "two_stage" else 0
     return {"cost_eval": 1 + N * eps + gens, "lstm_cell": N * eps}
 
 
-def _check_telemetry_launches(method, counts, plain_on_card):
-    want = _telemetry_launches(method)
-    if method in ("reinforce", "two_stage"):
-        check(counts["cost_eval"] == want["cost_eval"]
-              and counts["lstm_cell"] >= want["lstm_cell"]
-              and counts["lstm_cell_bwd"] == counts["lstm_cell"]
-              and all(n == 0 for k, n in counts.items() if k not in (
-                  "cost_eval", "lstm_cell", "lstm_cell_bwd")),
-              f"{method}: launches {counts}, the run implies {want} (the "
-              f"LSTM forward at least, the backward as often)")
-        check(all(v == 0 for v in plain_on_card.values()),
-              f"{method}: a plain version ran on the card: {plain_on_card}")
-    else:
-        _check_launches(method, counts, plain_on_card, want)
+# Methods whose runs replay stage 1's graph: their LSTM forward count is
+# a lower bound (checked as phase 6 does), the backward as often.
+STAGE1_METHODS = ("reinforce", "two_stage", "fanout")
+
+
+def _check_run_launches(what, method, counts, plain_on_card, want):
+    """``_check_launches`` for a run of ``method``; for
+    ``STAGE1_METHODS`` ``want["lstm_cell"]`` is a lower bound and the
+    backward must launch as often as the forward."""
+    if method not in STAGE1_METHODS:
+        _check_launches(what, counts, plain_on_card, want)
+        return
+    check(counts["cost_eval"] == want["cost_eval"]
+          and counts["lstm_cell"] >= want["lstm_cell"]
+          and counts["lstm_cell_bwd"] == counts["lstm_cell"]
+          and all(n == 0 for k, n in counts.items() if k not in (
+              "cost_eval", "lstm_cell", "lstm_cell_bwd")),
+          f"{what}: launches {counts}, the run implies {want} (the "
+          f"LSTM forward at least, the backward as often)")
+    check(all(v == 0 for v in plain_on_card.values()),
+          f"{what}: a plain version ran on the card: {plain_on_card}")
 
 
 def _same_frontier(a, b):
@@ -1456,7 +1538,8 @@ def telemetry_observational(dev):
                 lambda: api.run_search(_telemetry_request(method)))
         finally:
             obs.disable()
-        _check_telemetry_launches(method, c_off, plain_off)
+        _check_run_launches(method, method, c_off, plain_off,
+                            _telemetry_launches(method))
         check(c_on == c_off and plain_on == plain_off,
               f"{method}: launches with telemetry on {c_on} differ from "
               f"off {c_off} (plain versions on the card {plain_on})")
@@ -1464,11 +1547,17 @@ def telemetry_observational(dev):
               and off.telemetry is None,
               f"{method}: telemetry changed the outcome: {on.best_value} vs "
               f"{off.best_value}")
+        check(method not in TELEMETRY_FEASIBLE or off.feasible,
+              f"{method}: no feasible point, so telemetry on / off compares "
+              "infeasible traces only")
         t = on.telemetry
         eps, opts, _ = TELEMETRY_RUNS[method]
-        want_evals = eps + (opts["ga"]["population"]
-                            * opts["ga"]["generations"]
-                            if method == "two_stage" else 0)
+        # The fanout's device backend accounts each epoch as E x n_shards
+        # hard evaluations (engine "dist_reinforce").
+        want_evals = (eps + (opts["ga"]["population"]
+                             * opts["ga"]["generations"]
+                             if method == "two_stage" else 0)) * (
+            opts["n_shards"] if method == "fanout" else 1)
         check(t is not None and t["engine"] == method
               and t.get("hard_evals") == want_evals,
               f"{method}: telemetry {t}, the run implies {want_evals} hard "
@@ -2464,6 +2553,368 @@ def phase_frontier(dev):
     return counts, timing
 
 
+def _fanout_request(inner, n_shards, backend, eps, inner_opts, platform,
+                    env_kw=None):
+    """A fanout request on mobilenet_v2 at full width (LSTM(128), L = 12,
+    latency / area / dla, LP unless ``env_kw`` says otherwise), seed 0."""
+    from repro_torch import api
+    from repro_torch.costmodel import workloads
+
+    env_kw = env_kw or FANOUT_ENV
+    return api.SearchRequest(
+        workload=workloads.get_workload("mobilenet_v2"),
+        env=api.EnvConfig(platform=platform, **env_kw), eps=eps, seed=0,
+        method="fanout",
+        options={"inner": inner, "n_shards": n_shards, "backend": backend,
+                 "inner_options": dict(inner_opts)},
+        device="cuda")
+
+
+def _same_fanout(a, b):
+    """Two fanout outcomes equal byte for byte: best value, history, pe,
+    kt, df, and every extra but the backend."""
+    ea = {k: v for k, v in a.extras.items() if k != "backend"}
+    eb = {k: v for k, v in b.extras.items() if k != "backend"}
+    return _same_outcome(a, b) and ea == eb
+
+
+def _fanout_launches(inner, eps, opts, n_shards, N=53):
+    """The launches ``n_shards`` shards of ``inner`` imply: per shard,
+    make_env's one table launch and the engine's (the LSTM forward a
+    lower bound for reinforce, checked as phase 6 does)."""
+    if inner == "reinforce":
+        return {"cost_eval": n_shards * (1 + N * eps),
+                "lstm_cell": n_shards * N * eps}
+    if inner == "ga":
+        return {"cost_eval": n_shards * (1 + eps // opts["population"])}
+    if inner == "sa":       # the initial genome, then one a step
+        return {"cost_eval": n_shards * (1 + 1 + eps)}
+    if inner == "two_stage":
+        return {"cost_eval": n_shards * (1 + N * eps
+                                         + opts["ga"]["generations"]),
+                "lstm_cell": n_shards * N * eps}
+    raise ValueError(inner)
+
+
+def _union_trace(fn, steps):
+    """A profiler trace of ``fn()`` (``steps`` fleet steps): wall ms,
+    device time summed over kernels, the union of the kernels' device
+    intervals (the time the card had at least one kernel running), the
+    busy share (union over wall) and the concurrency (sum over union);
+    None where the trace shows no device time (taken twice)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        spans = sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    else:
+        return None
+    total = sum(b - a for a, b in spans)
+    union, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    union += hi - lo
+    return {"steps": steps, "wall_ms": wall_us / 1e3,
+            "device_ms_summed": total / 1e3, "device_ms_union": union / 1e3,
+            "busy_share": union / wall_us,
+            "concurrency": total / union if union else None,
+            "device_events": len(spans)}
+
+
+def _fanout_fleet_times(n_shards, epochs):
+    """The device backend's reinforce fleet (phase 6d (b)'s config) at
+    ``n_shards``, built (captures included) outside the timings: ms a
+    fleet epoch over ``FANOUT_TIMED_EPOCHS`` unprofiled epochs (host clock
+    around work that ends in a sync); the host ms one epoch's replay call
+    takes to return with the card idle (the median of 20: ``n_shards``
+    of them a fleet epoch is the most the host can launch); then a
+    profiler trace of ``epochs`` fleet epochs (:func:`_union_trace`)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.distributed import dist_search
+
+    eps, opts, platform = FANOUT_WALL_RUNS["reinforce"]
+    req = dataclasses.replace(
+        _fanout_request("reinforce", 1, "device", eps, opts, platform),
+        method="reinforce", options={})
+    subs = [dataclasses.replace(req, seed=s) for s in range(n_shards)]
+    _, _, fleet = dist_search.reinforce_fleet(
+        subs, max(epochs, FANOUT_TIMED_EPOCHS))
+    fleet.run(1)
+    t0 = time.perf_counter()
+    fleet.run(FANOUT_TIMED_EPOCHS)           # ends in a sync
+    ms = 1e3 * (time.perf_counter() - t0) / FANOUT_TIMED_EPOCHS
+    launch = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet.runners[0].step()
+        launch.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return {"shards": n_shards, "ms_per_fleet_epoch": ms,
+            "ms_per_shard_epoch": ms / n_shards,
+            "host_ms_per_replay": statistics.median(launch),
+            "trace": _union_trace(lambda: fleet.run(epochs), epochs)}
+
+
+def _fanout_checks():
+    """Phase 6d (a): each backend of ``FANOUT_CHECK_RUNS`` against serial,
+    byte for byte, the launches exact and equal, no plain version on the
+    card, at least one shard feasible."""
+    import numpy as np
+
+    from repro_torch import api
+
+    counts, timing = {}, {}
+    n = FANOUT_CHECK_SHARDS
+    for inner, (eps, opts, platform, backends) in FANOUT_CHECK_RUNS.items():
+        want = _fanout_launches(inner, eps, opts, n)
+        runs = {}
+        for backend in ("serial",) + backends:
+            out, secs, c, plain = _counted(lambda: api.run_search(
+                _fanout_request(inner, n, backend, eps, opts, platform)))
+            _check_run_launches(f"fanout {inner} {backend}", inner, c,
+                                plain, want)
+            check(out.extras["backend"] == backend,
+                  f"fanout {inner}: ran on {out.extras['backend']}, asked "
+                  f"for {backend}")
+            runs[backend] = (out, secs, c)
+            counts[f"{inner}_{backend}"] = c
+        serial, _, c_serial = runs["serial"]
+        check(any(np.isfinite(v) for v in serial.extras["shard_best_values"]),
+              f"fanout {inner}: no shard feasible, so the bytes compare "
+              "infeasible traces only")
+        for backend in backends:
+            out, _, c = runs[backend]
+            check(_same_fanout(out, serial),
+                  f"fanout {inner}: {backend} differs from serial: "
+                  f"{out.extras['shard_best_values']} vs "
+                  f"{serial.extras['shard_best_values']}")
+            check(c == c_serial, f"fanout {inner}: {backend}'s launches "
+                  f"{c} differ from serial's {c_serial}")
+        timing[inner] = {
+            "eps": eps, "platform": platform, "shards": n,
+            "shard_best_values": serial.extras["shard_best_values"],
+            **{f"{b}_s": runs[b][1] for b in runs}}
+        log(f"[fanout] {inner}: {', '.join(backends)} byte-identical to "
+            f"serial, launches equal {json.dumps(c_serial)}; "
+            f"{json.dumps(timing[inner])}")
+    return counts, timing
+
+
+def _fanout_walls():
+    """Phase 6d (b): wall seconds of every backend at 4 and 10 shards;
+    each run counted and held to serial's bytes and launches.  The
+    10-shard reinforce runs are the quality check's Q2 when its config
+    matches.  Then profiler traces of the device backend's fleet."""
+    from repro_torch import api
+
+    counts, timing, outs = {}, {}, {}
+    for inner, (eps, opts, platform) in FANOUT_WALL_RUNS.items():
+        for n in FANOUT_WALL_SHARDS:
+            want = _fanout_launches(inner, eps, opts, n)
+            row, serial, c_serial = {}, None, None
+            for backend in ("serial", "threads", "device"):
+                out, secs, c, plain = _counted(lambda: api.run_search(
+                    _fanout_request(inner, n, backend, eps, opts, platform)))
+                what = f"fanout {inner} x{n} {backend}"
+                _check_run_launches(what, inner, c, plain, want)
+                if serial is None:
+                    serial, c_serial = out, c
+                else:
+                    check(_same_fanout(out, serial) and c == c_serial,
+                          f"{what} differs from serial: "
+                          f"{out.extras['shard_best_values']} vs "
+                          f"{serial.extras['shard_best_values']}; launches "
+                          f"{c} vs {c_serial}")
+                row[f"{backend}_s"] = secs
+                counts[f"{inner}_x{n}_{backend}"] = c
+            row["threads_speedup"] = row["serial_s"] / row["threads_s"]
+            row["device_speedup"] = row["serial_s"] / row["device_s"]
+            row["shard_best_values"] = serial.extras["shard_best_values"]
+            timing[f"{inner}_x{n}"] = row
+            outs[(inner, n)] = serial
+            log(f"[fanout] walls {inner} x{n} (eps {eps}, {platform}): "
+                f"{json.dumps(row)}")
+    traces = {}
+    for n, epochs in FANOUT_TRACE_EPOCHS.items():
+        t = traces[f"reinforce_x{n}"] = _fanout_fleet_times(n, epochs)
+        one = traces["reinforce_x1"]["ms_per_fleet_epoch"] if n > 1 else None
+        t["overlap"] = n * one / t["ms_per_fleet_epoch"] if one else 1.0
+        tr = t["trace"]
+        msg = (f"[fanout] device fleet x{n}: {t['ms_per_fleet_epoch']:.3f} "
+               f"ms a fleet epoch unprofiled ({t['ms_per_shard_epoch']:.3f} "
+               f"a shard-epoch; {t['overlap']:.2f} x one shard's rate); a "
+               f"replay call returns after {t['host_ms_per_replay']:.3f} ms "
+               "of host time with the card idle")
+        if tr is None:
+            msg += "; its trace shows no device time (not measured)"
+        else:
+            msg += (f"; traced {epochs} epochs: {tr['wall_ms'] / epochs:.3f} "
+                    f"ms a fleet epoch, busy {100 * tr['busy_share']:.1f}% "
+                    f"(union of kernel intervals over the wall), device "
+                    f"{tr['device_ms_summed'] / epochs:.3f} ms summed / "
+                    f"{tr['device_ms_union'] / epochs:.3f} ms union a fleet "
+                    f"epoch, concurrency {tr['concurrency']:.2f}, "
+                    f"{tr['device_events'] / epochs / n:.0f} events a "
+                    "shard-epoch")
+        log(msg)
+    timing["traces"] = traces
+    return counts, timing, outs
+
+
+def _u_null_cdf(n, m):
+    """P(U <= u), u = 0 .. n * m, of the Mann-Whitney U of samples of n
+    and m without ties under the null (exact counts)."""
+    import math
+
+    import numpy as np
+
+    # ways[i][j]: counts of U over arrangements of i and j values.
+    ways = {(0, j): np.ones(1) for j in range(m + 1)}
+    ways.update({(i, 0): np.ones(1) for i in range(n + 1)})
+    for i in range(1, n + 1):
+        for j in range(1, m + 1):
+            w = np.zeros(i * j + 1)
+            a, b = ways[(i - 1, j)], ways[(i, j - 1)]
+            w[j:j + len(a)] += a      # the largest value is from the first
+            w[:len(b)] += b
+            ways[(i, j)] = w
+    return np.cumsum(ways[(n, m)]) / math.comb(n + m, n)
+
+
+def _quality_stats(port, ref, conf=0.95):
+    """Medians, interquartile ranges, the port's median over the
+    reference's, Mann-Whitney U p-values (two-sided, and one-sided for
+    the port worse: larger, the objective is minimized), and the
+    Hodges-Lehmann shift (port - reference) with its ``conf`` interval
+    from the exact null distribution of U.  inf (infeasible) ranks last;
+    inf - inf counts as no shift."""
+    import numpy as np
+    from scipy import stats
+
+    port, ref = np.asarray(port, float), np.asarray(ref, float)
+    q = lambda x: [float(v) for v in np.percentile(x, [25, 50, 75])]
+    d = np.subtract.outer(port, ref).ravel()
+    d = np.sort(np.where(np.isnan(d), 0.0, d))
+    cdf = _u_null_cdf(len(port), len(ref))
+    k = int(np.searchsorted(cdf, (1 - conf) / 2, side="right")) - 1
+    lo, hi = (float(d[k]), float(d[len(d) - 1 - k])) if k >= 0 else (
+        float("-inf"), float("inf"))
+    pq, rq = q(port), q(ref)
+    return {"port_median": pq[1], "port_iqr": [pq[0], pq[2]],
+            "ref_median": rq[1], "ref_iqr": [rq[0], rq[2]],
+            "median_ratio": pq[1] / rq[1],
+            "p_two_sided": float(stats.mannwhitneyu(
+                port, ref, alternative="two-sided").pvalue),
+            "p_port_worse": float(stats.mannwhitneyu(
+                port, ref, alternative="greater").pvalue),
+            "hl_shift": float(np.median(d)), "hl_interval": [lo, hi],
+            "hl_interval_coverage": float(1 - 2 * cdf[k]) if k >= 0 else 1.0,
+            "lost_seeds": int(np.sum(np.isinf(port) & np.isfinite(ref)))}
+
+
+def _fanout_quality(wall_outs):
+    """Phase 6d (c): each config of the JAX package's file through the
+    port's fanout at ``QUALITY_SHARDS`` shards, seed 0, against the
+    reference's seeds 0-9 (the runs of phase (b) where a config is
+    theirs); fails where the port is worse at one-sided p <
+    ``QUALITY_P_WORSE`` or loses more than ``QUALITY_MAX_LOST`` seeds."""
+    import numpy as np
+
+    from repro_torch import api
+
+    check(QUALITY_REF.is_file(), f"{QUALITY_REF} is missing: write it with "
+          "tools/search_quality_ref.py")
+    ref = json.loads(QUALITY_REF.read_text())
+    check(ref["workload"] == "mobilenet_v2", "quality file: workload")
+    table, counts = {}, {}
+    for name, cfg in ref["configs"].items():
+        method, platform, eps = cfg["method"], cfg["platform"], cfg["eps"]
+        backend = QUALITY_BACKENDS[method]
+        req = _fanout_request(method, QUALITY_SHARDS, backend, eps,
+                              cfg["options"], platform, ref["env"])
+        wall = FANOUT_WALL_RUNS.get(method)
+        if (wall == (eps, cfg["options"], platform)
+                and QUALITY_SHARDS in FANOUT_WALL_SHARDS
+                and backend == "device" and ref["env"] == FANOUT_ENV):
+            out, secs = wall_outs[(method, QUALITY_SHARDS)], None
+        else:
+            out, secs, c, plain = _counted(lambda: api.run_search(req))
+            _check_run_launches(
+                f"quality {name}", method, c, plain, _fanout_launches(
+                    method, eps, cfg["options"], QUALITY_SHARDS))
+            counts[name] = c
+        entries = sorted((e for e in ref["entries"] if e["config"] == name),
+                         key=lambda e: e["seed"])
+        check([e["seed"] for e in entries] == list(range(QUALITY_SHARDS)),
+              f"quality {name}: the file's seeds are not 0-9")
+        port = [float(v) for v in out.extras["shard_best_values"]]
+        refv = [float("inf") if e["best_value"] is None
+                else float(e["best_value"]) for e in entries]
+        st = _quality_stats(port, refv)
+        st.update(method=method, platform=platform, eps=eps,
+                  backend=backend, seconds=secs, port=port, ref=refv,
+                  port_feasible=int(np.isfinite(port).sum()),
+                  ref_feasible=int(np.isfinite(refv).sum()))
+        table[name] = st
+        log(f"[fanout] quality {name} ({method}, {platform}, eps {eps}, "
+            f"{backend}): port median {st['port_median']:.6g} IQR "
+            f"{st['port_iqr']}, reference {st['ref_median']:.6g} IQR "
+            f"{st['ref_iqr']}; ratio {st['median_ratio']:.4f}; "
+            f"Mann-Whitney p two-sided {st['p_two_sided']:.4g}, port worse "
+            f"{st['p_port_worse']:.4g}; Hodges-Lehmann shift "
+            f"{st['hl_shift']:.6g}, {100 * st['hl_interval_coverage']:.1f}% "
+            f"interval {st['hl_interval']}; feasible "
+            f"{st['port_feasible']} / {st['ref_feasible']}")
+    for name, st in table.items():
+        check(st["p_port_worse"] >= QUALITY_P_WORSE,
+              f"quality {name}: the port is worse than the reference, "
+              f"one-sided p = {st['p_port_worse']:.4g}")
+        check(st["lost_seeds"] <= QUALITY_MAX_LOST,
+              f"quality {name}: the port is infeasible on "
+              f"{st['lost_seeds']} seeds where the reference is feasible")
+    return counts, {"reference": {k: ref[k] for k in
+                                  ("jax_version", "command", "seeds")},
+                    "configs": table}
+
+
+def phase_fanout(card, quality_out=""):
+    """Phase 6d: the fanout wrapper on the card -- (a) each backend held to
+    serial, (b) walls and the device fleet's traces, (c) the
+    search-quality check against the JAX package's seeds."""
+    check_counts, checks = _fanout_checks()
+    wall_counts, walls, wall_outs = _fanout_walls()
+    quality_counts, quality = _fanout_quality(wall_outs)
+    if quality_out:
+        Path(quality_out).parent.mkdir(parents=True, exist_ok=True)
+        Path(quality_out).write_text(json.dumps(
+            {"card": card, "script": "chip_smoke.py phase 6d",
+             **quality}, indent=1) + "\n")
+    counts = {**check_counts, **wall_counts,
+              **{f"quality_{k}": v for k, v in quality_counts.items()}}
+    return counts, {"checks": checks, "walls": walls, "quality": quality}
+
+
 def phase_lm(dev):
     """The LM serving path at qwen2.5-3b's full width."""
     import dataclasses
@@ -2739,7 +3190,7 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err,
     per call, device µs per launch from a profiler trace, the bound, the
     plain version's and the library call's ms.  ``launches`` is phase 6's
     count (phase 7's for the per-row kernel); ``launches_by_path`` adds
-    each counted run of phases 6b, 6c and 7b (``path_counts``: run ->
+    each counted run of phases 6b, 6c, 6d and 7b (``path_counts``: run ->
     counts).
     """
     import numpy as np
@@ -2933,6 +3384,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--quality-out", default="",
+                    help="also write phase 6d's search-quality table (the "
+                    "card's arm) to this JSON file")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2964,6 +3418,8 @@ def main(argv=None):
                                GA_GENERATIONS)
         engine_counts, engines = timed("engines", phase_engines, dev)
         frontier_counts, frontier = timed("frontier", phase_frontier, dev)
+        fanout_counts, fanout = timed("fanout", phase_fanout, card,
+                                      args.quality_out)
         service_counts, service, serial = timed("service", phase_service,
                                                 dev)
         http_counts, http = timed("http", phase_http, dev, serial, service)
@@ -2973,6 +3429,7 @@ def main(argv=None):
                         {f"{phase}_{k}": v
                          for phase, by_run in (("engines", engine_counts),
                                                ("frontier", frontier_counts),
+                                               ("fanout", fanout_counts),
                                                ("http", http_counts))
                          for k, v in by_run.items()})
         kernels.append(timed("flash_timings", _flash_entry, dev, lm_counts,
@@ -2991,6 +3448,7 @@ def main(argv=None):
             {"card": card, "build_s": build_s, "main_path": timing,
              "engines_path": engines, "engines_launches": engine_counts,
              "frontier_path": frontier, "frontier_launches": frontier_counts,
+             "fanout_path": fanout, "fanout_launches": fanout_counts,
              "service_path": service, "service_launches": service_counts,
              "http_path": http, "http_launches": http_counts,
              "lm_path": lm, "lm_launches": lm_counts, "phase_s": phase_s,

@@ -1,9 +1,9 @@
 """Built-in optimizer adapters: the ported search methods behind one API.
 
-Port of the adapters of ``repro.api.optimizers`` except the distributed
-wrappers (``fanout``, ``dist_reinforce``): ``random``, ``grid``, ``sa``,
-``bo``, ``ga``, ``nsga2``, ``relaxed``, ``reinforce``, ``two_stage``,
-``a2c`` and ``ppo2``.  Each translates a ``SearchRequest`` into the
+Port of the adapters of ``repro.api.optimizers``: ``random``, ``grid``,
+``sa``, ``bo``, ``ga``, ``nsga2``, ``relaxed``, ``reinforce``,
+``two_stage``, ``a2c`` and ``ppo2`` (the seed-parallel ``fanout`` lives in
+:mod:`repro_torch.distributed.dist_search`).  Each translates a ``SearchRequest`` into the
 engine's config, runs it on ``request.device`` and normalizes the result
 into ``SearchOutcome`` (trace length == eps, monotone best-so-far,
 per-layer (pe, kt, df) arrays; ``nsga2`` adds the frontier).  ``random``,

@@ -16,7 +16,10 @@ from repro_torch.obs import state as obs_state
 from repro_torch.obs import trace as obs_trace
 
 # Modules that register optimizers as an import side effect.
-_PLUGIN_MODULES = ("repro_torch.api.optimizers",)
+_PLUGIN_MODULES = (
+    "repro_torch.api.optimizers",
+    "repro_torch.distributed.dist_search",
+)
 
 _FACTORIES: Dict[str, Callable[[], "Optimizer"]] = {}
 _ALIASES: Dict[str, str] = {}

@@ -21,11 +21,23 @@ from repro_torch.costmodel import workloads as workloads_lib
 
 
 class Trial(NamedTuple):
-    """One streamed progress report from a running optimizer."""
+    """One streamed progress report from a running optimizer.
+
+    ``step`` is the number of samples (whole-model evaluations) consumed so
+    far; ``value`` the best objective inside the reported span; ``best_value``
+    the best-so-far across the whole run (inf until a feasible point shows).
+
+    ``shard`` tags multi-worker streams: the ``fanout`` optimizer merges its
+    shards' live traces into one callback and stamps each chunk with the
+    shard index it came from (``best_value`` is then the *ensemble*
+    best-so-far).  Single-worker optimizers leave it None; ``step`` stays
+    monotone per shard, not across the interleaved merged stream.
+    """
 
     step: int
     value: float
     best_value: float
+    shard: Optional[int] = None
 
 
 ProgressFn = Callable[[Trial], None]
@@ -42,7 +54,9 @@ class SearchRequest:
     seed:    RNG seed threaded to whichever method runs.
     method:  registry name used by :func:`repro_torch.api.run_search`.
     options: method-specific knobs; adapters ignore what they do not know.
-    on_progress / progress_every: optional streaming hook.
+    on_progress / progress_every: optional streaming hook.  ``fanout``
+        merges all of its shards into this one hook, tagging each Trial
+        with its shard index.
     device:  where the search runs: "cuda" (default) or "cpu".  A CUDA
         request without a card raises; nothing falls back to the CPU.
     """

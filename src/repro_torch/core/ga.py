@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core import chunk as chunk_lib
 from repro_torch.core import env as env_lib
+from repro_torch.core import graph as graph_lib
 from repro_torch.costmodel import dataflows as dfl
 from repro_torch.kernels import ops
 
@@ -232,6 +233,68 @@ def run_ga_search(workload, ecfg: env_lib.EnvConfig,
         state = engine.init_carry(cfg.seed)
     return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk,
                               eval_fn)
+
+
+def clone_ga_state(state: GAState) -> GAState:
+    """A copy of ``state`` that shares no tensor and no generator with it."""
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    c = lambda t: t.detach().clone()
+    return GAState(c(state.pop), c(state.best_val), c(state.best_genome), gen,
+                   c(state.generation))
+
+
+class GenerationRunner:
+    """Generations of ``engine`` in place on ``state``, which it owns (its
+    tensors and generator are the static buffers): the counterpart of
+    :class:`repro_torch.core.reinforce.EpochRunner` for a GA.
+
+    One generation (``evolve(state, fitness(state.pop))``, the in-graph
+    fitness) writes the new population, best and generation count back
+    into ``state`` and its best-so-far into column ``slot`` of a (1,
+    capacity) history on the device, then moves ``slot`` on, modulo the
+    capacity.  On the card that generation is captured once as a CUDA
+    graph, after warm-up generations on a copy of the state, and
+    :meth:`step` replays it; on the CPU :meth:`step` runs it eagerly.  The
+    same bits as :func:`run_chunked_engine` without ``eval_fn``.
+    """
+
+    def __init__(self, engine: GAEngine, state: GAState, capacity: int):
+        dev = state.pop.device
+        self.engine = engine
+        self.state = state
+        self.hist = torch.zeros((1, max(capacity, 1)), device=dev)
+        self.slot = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graph = None
+        if dev.type == "cuda":
+            scratch = clone_ga_state(state)
+            scratch_hist = torch.zeros_like(self.hist)
+            scratch_slot = torch.zeros_like(self.slot)
+            self.graph = graph_lib.CapturedStep(
+                lambda: self._generation(state, self.hist, self.slot),
+                lambda: self._generation(scratch, scratch_hist,
+                                         scratch_slot),
+                dev, generators=(state.generator,))
+
+    def _generation(self, state: GAState, hist, slot):
+        new, best_val = self.engine.evolve(state,
+                                           self.engine.fitness(state.pop))
+        with torch.no_grad():
+            for old, val in zip((state.pop, state.best_val,
+                                 state.best_genome, state.generation),
+                                (new.pop, new.best_val, new.best_genome,
+                                 new.generation)):
+                old.copy_(val)
+            hist.index_copy_(1, slot.view(1), best_val.view(1, 1))
+            torch.remainder(slot + 1, hist.shape[1], out=slot)
+
+    def step(self):
+        """One generation: a replay of the graph on the card, eager on the
+        CPU."""
+        if self.graph is None:
+            self._generation(self.state, self.hist, self.slot)
+        else:
+            self.graph.replay()
 
 
 def ga_solution(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,

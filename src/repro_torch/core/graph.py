@@ -27,6 +27,26 @@ WARMUPS = 3
 # One capture at a time in this process: a capture starts with a device
 # synchronize, which must not meet another thread's capture under way.
 _capture_lock = threading.Lock()
+_stream_lock = threading.Lock()
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """A side stream for one warm-up and capture, entered in
+    ``build.recording`` with an empty record.
+
+    PyTorch hands out the streams of a pool in turn, 32 a priority.  A
+    capture takes its stream from the high-priority pool, which nothing
+    else in the port draws on, so no thread's working stream (a fanout
+    worker's, a batcher dispatcher's) is ever a stream under capture; and
+    it skips a stream that another capture under way still records on.
+    """
+    with _stream_lock:
+        for _ in range(64):
+            stream = torch.cuda.Stream(device, priority=-1)
+            if stream.cuda_stream not in build.recording:
+                build.recording[stream.cuda_stream] = {}
+                return stream
+    raise RuntimeError("every high-priority stream is under capture")
 
 
 class CapturedStep:
@@ -45,10 +65,9 @@ class CapturedStep:
         device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
         self.launches: Dict[str, int] = {}
-        stream = torch.cuda.Stream(device)
+        stream = _capture_stream(device)   # the warm-up's launches: dropped
         stream.wait_stream(torch.cuda.current_stream(device))
         key = stream.cuda_stream
-        build.recording[key] = {}      # the warm-up's launches: dropped
         try:
             with torch.cuda.stream(stream):
                 for _ in range(WARMUPS):

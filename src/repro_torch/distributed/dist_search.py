@@ -1,0 +1,345 @@
+"""Seed-parallel fanout of any registered optimizer (``fanout``).
+
+Port of the fanout half of ``repro.distributed.dist_search``: n shards run
+the inner method with seeds ``seed + s`` and the full ``eps`` each, and
+their outcomes merge (best value wins, the first shard on a tie; the trace
+is the elementwise min, the wall-clock view of the parallel ensemble).
+Three execution backends give the same bytes:
+
+  * ``serial``  -- the in-process loop;
+  * ``threads`` -- one host thread per shard, running the inner optimizer
+    unchanged; on the card each thread works on a CUDA stream of its own;
+  * ``device``  -- the whole fleet driven from one thread, for the inners
+    whose search lives on the device (``DEVICE_INNERS``).  The reference
+    runs one shard per JAX device as one shard_map'd program; here every
+    shard lives on the one card: each has its own state, generator and
+    captured CUDA graph (a stage-1 epoch, or a GA generation), and the
+    graphs replay in turn, each on its own stream, so the shards' small
+    launches overlap on the card.  On the CPU the shards step in lockstep,
+    eagerly.
+
+Live progress streams merged and shard-tagged through the unified API.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api import registry as api_registry
+from repro_torch.api import types as api_types
+from repro_torch.core import chunk as chunk_lib
+from repro_torch.core import env as env_lib
+from repro_torch.core import ga as ga_lib
+from repro_torch.core import reinforce
+from repro_torch.training import optim
+
+# Inner methods whose whole search runs on the device, so the device
+# backend can drive n seeds of them as one fleet (bit-identical to the
+# serial loop: each shard runs exactly the single-shard steps).
+DEVICE_INNERS = ("reinforce", "ga")
+FANOUT_BACKENDS = ("auto", "device", "threads", "serial")
+
+
+class _MergedProgress:
+    """Thread-safe merge of per-shard progress into one tagged stream.
+
+    Each shard's Trials are re-emitted with ``shard=s`` and the *ensemble*
+    best-so-far (min over everything any shard has reported).  ``step`` is
+    the shard-local sample index, so every shard's sub-stream stays monotone;
+    how the sub-streams interleave depends on the backend's scheduling.
+    """
+
+    def __init__(self, cb: Optional[api_types.ProgressFn], n_shards: int):
+        self._cb = cb
+        self._lock = threading.Lock()
+        self._best = [float("inf")] * n_shards
+
+    def shard_cb(self, s: int) -> Optional[api_types.ProgressFn]:
+        if self._cb is None:
+            return None
+
+        def cb(trial: api_types.Trial) -> None:
+            with self._lock:
+                self._best[s] = min(self._best[s], trial.best_value)
+                ensemble = min(self._best)
+                self._cb(api_types.Trial(trial.step, trial.value,
+                                         ensemble, shard=s))
+
+        return cb
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+class _Fleet:
+    """Steps a list of runners (``EpochRunner`` / ``GenerationRunner``:
+    ``step()``, a (k, capacity) ``hist`` and its ``slot``) round-robin, one
+    step of each in turn.  On the card each runner replays on its own
+    stream; on the CPU they run eagerly in lockstep."""
+
+    def __init__(self, runners, device):
+        self.runners = runners
+        self.device = torch.device(device)
+        self.streams = ([torch.cuda.Stream(self.device) for _ in runners]
+                        if self.device.type == "cuda" else None)
+
+    def run(self, n: int) -> np.ndarray:
+        """``n`` steps of every runner; the (shards, k, n) history, read
+        back to the host in one sync."""
+        rs, streams = self.runners, self.streams
+        if streams is None:
+            for r in rs:
+                r.slot.zero_()
+            for _ in range(n):
+                for r in rs:
+                    r.step()
+        else:
+            main = torch.cuda.current_stream(self.device)
+            for r, st in zip(rs, streams):
+                st.wait_stream(main)
+                with torch.cuda.stream(st):
+                    r.slot.zero_()
+            for _ in range(n):
+                for r, st in zip(rs, streams):
+                    with torch.cuda.stream(st):
+                        r.step()
+            for st in streams:
+                main.wait_stream(st)
+        return torch.stack([r.hist[:, :n] for r in rs]).to(
+            "cpu", copy=True).numpy()
+
+
+def reinforce_fleet(subs, capacity: int):
+    """Each shard's env and :class:`~repro_torch.core.reinforce.EpochRunner`
+    (history ``capacity`` epochs), built as the serial adapter builds them
+    -- its env, its state and generator seeded with its own seed -- and
+    the :class:`_Fleet` that steps them.  Returns (envs, runners, fleet)."""
+    from repro_torch.api import optimizers as api_optimizers
+
+    req0 = subs[0]
+    wl = req0.resolve_workload()
+    ecfg = req0.env
+    pcfg = api_optimizers._policy_config(ecfg, req0.options)
+    envs, runners = [], []
+    for sub in subs:
+        rcfg = api_optimizers._reinforce_cfg(sub)[0]
+        env = env_lib.make_env(wl, ecfg, req0.device)
+        opt = optim.Adam(lr=rcfg.lr)
+        runners.append(reinforce.EpochRunner(
+            reinforce.init_search(env, ecfg, pcfg, rcfg, opt),
+            reinforce.make_inplace_epoch_fn(ecfg, pcfg, rcfg, env, opt),
+            capacity))
+        envs.append(env)
+    return envs, runners, _Fleet(runners, envs[0].device)
+
+
+def _fanout_reinforce_device(subs) -> List[api_types.SearchOutcome]:
+    """All shards' REINFORCE searches as one fleet of epoch graphs
+    (:func:`reinforce_fleet`): shard s's outcome is bit-identical to
+    ``get_optimizer("reinforce").run(subs[s])``.  The fleet runs in chunks
+    (one when nothing streams), each shard's history read back once a
+    chunk.
+    """
+    from repro_torch.api import optimizers as api_optimizers
+
+    req0 = subs[0]
+    n_shards = len(subs)
+    rcfg, E = api_optimizers._reinforce_cfg(req0)
+    epochs = rcfg.epochs
+    streaming = req0.on_progress is not None
+    chunk = max(req0.progress_every // E, 1) if streaming else epochs
+    envs, runners, fleet = reinforce_fleet(subs, min(chunk, epochs))
+    t0 = time.time()
+
+    def on_chunk(_, h, done):
+        if not streaming:
+            return
+        best = h[:, reinforce.METRICS.index("best_value")]   # (shards, n)
+        for s, sub in enumerate(subs):
+            sub.on_progress(api_types.Trial(
+                min(done * E, sub.eps), float(np.min(best[s])),
+                float(best[s, -1])))
+
+    _, chunks = chunk_lib.drive(
+        None, epochs, chunk, lambda _, n: (None, fleet.run(n)), on_chunk,
+        engine="dist_reinforce", evals_per_step=E * n_shards)
+    hist = np.concatenate(chunks, axis=2)
+
+    outcomes = []
+    for s, sub in enumerate(subs):
+        state = runners[s].state
+        pe, kt, df = reinforce.solution_arrays(state, envs[s])
+        h = {k: hist[s, i] for i, k in enumerate(reinforce.METRICS)}
+        trace = api_types.expand_trace(h["best_value"], E)
+        outcomes.append(api_types.build_outcome(
+            sub, "reinforce", float(state.best_value), _np(pe), _np(kt),
+            _np(df), trace, t0, extras={"epochs": epochs, "history": h},
+            streamed=streaming))
+    return outcomes
+
+
+def _fanout_ga_device(subs) -> List[api_types.SearchOutcome]:
+    """All shards' GA runs as one fleet of generation graphs.
+
+    Each shard has its env, its seeded population and generator, and a
+    :class:`~repro_torch.core.ga.GenerationRunner`; its outcome is
+    bit-identical to ``get_optimizer("ga").run(subs[s])``.  Every
+    generation of every shard is one cost-kernel launch at (P, N), as in
+    the serial run.  Like the reference's, this backend does not stream:
+    each shard's trace is emitted when the fleet ends.
+    """
+    from repro_torch.api import optimizers as api_optimizers
+
+    req0 = subs[0]
+    wl = req0.resolve_workload()
+    ecfg = req0.env
+    cfg = api_optimizers._ga_cfg(req0)
+    pop, gens = cfg.population, cfg.generations
+    envs, runners = [], []
+    for sub in subs:
+        env = env_lib.make_env(wl, ecfg, req0.device)
+        engine = ga_lib.make_ga_engine(env, ecfg, cfg)
+        runners.append(ga_lib.GenerationRunner(
+            engine, engine.init_carry(sub.seed), gens))
+        envs.append(env)
+    fleet = _Fleet(runners, envs[0].device)
+    t0 = time.time()
+    hist = fleet.run(gens)[:, 0]                # (shards, gens)
+
+    outcomes = []
+    for s, sub in enumerate(subs):
+        state = runners[s].state
+        pe, kt, df = ga_lib.ga_solution(envs[s], ecfg, state)
+        trace = api_types.expand_trace(hist[s], pop)
+        outcomes.append(api_types.build_outcome(
+            sub, "ga", float(state.best_val), _np(pe), _np(kt), _np(df),
+            trace, t0, extras={"generations": gens, "population": pop}))
+    return outcomes
+
+
+_DEVICE_ENGINES = {"reinforce": _fanout_reinforce_device,
+                   "ga": _fanout_ga_device}
+
+
+def _run_threads(inner: str, subs) -> List[api_types.SearchOutcome]:
+    """One worker thread per shard, each with a fresh inner optimizer; on
+    the card each worker's device work goes to a stream of its own, so
+    the shards' launches are not serialized on one stream."""
+    dev = env_lib.resolve_device(subs[0].device)
+    streams = ([torch.cuda.Stream(dev) for _ in subs]
+               if dev.type == "cuda" else [None] * len(subs))
+
+    def run(sub, stream):
+        opt = api_registry.get_optimizer(inner)
+        if stream is None:
+            return opt.run(sub)
+        with torch.cuda.stream(stream):
+            return opt.run(sub)
+
+    with ThreadPoolExecutor(max_workers=len(subs)) as pool:
+        futures = [pool.submit(run, sub, st) for sub, st in zip(subs,
+                                                                streams)]
+        return [f.result() for f in futures]
+
+
+@api_registry.register("fanout")
+class FanoutOptimizer:
+    """Seed-parallel fan-out of any registered optimizer.
+
+    options:
+      ``inner``          registry name of the inner method (default
+                         "reinforce")
+      ``n_shards``       number of parallel searches (default 4)
+      ``inner_options``  options dict passed to every shard
+      ``backend``        "auto" | "device" | "threads" | "serial" (see the
+                         module docstring and :func:`_resolve_backend`)
+
+    Each shard keeps the full ``eps`` budget -- this models n workers
+    searching in parallel, so the merged trace is the wall-clock best-so-far
+    of the ensemble and total samples are ``n_shards * eps`` (reported in
+    extras).  Shards are merged in shard-index order, so every backend
+    returns identical outcomes for the same seeds.
+
+    Progress streams through ``request.on_progress`` as shard-tagged Trials
+    (``Trial.shard``) whose ``best_value`` is the ensemble best-so-far; each
+    shard's sub-stream is monotone in ``step``, while the interleaving
+    across shards follows the backend's scheduling.
+    """
+
+    name = "fanout"
+
+    def run(self, request: api_types.SearchRequest
+            ) -> api_types.SearchOutcome:
+        t0 = time.time()
+        opts = request.options
+        inner = opts.get("inner", "reinforce")
+        n_shards = int(opts.get("n_shards", 4))
+        inner_opts = dict(opts.get("inner_options", {}))
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        inner_impl = api_registry.get_optimizer(inner)
+        if isinstance(inner_impl, FanoutOptimizer):
+            raise ValueError("fanout cannot nest itself as the inner method")
+        backend = _resolve_backend(opts.get("backend", "auto"),
+                                   inner_impl.name, request.device)
+        merger = _MergedProgress(request.on_progress, n_shards)
+        subs = [dataclasses.replace(
+                    request, method=inner_impl.name, options=inner_opts,
+                    seed=request.seed + s, on_progress=merger.shard_cb(s))
+                for s in range(n_shards)]
+
+        # Each shard gets a fresh optimizer instance so stateful custom
+        # optimizers never share one object across concurrent threads.
+        if backend == "device":
+            shards = _DEVICE_ENGINES[inner_impl.name](subs)
+        elif backend == "threads":
+            shards = _run_threads(inner, subs)
+        else:
+            shards = [api_registry.get_optimizer(inner).run(sub)
+                      for sub in subs]
+
+        best = min(shards, key=lambda o: o.best_value)
+        trace = np.min(np.stack([o.history for o in shards]), axis=0)
+        return api_types.build_outcome(
+            request, self.name, best.best_value, best.pe, best.kt, best.df,
+            trace, t0,
+            extras={"inner": inner_impl.name, "n_shards": n_shards,
+                    "backend": backend,
+                    "total_samples": n_shards * request.eps,
+                    "shard_best_values": [o.best_value for o in shards],
+                    "best_seed": best.seed},
+            streamed=request.on_progress is not None)
+
+
+def _resolve_backend(backend: str, inner_name: str, device="cuda") -> str:
+    """The backend a fanout request runs on.
+
+    * ``auto``   -- ``device`` when the inner is in :data:`DEVICE_INNERS`
+      and the request runs on the card, else ``threads``.
+    * ``device`` -- only for the inners of :data:`DEVICE_INNERS` (another
+      raises).  Unlike the reference, which needs one JAX device a shard,
+      it takes any number of shards: one card holds every shard, and on
+      the CPU they run in lockstep.
+    * ``threads`` / ``serial`` -- any inner.
+    """
+    if backend == "auto":
+        return ("device" if inner_name in DEVICE_INNERS
+                and torch.device(device).type == "cuda" else "threads")
+    if backend == "device":
+        if inner_name not in DEVICE_INNERS:
+            raise ValueError(
+                f"backend='device' supports the inner methods whose search "
+                f"runs on the device {DEVICE_INNERS}, not {inner_name!r}; "
+                f"use backend='threads'")
+        return backend
+    if backend not in FANOUT_BACKENDS:
+        raise ValueError(f"unknown fanout backend {backend!r}; expected one "
+                         f"of {FANOUT_BACKENDS}")
+    return backend

@@ -11,16 +11,25 @@ as a CLI.
     PYTHONPATH=src python -m repro_torch.launch.search --arch qwen3-32b \
         --tokens 512 --method nsga2 --epochs 6400 --archive 128
 
+    # Ten seeds of reinforce at once, the shards' epoch graphs side by
+    # side on the card (the last line adds the fanout's extras):
+    PYTHONPATH=src python -m repro_torch.launch.search \
+        --workload mobilenet_v2 --method fanout --fanout-inner reinforce \
+        --fanout-shards 10 --fanout-backend device --epochs 1000
+
 The flags and the last-line JSON are those of ``repro.launch.search`` for
 the methods this package registers (``api.list_optimizers()``: two_stage,
-reinforce, a2c, ppo2, relaxed, ga, nsga2, sa, bo, random and grid), plus
-``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels).  ``--arch`` lowers an assigned architecture at ``--tokens``
-positions (``costmodel.arch_workloads``).  On the card, stage 1
+reinforce, a2c, ppo2, relaxed, ga, nsga2, sa, bo, random, grid and
+fanout), plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+versions of the kernels) and, for fanout, its extras (``inner``,
+``n_shards``, ``backend``, ``total_samples``, ``shard_best_values``,
+``best_seed``) in the last line and the ``--out`` record.  ``--arch``
+lowers an assigned architecture at ``--tokens`` positions
+(``costmodel.arch_workloads``).  On the card, stage 1
 (two_stage, reinforce) replays its epoch as one CUDA graph; a2c and ppo2
 run their epochs eagerly.  ``--trace-out`` / ``--metrics-out`` /
 ``--profile`` turn on telemetry (``repro_torch.obs``), as in the
-reference; the flags of what is not ported (fanout) are absent.
+reference.
 """
 from __future__ import annotations
 
@@ -76,6 +85,13 @@ def build_request(args) -> api.SearchRequest:
                  ("tau_min", args.tau_min)):
         if v is not None:
             options[k] = v
+    if args.method == "fanout":
+        # The per-method knobs collected above configure the *inner* method;
+        # the fanout layer itself takes the shard/backend flags.
+        options = {"inner": args.fanout_inner,
+                   "n_shards": args.fanout_shards,
+                   "backend": args.fanout_backend,
+                   "inner_options": options}
     # eps counts whole-model evaluations; --epochs keeps the paper's
     # epoch semantics (one epoch = --episodes samples for the RL family).
     return api.SearchRequest(
@@ -141,6 +157,18 @@ def main(argv=None):
                     "(default 1.0)")
     ap.add_argument("--tau-min", type=float, default=None,
                     help="--method relaxed: annealing floor (default 0.05)")
+    ap.add_argument("--fanout-backend", default="auto",
+                    choices=["auto", "device", "threads", "serial"],
+                    help="--method fanout execution backend: every shard's "
+                    "CUDA graphs driven from one thread, each shard on its "
+                    "own stream (device; reinforce and ga), one host "
+                    "thread per shard (threads), or an in-process loop "
+                    "(serial); auto picks device for those inners on the "
+                    "card, else threads")
+    ap.add_argument("--fanout-inner", default="reinforce",
+                    help="--method fanout: inner method each shard runs")
+    ap.add_argument("--fanout-shards", type=int, default=4,
+                    help="--method fanout: number of parallel searches")
     ap.add_argument("--progress-every", type=int, default=0,
                     help="stream best-so-far every N samples (0 = off)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -175,7 +203,9 @@ def main(argv=None):
     if args.progress_every > 0:
         request.progress_every = args.progress_every
         request.on_progress = lambda t: print(
-            f"  [{t.step}/{request.eps}] best={t.best_value:.4e}",
+            f"  [{t.step}/{request.eps}]"
+            + (f" shard={t.shard}" if t.shard is not None else "")
+            + f" best={t.best_value:.4e}",
             flush=True)
 
     profile = bool(args.profile or args.trace_out or args.metrics_out)
@@ -231,10 +261,12 @@ def main(argv=None):
         }
     if out.telemetry is not None:
         rec["telemetry"] = out.telemetry
-    print(json.dumps({k: rec[k] for k in
-                      ("method", "best_value", "stage1_value",
-                       "initial_valid_value", "samples_to_convergence",
-                       "wall_seconds")}), flush=True)
+    summary = ["method", "best_value", "stage1_value", "initial_valid_value",
+               "samples_to_convergence", "wall_seconds"]
+    if out.method == "fanout":
+        rec["fanout"] = out.extras
+        summary.append("fanout")
+    print(json.dumps({k: rec[k] for k in summary}), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

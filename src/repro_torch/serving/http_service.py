@@ -549,6 +549,8 @@ class _Handler(BaseHTTPRequestHandler):
                 sent += 1
                 rec = {"step": tr.step, "value": tr.value,
                        "best_value": tr.best_value}
+                if tr.shard is not None:
+                    rec["shard"] = tr.shard
                 self._chunk(json.dumps(rec) + "\n")
             if job.done():
                 break

@@ -246,6 +246,7 @@ CASES = {
     "a2c": (30, {"episodes_per_epoch": 3}),
     "ppo2": (30, {"episodes_per_epoch": 3, "ppo_updates": 1}),
     "relaxed": (30, {"steps_per_eval": 4, "restarts": 2}),
+    "fanout": (100, {"inner": "random", "n_shards": 2, "backend": "serial"}),
 }
 CHUNKED = ("reinforce", "two_stage", "ga", "nsga2", "sa", "a2c", "ppo2",
            "relaxed")
@@ -307,9 +308,13 @@ def test_trial_stream_covers_the_budget(method):
     trials = []
     out = tapi.run_search(_req(method, on_progress=trials.append,
                                progress_every=max(eps // 3, 1)))
-    steps = [t.step for t in trials]
-    assert steps and steps == sorted(steps) and steps[-1] == eps
-    assert all(1 <= s <= eps for s in steps)
+    assert trials
+    by_shard = {}          # fanout tags its shards' sub-streams
+    for t in trials:
+        assert 1 <= t.step <= eps
+        by_shard.setdefault(t.shard, []).append(t.step)
+    for steps in by_shard.values():
+        assert steps == sorted(steps) and steps[-1] == eps
     assert min(t.best_value for t in trials) == out.best_value
 
 

@@ -374,6 +374,40 @@ def test_service_on_card_byte_identical_to_serial(dev):
     assert all(v == 0 for v in ref.cuda_calls.values())
 
 
+@pytest.mark.parametrize("inner,eps,opts", [("reinforce", 24, {}),
+                                            ("ga", 400, {"population": 20})])
+def test_fanout_device_backend_equals_serial_on_card(dev, inner, eps, opts):
+    """fanout's device backend (each shard's CUDA graph on its own stream)
+    and its threads backend give serial's bytes and launches on the card,
+    and no plain version runs there."""
+    def run(backend):
+        ops.reset_launch_counts()
+        out = api.run_search(api.SearchRequest(
+            workload="ncf", env=api.EnvConfig(platform="cloud"), eps=eps,
+            seed=1, method="fanout",
+            options={"inner": inner, "n_shards": 3, "backend": backend,
+                     "inner_options": dict(opts)}))
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    serial, c_serial = run("serial")
+    for backend in ("device", "threads"):
+        got, c = run(backend)
+        assert got.extras["backend"] == backend
+        assert got.best_value == serial.best_value
+        assert got.history.tobytes() == serial.history.tobytes()
+        for k in ("pe", "kt", "df"):
+            assert getattr(got, k).tobytes() == getattr(serial, k).tobytes()
+        assert got.extras["shard_best_values"] == \
+            serial.extras["shard_best_values"]
+        assert c == c_serial, backend
+    N = len(workloads.get_workload("ncf"))
+    want_cost = 3 * (1 + (N * eps if inner == "reinforce"
+                          else eps // opts["population"]))
+    assert c_serial["cost_eval"] == want_cost
+    assert all(v == 0 for v in ref.cuda_calls.values())
+
+
 def _multi_forms(form, rng, dev, M=300):
     """Dense (M, 8) and (M,) inputs of the per-row kernel, and the same
     values in one operand form: ``row_block`` the columns of one packed

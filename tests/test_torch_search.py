@@ -109,9 +109,9 @@ def test_run_search_on_cpu_holds_schema_and_rescores(method, options):
     assert trials[-1].best_value >= out.best_value
 
 
-# The reference's registry without what the port has not ported yet: the
-# distributed wrappers.
-NOT_PORTED = {"fanout", "dist_reinforce"}
+# The reference's registry without what the port has not ported yet:
+# episode-parallel REINFORCE.
+NOT_PORTED = {"dist_reinforce"}
 
 
 def test_registry_is_the_references_minus_the_unported():
