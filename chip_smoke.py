@@ -152,7 +152,30 @@ and no result line:
    (two-sided, and one-sided for the port worse) and the Hodges-Lehmann
    shift with its 95% interval.  It fails where the port is worse at
    one-sided p < 0.01, or infeasible where the reference is feasible on
-   more than 2 seeds.  ``--quality-out`` writes the table as JSON.
+   more than 2 seeds.  ``--quality-out`` writes the table as JSON, with
+   phase 6e's Q4.
+6e. ``dist_reinforce`` (episode-parallel REINFORCE,
+   ``repro_torch.distributed.dist_search``) on mobilenet_v2 at full
+   width (latency / area / iot / dla, LP, seed 0), shards 2 and 6 dead.
+   (a, b) On virtual meshes of the card (``DIST_RUNS``): (2, 4) pod x
+   data at E = 2 (B = 16, the LSTM backward's single pass) and (4, 4)
+   at E = 4 (B = 64, its tiled kernel), each with the pod hop in f32
+   and in int8: 20 epochs through ``run_distributed_search``'s runner
+   (one CUDA graph, replayed), counted, the launches exact (per epoch N
+   table-cost and N LSTM-forward launches at B, and N backward launches
+   a backward pass: one, or one a pod with the int8 hop), against 20
+   eager epochs of ``make_distributed_epoch`` bit for bit; ms an epoch
+   eager and graphed (50 replays, CUDA events), a profiler trace of 10
+   graphed epochs (device events, time by kernel, and the busy share as
+   the union of the device intervals over the traced wall, as in 6d; cut
+   from 20 epochs to fit the phase's time), and ``reinforce`` at
+   ``episodes_per_epoch`` 16 and 64 timed the same way beside them.
+   (c) A ``ProcessMesh`` world of one rank under NCCL (a ``HashStore``,
+   no network): 10 epochs at E = 2 with the bits of
+   ``VirtualMesh((1,), ("data",))``.  (d) The quality check's Q4 (the
+   file's (2, 4) mesh, E = 2, int8 pod hop, eps 4,000) for seeds 0-9
+   through ``api.run_search``, counted, against the JAX package's seeds,
+   failing as (c) of phase 6d does.
 7. Service path: eight requests (ga x 3, random, grid, sa, bo, reinforce;
    ``SERVICE_REQUESTS``) run serially through ``api.run_search`` on the
    card, then submitted together to
@@ -174,14 +197,17 @@ and no result line:
    round trips (``sa``'s is the service's critical path).
 7b. HTTP front door and telemetry (``repro_torch.obs``).  (a) Every
    method the port registers (``TELEMETRY_RUNS``: random, grid, bo, sa,
-   ga, nsga2, relaxed, reinforce, two_stage, a2c, ppo2, fanout) on
+   ga, nsga2, relaxed, reinforce, two_stage, a2c, ppo2, fanout,
+   dist_reinforce) on
    mobilenet_v2 at full width through ``api.run_search``, once with
    telemetry off and once on, each run counted: the two outcomes
    byte-identical (best value, history, pe, kt, df, frontier), the
    launches equal and as the run implies, no plain version on the card,
    and ``telemetry["engine"]`` the method with exactly the hard
    evaluations the run implies; reinforce, two_stage and fanout (two
-   reinforce shards on the device backend) replay stage 1's CUDA graph;
+   reinforce shards on the device backend) replay stage 1's CUDA graph,
+   and dist_reinforce (phase 6e's (2, 4) mesh, int8 pod hop) its own,
+   its launches exact;
    bo, sa and ga run under cloud and must end feasible.
    Then phase 6's 20 graphed epochs against 20 eager ones with telemetry
    on, bit-equal.  (b) ``SearchHTTPService(ServiceConfig(max_workers=8,
@@ -229,7 +255,7 @@ and no result line:
    ``eval_point_rows``; printed as one
    ``{"kernels": [...]}`` line, whose ``launches`` are phase 6's counts
    (phase 7's for the per-row kernel) and ``launches_by_path`` each
-   counted run's (phases 6b, 6c, 6d and 7b included).
+   counted run's (phases 6b, 6c, 6d, 6e and 7b included).
    ``tools/profile_search_kernels.py`` runs the same search-path
    measurements on another tree, such as a parent commit.
 
@@ -240,6 +266,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -263,10 +290,12 @@ LSTM_TAIL_OPS_PER_UNIT = 24
 LSTM_BWD_TAIL_OPS_PER_UNIT = 24
 # LSTM shapes (B, I, H) checked against the plain versions: the search's
 # step, a batch of 64 (several forward blocks, several backward chunks),
-# a ragged I, a wide I, H = 256, and a2c / ppo2's step at B = E = 4 (I =
-# 10, and 11 when the search mixes dataflows).
+# a ragged I, a wide I, H = 256, a2c / ppo2's step at B = E = 4 (I =
+# 10, and 11 when the search mixes dataflows), and dist_reinforce's step
+# on phase 6e's (2, 4) mesh at E = 2 (B = 16; its (4, 4) mesh at E = 4 is
+# the B = 64 above).
 LSTM_SHAPES = ((1, 10, 128), (64, 10, 128), (8, 11, 128), (16, 130, 128),
-               (3, 10, 256), (4, 10, 128), (4, 11, 128))
+               (3, 10, 256), (4, 10, 128), (4, 11, 128), (16, 10, 128))
 # The main path's size: stage-1 epochs (= eps; the paper uses 5000, this
 # is the only cut), local-GA generations of the two-stage run, and the
 # baseline GA's generations at population 100.
@@ -324,6 +353,21 @@ QUALITY_BACKENDS = {"two_stage": "threads", "reinforce": "device",
 # this, or infeasible where the reference is feasible on more than
 # QUALITY_MAX_LOST seeds.
 QUALITY_P_WORSE, QUALITY_MAX_LOST = 0.01, 2
+# Phase 6e: dist_reinforce on mobilenet_v2 at full width (latency / area /
+# iot / dla, LP, seed 0) on virtual meshes of the one card: (mesh shape,
+# axes, episodes a device), B = n x E episodes an epoch (the LSTM
+# backward's single pass at B = 16, its tiled kernel at B = 64), each
+# with the pod hop in f32 and in int8, shards DIST_DEAD dead; the epochs
+# of the graph check, of the trace and timed, the epochs of the NCCL
+# world of one rank, and the quality config of the JAX package's file
+# that phase 6e runs (its ten seeds one after another through the API).
+DIST_RUNS = (((2, 4), ("pod", "data"), 2), ((4, 4), ("pod", "data"), 4))
+DIST_DEAD = (2, 6)
+DIST_EPOCHS = 20
+DIST_TRACE_EPOCHS = 10    # cut from 20 to fit the phase's time
+DIST_TIMED_EPOCHS = 50
+DIST_NCCL_EPOCHS = 10
+DIST_QUALITY = "Q4"
 # ... and benchmarks/bench_frontier.py's configs at its quick budget:
 # (name, workload, env, counts toward "nsga2 >= sweep on 3 of 4").
 FRONTIER_EPS = 600
@@ -397,7 +441,8 @@ SERVICE_REQUESTS = (
 # comparison would hold infeasible traces only (``TELEMETRY_FEASIBLE``
 # must end feasible); two_stage's local GA runs population 20 x 100
 # generations after its 40 epochs; fanout runs two reinforce shards on
-# the device backend.
+# the device backend; dist_reinforce runs phase 6e's (2, 4) mesh with the
+# int8 pod hop for 10 epochs (its mesh is given as (shape, axes)).
 TELEMETRY_RUNS = {
     "random": (1024, {}, "iot"),
     "grid": (1024, {}, "iot"),
@@ -412,6 +457,11 @@ TELEMETRY_RUNS = {
     "ppo2": (40, {"episodes_per_epoch": 4}, "cloud"),
     "fanout": (40, {"inner": "reinforce", "n_shards": 2,
                     "backend": "device"}, "iot"),
+    "dist_reinforce": (160, {"mesh": ((2, 4), ("pod", "data")),
+                             "episodes_per_device": 2,
+                             "compress_pod_axis": True,
+                             "straggler_mask": [i not in DIST_DEAD
+                                                for i in range(8)]}, "iot"),
 }
 TELEMETRY_FEASIBLE = ("bo", "sa", "ga")
 # Phase 7b (b): the front door's tenants and WRR weights; each request of
@@ -1444,13 +1494,17 @@ def _telemetry_request(method):
     LP, seed 0)."""
     from repro_torch import api
     from repro_torch.costmodel import workloads
+    from repro_torch.distributed import collectives
 
     eps, opts, platform = TELEMETRY_RUNS[method]
+    opts = dict(opts)
+    if "mesh" in opts:
+        opts["mesh"] = collectives.VirtualMesh(*opts["mesh"], "cuda")
     return api.SearchRequest(
         workload=workloads.get_workload("mobilenet_v2"),
         env=api.EnvConfig(objective="latency", constraint="area",
                           platform=platform, dataflow=0, levels=12),
-        eps=eps, seed=0, method=method, options=dict(opts), device="cuda")
+        eps=eps, seed=0, method=method, options=opts, device="cuda")
 
 
 def _telemetry_launches(method, N=53):
@@ -1480,8 +1534,24 @@ def _telemetry_launches(method, N=53):
                 "lstm_cell_bwd": N * updates * epochs}
     if method == "fanout":
         return _fanout_launches(opts["inner"], eps, {}, opts["n_shards"])
+    if method == "dist_reinforce":
+        shape, axes = opts["mesh"]
+        return _dist_launches(eps, shape, axes, opts["episodes_per_device"],
+                              opts["compress_pod_axis"], N)
     gens = opts["ga"]["generations"] if method == "two_stage" else 0
     return {"cost_eval": 1 + N * eps + gens, "lstm_cell": N * eps}
+
+
+def _dist_launches(eps, shape, axes, E, compress, N=53, make_env=True):
+    """The launches a dist_reinforce run of ``eps`` samples on a virtual
+    mesh implies: per epoch N table-cost and N LSTM-forward launches at B
+    = n x E, and N LSTM-backward launches a backward pass (one pass; one a
+    pod with the int8 hop); make_env's one table launch."""
+    n = math.prod(shape)
+    epochs = max(eps // (E * n), 1)
+    passes = shape[axes.index("pod")] if compress and "pod" in axes else 1
+    return {"cost_eval": int(make_env) + N * epochs,
+            "lstm_cell": N * epochs, "lstm_cell_bwd": passes * N * epochs}
 
 
 # Methods whose runs replay stage 1's graph: their LSTM forward count is
@@ -1864,18 +1934,46 @@ def _device_busy(fn, steps):
                              / steps, e.count // steps] for e in top]}
 
 
+TRACE_TRIES = 4
+
+
+def _span_union(spans):
+    """The length of the union of sorted (start, end) intervals."""
+    union, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return union + hi - lo
+
+
+def _device_spans(prof):
+    """The sorted (start, end) µs of a profiler trace's device events."""
+    import torch
+
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA)
+
+
 def _kernel_trace(fn, calls):
     """A profiler trace of ``calls`` back-to-back calls of ``fn``: wall and
     device time per call, the device's busy share of the (profiled) wall
-    time, device events (kernels, copies, fills) per call, and each
+    time (device time summed, and the union of the device intervals, which
+    overlapping streams would make smaller), device events (kernels,
+    copies, fills) per call, and each
     kernel's device µs and launches per call by name, largest first; None
     where the trace shows no device time.  A trace that comes back without
-    device events is taken once more: the profiler has returned one for a
-    short run of 40 launches on a card."""
+    device events is taken again, up to ``TRACE_TRIES`` times in all: the
+    profiler has returned such traces for short runs of 40 launches on a
+    card, once twice in a row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1896,6 +1994,8 @@ def _kernel_trace(fn, calls):
     return {"calls": calls, "wall_ms_per_call": 1e3 * wall / calls,
             "device_us_per_call": device_us / calls,
             "device_busy_share": device_us / 1e6 / wall,
+            "device_busy_share_union": (_span_union(_device_spans(prof))
+                                        / 1e6 / wall),
             "launches_per_call": sum(e.count for e in events) / calls,
             "kernels": [[e.key[:90], e.self_device_time_total / calls,
                          e.count / calls] for e in rows]}
@@ -2613,23 +2713,13 @@ def _union_trace(fn, steps):
             fn()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-        spans = sorted(
-            (e.time_range.start, e.time_range.end) for e in prof.events()
-            if getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA)
+        spans = _device_spans(prof)
         if spans:
             break
     else:
         return None
     total = sum(b - a for a, b in spans)
-    union, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            union += hi - lo
-            lo, hi = a, b
-        else:
-            hi = max(hi, b)
-    union += hi - lo
+    union = _span_union(spans)
     return {"steps": steps, "wall_ms": wall_us / 1e3,
             "device_ms_summed": total / 1e3, "device_ms_union": union / 1e3,
             "busy_share": union / wall_us,
@@ -2833,14 +2923,52 @@ def _quality_stats(port, ref, conf=0.95):
             "lost_seeds": int(np.sum(np.isinf(port) & np.isfinite(ref)))}
 
 
+def _quality_row(ref, name, port, tag, what, **info):
+    """The quality table's row of config ``name``: the port's best values
+    ``port`` (seeds 0-9) against the file's entries, with ``info``;
+    logged as ``[tag] quality name (what): ...``."""
+    import numpy as np
+
+    entries = sorted((e for e in ref["entries"] if e["config"] == name),
+                     key=lambda e: e["seed"])
+    check([e["seed"] for e in entries] == list(range(QUALITY_SHARDS)),
+          f"quality {name}: the file's seeds are not 0-9")
+    refv = [float("inf") if e["best_value"] is None
+            else float(e["best_value"]) for e in entries]
+    st = _quality_stats(port, refv)
+    st.update(info, port=port, ref=refv,
+              port_feasible=int(np.isfinite(port).sum()),
+              ref_feasible=int(np.isfinite(refv).sum()))
+    log(f"[{tag}] quality {name} ({what}): port median "
+        f"{st['port_median']:.6g} IQR {st['port_iqr']}, reference "
+        f"{st['ref_median']:.6g} IQR {st['ref_iqr']}; ratio "
+        f"{st['median_ratio']:.4f}; Mann-Whitney p two-sided "
+        f"{st['p_two_sided']:.4g}, port worse {st['p_port_worse']:.4g}; "
+        f"Hodges-Lehmann shift {st['hl_shift']:.6g}, "
+        f"{100 * st['hl_interval_coverage']:.1f}% interval "
+        f"{st['hl_interval']}; feasible {st['port_feasible']} / "
+        f"{st['ref_feasible']}")
+    return st
+
+
+def _quality_gate(name, st):
+    """Fail where the port is worse at one-sided p < ``QUALITY_P_WORSE``
+    or infeasible on more than ``QUALITY_MAX_LOST`` seeds where the
+    reference is feasible."""
+    check(st["p_port_worse"] >= QUALITY_P_WORSE,
+          f"quality {name}: the port is worse than the reference, "
+          f"one-sided p = {st['p_port_worse']:.4g}")
+    check(st["lost_seeds"] <= QUALITY_MAX_LOST,
+          f"quality {name}: the port is infeasible on "
+          f"{st['lost_seeds']} seeds where the reference is feasible")
+
+
 def _fanout_quality(wall_outs):
     """Phase 6d (c): each config of the JAX package's file through the
     port's fanout at ``QUALITY_SHARDS`` shards, seed 0, against the
     reference's seeds 0-9 (the runs of phase (b) where a config is
     theirs); fails where the port is worse at one-sided p <
     ``QUALITY_P_WORSE`` or loses more than ``QUALITY_MAX_LOST`` seeds."""
-    import numpy as np
-
     from repro_torch import api
 
     check(QUALITY_REF.is_file(), f"{QUALITY_REF} is missing: write it with "
@@ -2850,6 +2978,8 @@ def _fanout_quality(wall_outs):
     table, counts = {}, {}
     for name, cfg in ref["configs"].items():
         method, platform, eps = cfg["method"], cfg["platform"], cfg["eps"]
+        if name == DIST_QUALITY:        # phase 6e's
+            continue
         backend = QUALITY_BACKENDS[method]
         req = _fanout_request(method, QUALITY_SHARDS, backend, eps,
                               cfg["options"], platform, ref["env"])
@@ -2864,55 +2994,259 @@ def _fanout_quality(wall_outs):
                 f"quality {name}", method, c, plain, _fanout_launches(
                     method, eps, cfg["options"], QUALITY_SHARDS))
             counts[name] = c
-        entries = sorted((e for e in ref["entries"] if e["config"] == name),
-                         key=lambda e: e["seed"])
-        check([e["seed"] for e in entries] == list(range(QUALITY_SHARDS)),
-              f"quality {name}: the file's seeds are not 0-9")
-        port = [float(v) for v in out.extras["shard_best_values"]]
-        refv = [float("inf") if e["best_value"] is None
-                else float(e["best_value"]) for e in entries]
-        st = _quality_stats(port, refv)
-        st.update(method=method, platform=platform, eps=eps,
-                  backend=backend, seconds=secs, port=port, ref=refv,
-                  port_feasible=int(np.isfinite(port).sum()),
-                  ref_feasible=int(np.isfinite(refv).sum()))
-        table[name] = st
-        log(f"[fanout] quality {name} ({method}, {platform}, eps {eps}, "
-            f"{backend}): port median {st['port_median']:.6g} IQR "
-            f"{st['port_iqr']}, reference {st['ref_median']:.6g} IQR "
-            f"{st['ref_iqr']}; ratio {st['median_ratio']:.4f}; "
-            f"Mann-Whitney p two-sided {st['p_two_sided']:.4g}, port worse "
-            f"{st['p_port_worse']:.4g}; Hodges-Lehmann shift "
-            f"{st['hl_shift']:.6g}, {100 * st['hl_interval_coverage']:.1f}% "
-            f"interval {st['hl_interval']}; feasible "
-            f"{st['port_feasible']} / {st['ref_feasible']}")
+        table[name] = _quality_row(
+            ref, name, [float(v) for v in out.extras["shard_best_values"]],
+            "fanout", f"{method}, {platform}, eps {eps}, {backend}",
+            method=method, platform=platform, eps=eps, backend=backend,
+            seconds=secs)
     for name, st in table.items():
-        check(st["p_port_worse"] >= QUALITY_P_WORSE,
-              f"quality {name}: the port is worse than the reference, "
-              f"one-sided p = {st['p_port_worse']:.4g}")
-        check(st["lost_seeds"] <= QUALITY_MAX_LOST,
-              f"quality {name}: the port is infeasible on "
-              f"{st['lost_seeds']} seeds where the reference is feasible")
+        _quality_gate(name, st)
     return counts, {"reference": {k: ref[k] for k in
                                   ("jax_version", "command", "seeds")},
                     "configs": table}
 
 
-def phase_fanout(card, quality_out=""):
+def phase_fanout():
     """Phase 6d: the fanout wrapper on the card -- (a) each backend held to
     serial, (b) walls and the device fleet's traces, (c) the
     search-quality check against the JAX package's seeds."""
     check_counts, checks = _fanout_checks()
     wall_counts, walls, wall_outs = _fanout_walls()
     quality_counts, quality = _fanout_quality(wall_outs)
-    if quality_out:
-        Path(quality_out).parent.mkdir(parents=True, exist_ok=True)
-        Path(quality_out).write_text(json.dumps(
-            {"card": card, "script": "chip_smoke.py phase 6d",
-             **quality}, indent=1) + "\n")
     counts = {**check_counts, **wall_counts,
               **{f"quality_{k}": v for k, v in quality_counts.items()}}
     return counts, {"checks": checks, "walls": walls, "quality": quality}
+
+
+def _dist_mask(n):
+    return [i not in DIST_DEAD for i in range(n)]
+
+
+def _same_state(a, b):
+    """Two stage-1 states with the same bits: params, Adam state, pmin,
+    best, epoch and the generator."""
+    import torch
+
+    from repro_torch.core import reinforce
+
+    same = lambda xs, ys: all(torch.equal(x, y) for x, y in zip(xs, ys))
+    return (same(a.params.parameters(), b.params.parameters())
+            and same(reinforce.state_tensors(a), reinforce.state_tensors(b))
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def _graphed_epoch_ms(runner, trace=True):
+    """CUDA-event ms a replay of ``runner``'s epoch graph over
+    ``DIST_TIMED_EPOCHS`` replays, and (with ``trace``) a profiler trace
+    of ``DIST_TRACE_EPOCHS`` of them: device time by kernel, and the busy
+    share as the union of the device intervals over that trace's own
+    wall time, as phase 6d reads it."""
+    ms = time_ms(runner.step, DIST_TIMED_EPOCHS, warmup=2)
+    if not trace:
+        return ms, None
+    tr = _kernel_trace(runner.step, DIST_TRACE_EPOCHS)
+    check(tr is not None, "the trace of graphed dist_reinforce epochs "
+          "shows no device time")
+    return ms, tr
+
+
+def _dist_case(dev, shape, axes, E, compress):
+    """Phase 6e (a)-(b) for one mesh and pod hop: ``run_distributed_search``'s
+    runner (``EpochRunner`` over ``make_inplace_distributed_epoch``, one
+    CUDA graph) built, then ``DIST_EPOCHS`` replays counted, the launches
+    exact, against as many eager epochs of ``make_distributed_epoch`` bit
+    for bit; then ms an epoch graphed and a trace of graphed epochs."""
+    import torch
+
+    from repro_torch.core import reinforce
+    from repro_torch.distributed import collectives, dist_search
+    from repro_torch.training import optim
+
+    wl, ecfg, pcfg, rcfg, env = _stage1_setup(dev, DIST_EPOCHS)
+    mesh = collectives.VirtualMesh(shape, axes, dev)
+    dcfg = dist_search.DistConfig(episodes_per_device=E,
+                                  compress_pod_axis=compress)
+    alive = collectives.alive_flags(mesh, _dist_mask(mesh.size))
+    what = f"dist_reinforce {shape} E={E} {'int8' if compress else 'f32'}"
+    opt = optim.Adam(lr=rcfg.lr)
+    runner = reinforce.EpochRunner(
+        reinforce.init_search(env, ecfg, pcfg, rcfg, opt),
+        dist_search.make_inplace_distributed_epoch(
+            ecfg, pcfg, rcfg, env, opt, mesh, alive, dcfg),
+        DIST_TIMED_EPOCHS, names=dist_search.DIST_METRICS)
+    hist, secs, counts, plain = _counted(lambda: runner.run(DIST_EPOCHS))
+    want = _dist_launches(DIST_EPOCHS * E * mesh.size, shape, axes, E,
+                          compress, env.num_layers, make_env=False)
+    _check_launches(what, counts, plain, want)
+
+    opt = optim.Adam(lr=rcfg.lr)
+    st = reinforce.init_search(env, ecfg, pcfg, rcfg, opt)
+    epoch_fn = dist_search.make_distributed_epoch(
+        ecfg, pcfg, rcfg, env, opt, mesh, alive, dcfg)
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_EPOCHS):
+        st, m = epoch_fn(st)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / DIST_EPOCHS
+    for k in dist_search.DIST_METRICS:
+        w = torch.stack([m[k] for m in metrics]).cpu().numpy()
+        check(hist[k].tobytes() == w.tobytes(),
+              f"{what}: graphed {k} differs from the eager epochs': "
+              f"{hist[k]} vs {w}")
+    check(_same_state(runner.state, st),
+          f"{what}: the graphed state differs from the eager epochs'")
+    best = float(runner.state.best_value)
+
+    graphed_ms, trace = _graphed_epoch_ms(runner)
+    per_epoch = {k: v // DIST_EPOCHS for k, v in want.items()}
+    out = {"mesh": list(shape), "axes": list(axes), "E": E,
+           "B": E * mesh.size, "compress": compress, "dead": list(DIST_DEAD),
+           "epochs": DIST_EPOCHS, "bit_equal": True,
+           "launches_per_epoch": per_epoch,
+           "graphed_run_s": secs, "eager_ms": eager_ms,
+           "graphed_ms": graphed_ms, "best_value": best,
+           "feasible_frac_last": float(hist["feasible_frac"][-1]),
+           "trace": trace}
+    log(f"[dist] {what}: {DIST_EPOCHS} graphed epochs bit-equal to eager, "
+        f"launches exact {json.dumps(counts)} ({json.dumps(per_epoch)} an "
+        f"epoch); {eager_ms:.3f} ms an epoch eager, {graphed_ms:.3f} ms "
+        f"graphed; trace of {DIST_TRACE_EPOCHS} graphed epochs: device "
+        f"{trace['device_us_per_call'] / 1e3:.3f} ms an epoch, busy "
+        f"{100 * trace['device_busy_share_union']:.1f}% (the device "
+        f"intervals' union over the traced wall, "
+        f"{trace['wall_ms_per_call']:.3f} ms an epoch), "
+        f"{trace['launches_per_call']:.0f} device events "
+        f"an epoch; by kernel (us, launches an epoch): "
+        f"{json.dumps(trace['kernels'][:8])}")
+    return counts, out
+
+
+def _reinforce_epoch_ms(dev, B):
+    """A stage-1 epoch of ``reinforce`` at ``episodes_per_epoch`` B, graphed
+    (CUDA-event ms a replay): the same rollout and one backward pass,
+    with the entropy term's and without the reductions."""
+    import dataclasses
+
+    from repro_torch.core import reinforce
+    from repro_torch.training import optim
+
+    wl, ecfg, pcfg, rcfg, env = _stage1_setup(dev, DIST_EPOCHS)
+    rcfg = dataclasses.replace(rcfg, episodes_per_epoch=B)
+    opt = optim.Adam(lr=rcfg.lr)
+    runner = reinforce.EpochRunner(
+        reinforce.init_search(env, ecfg, pcfg, rcfg, opt),
+        reinforce.make_inplace_epoch_fn(ecfg, pcfg, rcfg, env, opt),
+        DIST_TIMED_EPOCHS)
+    ms, _ = _graphed_epoch_ms(runner, trace=False)
+    log(f"[dist] reinforce at episodes_per_epoch {B}: {ms:.3f} ms an epoch "
+        "graphed")
+    return {"B": B, "graphed_ms": ms}
+
+
+def _dist_nccl(dev):
+    """Phase 6e (c): a ``ProcessMesh`` world of one rank under NCCL (a
+    ``HashStore``, no network) against ``VirtualMesh((1,), ("data",))``:
+    ``DIST_NCCL_EPOCHS`` epochs at E = 2 under the cloud budget (so that
+    the best is feasible), the same bits (the rank runs eagerly, the
+    virtual mesh through its graph)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import env as env_lib
+    from repro_torch.distributed import collectives, dist_search
+
+    wl, ecfg, pcfg, rcfg, _ = _stage1_setup(dev, DIST_NCCL_EPOCHS)
+    ecfg = dataclasses.replace(ecfg, platform="cloud")   # a finite best
+    env = env_lib.make_env(wl, ecfg, dev)
+    dcfg = dist_search.DistConfig(episodes_per_device=2)
+    virt, vhist = dist_search.run_distributed_search(
+        wl, ecfg, collectives.VirtualMesh((1,), ("data",), dev), rcfg, dcfg,
+        pcfg, env=env)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = collectives.ProcessMesh((1,), ("data",))
+        t0 = time.perf_counter()
+        rank, rhist = dist_search.run_distributed_search(
+            wl, ecfg, mesh, rcfg, dcfg, pcfg, env=env)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    check(_same_state(rank, virt)
+          and all(rhist[k].tobytes() == vhist[k].tobytes()
+                  for k in dist_search.DIST_METRICS),
+          "dist_reinforce: the NCCL world of one rank differs from the "
+          "virtual mesh of one device")
+    out = {"epochs": DIST_NCCL_EPOCHS, "E": 2, "bit_equal": True,
+           "process_mesh_s": secs, "best_value": float(rank.best_value)}
+    log(f"[dist] nccl world of one rank == VirtualMesh((1,)): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _dist_quality(dev):
+    """Phase 6e (d): the quality file's ``DIST_QUALITY`` config
+    (dist_reinforce on a virtual mesh of its shape) for seeds 0-9 through
+    ``api.run_search``, counted, against the JAX package's seeds; fails
+    where the port is worse at one-sided p < ``QUALITY_P_WORSE`` or
+    infeasible on more than ``QUALITY_MAX_LOST`` seeds where the
+    reference is feasible."""
+    from repro_torch import api
+    from repro_torch.distributed import collectives
+
+    ref = json.loads(QUALITY_REF.read_text())
+    check(DIST_QUALITY in ref["configs"], f"quality file: no "
+          f"{DIST_QUALITY}; write it with tools/search_quality_ref.py "
+          f"--configs {DIST_QUALITY}")
+    cfg = ref["configs"][DIST_QUALITY]
+    method, platform, eps = cfg["method"], cfg["platform"], cfg["eps"]
+    shape, axes = cfg["options"]["mesh"]
+    opts = dict(cfg["options"],
+                mesh=collectives.VirtualMesh(shape, axes, dev))
+    seeds = ref["seeds"]
+    outs, secs, counts, plain = _counted(lambda: [api.run_search(
+        api.SearchRequest(
+            workload=ref["workload"],
+            env=api.EnvConfig(platform=platform, **ref["env"]), eps=eps,
+            seed=s, method=method, options=dict(opts), device="cuda"))
+        for s in seeds])
+    one = _dist_launches(eps, shape, axes, opts["episodes_per_device"],
+                         opts["compress_pod_axis"])
+    _check_launches(f"quality {DIST_QUALITY}", counts, plain,
+                    {k: len(seeds) * v for k, v in one.items()})
+    st = _quality_row(
+        ref, DIST_QUALITY, [float(o.best_value) for o in outs], "dist",
+        f"{method}, {platform}, eps {eps}, mesh {shape} {axes}, "
+        f"{secs:.1f} s for {len(seeds)} seeds",
+        method=method, platform=platform, eps=eps, seconds=secs)
+    _quality_gate(DIST_QUALITY, st)
+    return counts, st
+
+
+def phase_dist(dev):
+    """Phase 6e: dist_reinforce on the card -- (a, b) each mesh of
+    ``DIST_RUNS`` with the pod hop in f32 and in int8, graph against eager
+    and timed, beside reinforce at the same batch; (c) an NCCL world of
+    one rank; (d) the quality check of ``DIST_QUALITY``."""
+    counts, cases, beside = {}, {}, {}
+    for shape, axes, E in DIST_RUNS:
+        for compress in (False, True):
+            name = f"{'x'.join(map(str, shape))}_E{E}_" + (
+                "int8" if compress else "f32")
+            counts[name], cases[name] = _dist_case(dev, shape, axes, E,
+                                                   compress)
+        B = E * math.prod(shape)
+        beside[f"reinforce_B{B}"] = _reinforce_epoch_ms(dev, B)
+    nccl = _dist_nccl(dev)
+    counts["quality"], quality = _dist_quality(dev)
+    return counts, {"cases": cases, "reinforce": beside, "nccl": nccl,
+                    "quality": quality}
 
 
 def phase_lm(dev):
@@ -3190,7 +3524,7 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err,
     per call, device µs per launch from a profiler trace, the bound, the
     plain version's and the library call's ms.  ``launches`` is phase 6's
     count (phase 7's for the per-row kernel); ``launches_by_path`` adds
-    each counted run of phases 6b, 6c, 6d and 7b (``path_counts``: run ->
+    each counted run of phases 6b, 6c, 6d, 6e and 7b (``path_counts``: run ->
     counts).
     """
     import numpy as np
@@ -3385,8 +3719,8 @@ def main(argv=None):
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--quality-out", default="",
-                    help="also write phase 6d's search-quality table (the "
-                    "card's arm) to this JSON file")
+                    help="also write phases 6d and 6e's search-quality "
+                    "table (the card's arm) to this JSON file")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3418,8 +3752,17 @@ def main(argv=None):
                                GA_GENERATIONS)
         engine_counts, engines = timed("engines", phase_engines, dev)
         frontier_counts, frontier = timed("frontier", phase_frontier, dev)
-        fanout_counts, fanout = timed("fanout", phase_fanout, card,
-                                      args.quality_out)
+        fanout_counts, fanout = timed("fanout", phase_fanout)
+        dist_counts, dist_out = timed("dist", phase_dist, dev)
+        if args.quality_out:
+            quality = fanout["quality"]
+            Path(args.quality_out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.quality_out).write_text(json.dumps(
+                {"card": card, "script": "chip_smoke.py phases 6d and 6e",
+                 "reference": quality["reference"],
+                 "configs": {**quality["configs"],
+                             DIST_QUALITY: dist_out["quality"]}},
+                indent=1) + "\n")
         service_counts, service, serial = timed("service", phase_service,
                                                 dev)
         http_counts, http = timed("http", phase_http, dev, serial, service)
@@ -3430,6 +3773,7 @@ def main(argv=None):
                          for phase, by_run in (("engines", engine_counts),
                                                ("frontier", frontier_counts),
                                                ("fanout", fanout_counts),
+                                               ("dist", dist_counts),
                                                ("http", http_counts))
                          for k, v in by_run.items()})
         kernels.append(timed("flash_timings", _flash_entry, dev, lm_counts,
@@ -3449,6 +3793,7 @@ def main(argv=None):
              "engines_path": engines, "engines_launches": engine_counts,
              "frontier_path": frontier, "frontier_launches": frontier_counts,
              "fanout_path": fanout, "fanout_launches": fanout_counts,
+             "dist_path": dist_out, "dist_launches": dist_counts,
              "service_path": service, "service_launches": service_counts,
              "http_path": http, "http_launches": http_counts,
              "lm_path": lm, "lm_launches": lm_counts, "phase_s": phase_s,

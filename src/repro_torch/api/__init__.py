@@ -9,8 +9,9 @@
 
 Registered methods: random, grid, sa, bo (alias bayes), ga, nsga2
 (pareto, moo), relaxed (oneshot, gradient), reinforce (rl, conx_global),
-two_stage (conx, confuciux), a2c, ppo2 (ppo), and the seed-parallel
-wrapper fanout (``repro_torch.distributed.dist_search``).
+two_stage (conx, confuciux), a2c, ppo2 (ppo), the seed-parallel wrapper
+fanout and episode-parallel dist_reinforce
+(``repro_torch.distributed.dist_search``).
 """
 from repro_torch.api.registry import (Optimizer, get_optimizer,
                                       list_optimizers, register, run_search)

@@ -237,6 +237,19 @@ def _discounted_returns(rewards, discount):
     return torch.stack(G[::-1], dim=-1)
 
 
+def policy_gradient_terms(rolls: RolloutOut, discount: float):
+    """(pg, G): each episode's policy-gradient term -sum_t logp_t G_std_t
+    (E,), with the discounted returns G (E, N) standardized over the
+    episode's live steps and held constant."""
+    G = _discounted_returns(rolls.rewards * rolls.mask, discount)
+    n_valid = torch.clamp_min(rolls.mask.sum(dim=1), 1.0)
+    mean = (G * rolls.mask).sum(dim=1) / n_valid
+    var = (torch.square(G - mean[:, None]) * rolls.mask).sum(
+        dim=1) / n_valid
+    G_std = (G - mean[:, None]) / (torch.sqrt(var)[:, None] + 1e-8)
+    return -(rolls.logps * G_std.detach() * rolls.mask).sum(dim=1), G
+
+
 def make_loss_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
                  rcfg: ReinforceConfig, env: env_lib.EnvArrays):
     """Build loss_fn(params, pmin, generator, actions=None)
@@ -246,13 +259,7 @@ def make_loss_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
 
     def loss_fn(params, pmin, generator, actions=None):
         rolls = rollout(params, pmin, generator, E, actions)
-        G = _discounted_returns(rolls.rewards * rolls.mask, rcfg.discount)
-        n_valid = torch.clamp_min(rolls.mask.sum(dim=1), 1.0)
-        mean = (G * rolls.mask).sum(dim=1) / n_valid
-        var = (torch.square(G - mean[:, None]) * rolls.mask).sum(
-            dim=1) / n_valid
-        G_std = (G - mean[:, None]) / (torch.sqrt(var)[:, None] + 1e-8)
-        pg = -(rolls.logps * G_std.detach() * rolls.mask).sum(dim=1)
+        pg, G = policy_gradient_terms(rolls, rcfg.discount)
         ent = (rolls.entropy * rolls.mask).sum(dim=1)
         loss = torch.mean(pg) - rcfg.entropy_coef * torch.mean(ent)
         return loss, rolls, G
@@ -263,6 +270,29 @@ def make_loss_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
 def _pick(values, i):
     """values[i] along dim 0 for a 0-d index tensor, without a host sync."""
     return torch.index_select(values, 0, i.reshape(1))[0]
+
+
+def next_state(state: SearchState, opt: optim.Adam, grads, pmin, best,
+               acts) -> SearchState:
+    """The state after an epoch: the Adam step of ``grads`` (a dict by
+    parameter name) applied to the params in place, the running ``pmin``,
+    and the epoch's best value ``best`` with its (N, 3) actions ``acts``
+    taken where it beats the best so far."""
+    named = dict(state.params.named_parameters())
+    new_params, opt_state = opt.update(
+        grads, state.opt_state, {k: p.detach() for k, p in named.items()})
+    with torch.no_grad():
+        for k, p in named.items():
+            p.copy_(new_params[k])
+    better = best < state.best_value
+    pick = lambda new, old: torch.where(better, new, old)
+    return SearchState(
+        params=state.params, opt_state=opt_state, pmin=pmin,
+        best_value=pick(best, state.best_value),
+        best_pe_lvl=pick(acts[:, 0], state.best_pe_lvl),
+        best_kt_lvl=pick(acts[:, 1], state.best_kt_lvl),
+        best_df=pick(acts[:, 2], state.best_df),
+        generator=state.generator, epoch=state.epoch + 1)
 
 
 def make_epoch_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
@@ -278,32 +308,15 @@ def make_epoch_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
                                  actions)
         grads = dict(zip(named, torch.autograd.grad(loss, list(
             named.values()))))
-        new_params, opt_state = opt.update(
-            grads, state.opt_state, {k: p.detach() for k, p in named.items()})
-        with torch.no_grad():
-            for k, p in named.items():
-                p.copy_(new_params[k])
-        loss = loss.detach()
         # Track the best feasible whole-model solution seen so far.
         values = torch.where(rolls.feasible, rolls.model_value,
                              torch.inf)
         i = torch.argmin(values)        # the first minimum
-        best_i = _pick(values, i)
-        better = best_i < state.best_value
-        best_value = torch.where(better, best_i, state.best_value)
-        acts = _pick(rolls.actions, i)
-        pick = lambda new, old: torch.where(better, new, old)
-        new_state = SearchState(
-            params=state.params, opt_state=opt_state,
-            pmin=torch.amin(rolls.pmin),
-            best_value=best_value,
-            best_pe_lvl=pick(acts[:, 0], state.best_pe_lvl),
-            best_kt_lvl=pick(acts[:, 1], state.best_kt_lvl),
-            best_df=pick(acts[:, 2], state.best_df),
-            generator=state.generator, epoch=state.epoch + 1)
+        new_state = next_state(state, opt, grads, torch.amin(rolls.pmin),
+                               _pick(values, i), _pick(rolls.actions, i))
         metrics = {
-            "loss": loss,
-            "best_value": best_value,
+            "loss": loss.detach(),
+            "best_value": new_state.best_value,
             "mean_value": torch.mean(rolls.model_value),
             "feasible_frac": torch.mean(rolls.feasible.to(torch.float32)),
             "mean_return": torch.mean(
@@ -392,20 +405,23 @@ class EpochRunner:
     """Stage-1 epochs in place on ``state``, which it owns (its tensors
     and generator are the static buffers).
 
-    One epoch (:func:`make_inplace_epoch_fn`) also writes its metrics into
-    column ``slot`` of a (5, capacity) history on the device and moves
+    One epoch (:func:`make_inplace_epoch_fn`, or another in-place epoch
+    whose metrics are ``names``) also writes its metrics into column
+    ``slot`` of a (len(names), capacity) history on the device and moves
     ``slot`` on, modulo the capacity.  On the card that epoch is captured
     once as a CUDA graph, after warm-up epochs on a copy of the state (so
     the run's own generator does not move), and :meth:`step` replays it;
     on the CPU :meth:`step` runs it eagerly.
     """
 
-    def __init__(self, state: SearchState, epoch_, capacity: int):
+    def __init__(self, state: SearchState, epoch_, capacity: int,
+                 names=METRICS):
         dev = state.pmin.device
         self.state = state
+        self.names = tuple(names)
         self._epoch = epoch_
-        self.metrics = torch.zeros((len(METRICS),), device=dev)
-        self.hist = torch.zeros((len(METRICS), max(capacity, 1)),
+        self.metrics = torch.zeros((len(self.names),), device=dev)
+        self.hist = torch.zeros((len(self.names), max(capacity, 1)),
                                 device=dev)
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.graph = None
@@ -435,7 +451,7 @@ class EpochRunner:
         for _ in range(n):
             self.step()
         h = self.hist[:, :n].to("cpu", copy=True).numpy()
-        return {k: h[i] for i, k in enumerate(METRICS)}
+        return {k: h[i] for i, k in enumerate(self.names)}
 
 
 def run_search(workload, ecfg: env_lib.EnvConfig,

@@ -1,1 +1,3 @@
-"""Distribution layer of the PyTorch port: the seed-parallel ``fanout``."""
+"""Distribution layer of the PyTorch port: the seed-parallel ``fanout``
+and episode-parallel ``dist_reinforce`` (``dist_search``), and the
+latter's meshes and reductions (``collectives``)."""

@@ -1,10 +1,33 @@
-"""Seed-parallel fanout of any registered optimizer (``fanout``).
+"""Distributed ConfuciuX search: episode-parallel REINFORCE
+(``dist_reinforce``) and the seed-parallel fanout of any registered
+optimizer (``fanout``).
 
-Port of the fanout half of ``repro.distributed.dist_search``: n shards run
-the inner method with seeds ``seed + s`` and the full ``eps`` each, and
-their outcomes merge (best value wins, the first shard on a tie; the trace
-is the elementwise min, the wall-clock view of the parallel ensemble).
-Three execution backends give the same bytes:
+Port of ``repro.distributed.dist_search``; its meshes and reductions live
+in :mod:`repro_torch.distributed.collectives`.
+
+Episode-parallel REINFORCE: every device of a mesh runs E episodes and
+computes the gradient of its mean policy-gradient loss; the gradients meet
+in a masked hierarchical mean (f32 within a pod, optionally int8 across the
+``pod`` axis; dead shards contribute nothing and the mean is over the live
+ones), and every device applies the same Adam step.  The best point is the
+global first argmin over all episodes, dead shards' included.
+
+  * On a :class:`~repro_torch.distributed.collectives.VirtualMesh` an epoch
+    is one batched rollout of n x E episodes, shard-major, through the
+    LSTM and table-cost kernels, then one backward pass of the masked mean
+    of the per-device losses (one pass per pod when the pod hop is
+    compressed, since the int8 hop is not linear).  On the card the epoch
+    is captured once as a CUDA graph and replayed (``EpochRunner``), the
+    counterpart of the reference's ``jax.jit(one_epoch)``.
+  * On a :class:`~repro_torch.distributed.collectives.ProcessMesh` each
+    rank rolls out its own E episodes from its own generator and the
+    reductions run as ``all_reduce`` / ``all_gather`` over the mesh's
+    groups; this path stays eager.
+
+Fanout: n shards run the inner method with seeds ``seed + s`` and the full
+``eps`` each, and their outcomes merge (best value wins, the first shard on
+a tie; the trace is the elementwise min, the wall-clock view of the
+parallel ensemble).  Three execution backends give the same bytes:
 
   * ``serial``  -- the in-process loop;
   * ``threads`` -- one host thread per shard, running the inner optimizer
@@ -26,7 +49,7 @@ import dataclasses
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +59,236 @@ from repro_torch.api import types as api_types
 from repro_torch.core import chunk as chunk_lib
 from repro_torch.core import env as env_lib
 from repro_torch.core import ga as ga_lib
+from repro_torch.core import policy as policy_lib
 from repro_torch.core import reinforce
+from repro_torch.distributed import collectives
 from repro_torch.training import optim
+
+
+# ---------------------------------------------------------------------------
+# Episode-parallel REINFORCE.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    episodes_per_device: int = 4
+    compress_pod_axis: bool = False   # int8 reduction across 'pod'
+    # Kept only to match the reference's DistConfig, which reads it
+    # nowhere either: every draw comes from ReinforceConfig.seed (the
+    # state's generator, and the ranks' generators derived from it).
+    seed: int = 0
+
+
+POD_AXIS = "pod"
+# The metrics of a distributed epoch, in the order of its history.
+DIST_METRICS = ("best_value", "feasible_frac")
+
+
+def _virtual_reduce(mesh: collectives.VirtualMesh, alive: torch.Tensor,
+                    compress: bool):
+    """reduce(losses, params) -> grads on a virtual mesh: the masked mean
+    of the per-device gradients without forming them.  Uncompressed, one
+    backward pass of sum_s alive_s L_s / n_alive; compressed, one pass per
+    pod for the pods' f32 sums, then the int8 hop across the pods."""
+    n_alive = torch.clamp_min(alive.sum(), 1.0)
+    if not compress:
+        def reduce(losses, params):
+            total = (alive * losses).sum() / n_alive
+            return torch.autograd.grad(total, params)
+        return reduce
+    d = mesh.axis_names.index(POD_AXIS)
+    P = mesh.shape[d]
+    inner = int(np.prod(mesh.shape[d + 1:]))
+    pod_of = (torch.arange(mesh.size, device=mesh.device) // inner) % P
+    weights = alive * (pod_of[None, :] == torch.arange(
+        P, device=mesh.device)[:, None])                     # (P, n)
+    pods = collectives.VirtualMesh((P,), (POD_AXIS,), mesh.device)
+
+    def reduce(losses, params):
+        pod_losses = (weights * losses).sum(dim=1)
+        sums = [torch.autograd.grad(pod_losses[p], params,
+                                    retain_graph=p < P - 1)
+                for p in range(P)]
+        stacked = {i: torch.stack([s[i] for s in sums])
+                   for i in range(len(params))}
+        hop = collectives.psum_int8(pods, stacked, POD_AXIS)
+        return [hop[i][0] / n_alive for i in range(len(params))]
+
+    return reduce
+
+
+def make_distributed_grads(ecfg: env_lib.EnvConfig,
+                           pcfg: policy_lib.PolicyConfig,
+                           rcfg: reinforce.ReinforceConfig,
+                           env: env_lib.EnvArrays, mesh: collectives.Mesh,
+                           alive: torch.Tensor,
+                           dcfg: DistConfig = DistConfig()):
+    """Build grads_fn(state, actions=None) -> (grads, rolls): this device's
+    (a virtual mesh's: all devices') E episodes, shard-major, and the
+    masked hierarchical mean of the per-device gradients over every mesh
+    axis, as a dict by parameter name, the same on every device.
+    ``actions`` replaces the sampled actions (the tests replay the
+    reference's draws through it)."""
+    rollout = reinforce.make_rollout(ecfg, pcfg, env)
+    E = dcfg.episodes_per_device
+    rows = E * (mesh.size if mesh.lead else 1)
+    axes = mesh.axis_names
+    if mesh.lead:
+        reduce = _virtual_reduce(
+            mesh, alive, dcfg.compress_pod_axis and POD_AXIS in axes)
+    else:
+        def reduce(losses, params):
+            grads = dict(enumerate(torch.autograd.grad(losses, params)))
+            grads = collectives.masked_hierarchical_psum(
+                mesh, grads, alive, axes, POD_AXIS, dcfg.compress_pod_axis)
+            return [grads[i] for i in range(len(params))]
+
+    def grads_fn(state: reinforce.SearchState, actions=None):
+        named = dict(state.params.named_parameters())
+        rolls = rollout(state.params, state.pmin, state.generator, rows,
+                        actions)
+        # Each device's loss: the mean of its E episodes' policy-gradient
+        # terms (the reference's local_loss: no entropy term).
+        pg, _ = reinforce.policy_gradient_terms(rolls, rcfg.discount)
+        losses = pg.view(*mesh.lead, E).mean(dim=-1)
+        return dict(zip(named, reduce(losses, list(named.values())))), rolls
+
+    return grads_fn
+
+
+def make_distributed_epoch(ecfg: env_lib.EnvConfig,
+                           pcfg: policy_lib.PolicyConfig,
+                           rcfg: reinforce.ReinforceConfig,
+                           env: env_lib.EnvArrays, opt: optim.Adam,
+                           mesh: collectives.Mesh, alive: torch.Tensor,
+                           dcfg: DistConfig = DistConfig()):
+    """Build epoch_fn(state, actions=None) -> (state', metrics): one
+    episode-parallel epoch on ``mesh`` (``alive``: the per-device flags,
+    :func:`~repro_torch.distributed.collectives.alive_flags`).  The params
+    are updated in place with the reduced gradient; pmin is the global
+    min, the best point the global first argmin over every device's
+    episodes, and ``feasible_frac`` the mean over all devices -- dead
+    shards' episodes count in all three.  Metrics (:data:`DIST_METRICS`)
+    are 0-d device tensors."""
+    grads_fn = make_distributed_grads(ecfg, pcfg, rcfg, env, mesh, alive,
+                                      dcfg)
+    E = dcfg.episodes_per_device
+    axes = mesh.axis_names
+    N = env.num_layers
+
+    def epoch_fn(state: reinforce.SearchState, actions=None):
+        grads, rolls = grads_fn(state, actions)
+        values = torch.where(rolls.feasible, rolls.model_value, torch.inf)
+        feas = rolls.feasible.to(torch.float32).view(*mesh.lead, E).mean(-1)
+        i = torch.argmin(values)        # the first minimum
+        if mesh.lead:                   # every device's episodes are here
+            pmin = torch.amin(rolls.pmin)
+            best_i = reinforce._pick(values, i)
+            acts = reinforce._pick(rolls.actions, i)
+            feasible_frac = feas.mean()
+        else:
+            pmin = mesh.pmin(torch.amin(rolls.pmin), axes)
+            mine = torch.cat([reinforce._pick(values, i).view(1),
+                              reinforce._pick(rolls.actions, i).reshape(-1)
+                              .to(torch.float32)])
+            everyone = mesh.all_gather(mine)            # rank order
+            row = reinforce._pick(everyone, torch.argmin(everyone[:, 0]))
+            best_i, acts = row[0], row[1:].view(N, 3).to(torch.int64)
+            feasible_frac = mesh.psum(feas, axes) / mesh.size
+        new_state = reinforce.next_state(state, opt, grads, pmin, best_i,
+                                         acts)
+        return new_state, {"best_value": new_state.best_value,
+                           "feasible_frac": feasible_frac}
+
+    return epoch_fn
+
+
+def make_inplace_distributed_epoch(*args, **kw):
+    """:func:`make_distributed_epoch` written back in place: epoch_(state,
+    metrics) updates ``state``'s own tensors and writes the
+    :data:`DIST_METRICS` into ``metrics`` (the form a CUDA graph
+    captures, as :func:`~repro_torch.core.reinforce.make_inplace_epoch_fn`
+    is for stage 1).  The same bits as the epoch it wraps."""
+    epoch_fn = make_distributed_epoch(*args, **kw)
+
+    def epoch_(state: reinforce.SearchState, metrics: torch.Tensor):
+        new, m = epoch_fn(state)       # updates the params in place
+        with torch.no_grad():
+            for old, val in zip(reinforce.state_tensors(state),
+                                reinforce.state_tensors(new)):
+                old.copy_(val)
+            metrics.copy_(torch.stack([m[k] for k in DIST_METRICS]))
+
+    return epoch_
+
+
+def _rank_generator(seed: int, rank: int, device) -> torch.Generator:
+    """Rank ``rank``'s generator for its rollouts, derived from the seed
+    and the rank; rank 0 draws from the state's own generator (the one a
+    virtual mesh draws from), so this is for ranks >= 1."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([seed, rank]).generate_state(
+        1, np.uint64)[0]))
+    return gen
+
+
+def run_distributed_search(workload, ecfg: env_lib.EnvConfig,
+                           mesh: collectives.Mesh,
+                           rcfg: reinforce.ReinforceConfig,
+                           dcfg: DistConfig = DistConfig(),
+                           pcfg: Optional[policy_lib.PolicyConfig] = None,
+                           straggler_mask: Optional[Sequence[bool]] = None,
+                           env: Optional[env_lib.EnvArrays] = None):
+    """Full distributed stage-1 search on ``mesh``.  Returns (state,
+    history dict of (epochs,) arrays of :data:`DIST_METRICS`).
+
+    ``straggler_mask``: n bools in flattened device order; False marks a
+    dead or slow shard whose gradient is dropped.  The state comes from
+    ``reinforce.init_search`` (identical on every rank), and the epochs
+    run as one chunk.  On a virtual mesh they run in place through
+    ``EpochRunner`` (one CUDA graph on the card); on ranks they run
+    eagerly, and the params are checked to be bit-identical across the
+    ranks before and after.
+    """
+    if env is None:
+        env = env_lib.make_env(workload, ecfg, mesh.device)
+    pcfg = pcfg or policy_lib.PolicyConfig(obs_dim=ecfg.obs_dim, mix=ecfg.mix,
+                                           levels=ecfg.levels)
+    opt = optim.Adam(lr=rcfg.lr)
+    state = reinforce.init_search(env, ecfg, pcfg, rcfg, opt)
+    alive = collectives.alive_flags(mesh, straggler_mask)
+    args = (ecfg, pcfg, rcfg, env, opt, mesh, alive, dcfg)
+    if rcfg.epochs <= 0:
+        return state, {}
+    if mesh.lead:
+        runner = reinforce.EpochRunner(
+            state, make_inplace_distributed_epoch(*args), rcfg.epochs,
+            names=DIST_METRICS)
+
+        def run_chunk(_, n):
+            return runner.state, runner.run(n)
+    else:
+        if mesh.rank:
+            state = state._replace(generator=_rank_generator(
+                rcfg.seed, mesh.rank, mesh.device))
+        mesh.check_replicated(list(state.params.parameters()),
+                              "initial params")
+        epoch_fn = make_distributed_epoch(*args)
+
+        def run_chunk(state, n):
+            ms = []
+            for _ in range(n):
+                state, m = epoch_fn(state)
+                ms.append(torch.stack([m[k] for k in DIST_METRICS]))
+            h = torch.stack(ms, dim=1).to("cpu", copy=True).numpy()
+            return state, {k: h[i] for i, k in enumerate(DIST_METRICS)}
+
+    state, chunks = chunk_lib.drive(
+        state, rcfg.epochs, 0, run_chunk, None, engine="dist_reinforce",
+        evals_per_step=dcfg.episodes_per_device * mesh.size)
+    if not mesh.lead:
+        mesh.check_replicated(list(state.params.parameters()), "params")
+    return state, chunk_lib.concat_hist_dict(chunks)
+
 
 # Inner methods whose whole search runs on the device, so the device
 # backend can drive n seeds of them as one fleet (bit-identical to the
@@ -343,3 +594,54 @@ def _resolve_backend(backend: str, inner_name: str, device="cuda") -> str:
         raise ValueError(f"unknown fanout backend {backend!r}; expected one "
                          f"of {FANOUT_BACKENDS}")
     return backend
+
+
+@api_registry.register("dist_reinforce")
+class DistributedReinforceOptimizer:
+    """Episode-parallel REINFORCE across every device of a mesh.
+
+    options: ``mesh`` (a :class:`~repro_torch.distributed.collectives
+    .VirtualMesh` or ``ProcessMesh``; default
+    :func:`~repro_torch.distributed.collectives.default_mesh`: the world's
+    ranks when ``torch.distributed`` is initialised, else one virtual
+    device on the request's device), ``episodes_per_device`` (1),
+    ``compress_pod_axis``, ``straggler_mask`` (n bools in flattened device
+    order), ``lr`` (3e-3).  One epoch consumes ``episodes_per_device *
+    n_devices`` samples; like the reference's, the run is one chunk and
+    streams no live progress.
+    """
+
+    name = "dist_reinforce"
+
+    def run(self, request: api_types.SearchRequest
+            ) -> api_types.SearchOutcome:
+        t0 = time.time()
+        opts = request.options
+        mesh = opts.get("mesh")
+        if mesh is None:
+            mesh = collectives.default_mesh(request.device)
+        if mesh.device.type != torch.device(request.device).type:
+            raise ValueError(f"the mesh {mesh} is not on the request's "
+                             f"device {request.device!r}")
+        n_dev = mesh.size
+        E = int(opts.get("episodes_per_device", 1))
+        per_epoch = max(E * n_dev, 1)
+        rcfg = reinforce.ReinforceConfig(
+            epochs=max(request.eps // per_epoch, 1),
+            lr=opts.get("lr", 3e-3), seed=request.seed)
+        dcfg = DistConfig(
+            episodes_per_device=E,
+            compress_pod_axis=bool(opts.get("compress_pod_axis", False)),
+            seed=request.seed)
+        wl = request.resolve_workload()
+        env = env_lib.make_env(wl, request.env, mesh.device)
+        state, hist = run_distributed_search(
+            wl, request.env, mesh, rcfg, dcfg,
+            straggler_mask=opts.get("straggler_mask"), env=env)
+        pe, kt, df = reinforce.solution_arrays(state, env)
+        trace = api_types.expand_trace(hist["best_value"], per_epoch)
+        return api_types.build_outcome(
+            request, self.name, float(state.best_value), _np(pe), _np(kt),
+            _np(df), trace, t0,
+            extras={"epochs": rcfg.epochs, "devices": n_dev,
+                    "history": hist})

@@ -19,14 +19,17 @@ as a CLI.
 
 The flags and the last-line JSON are those of ``repro.launch.search`` for
 the methods this package registers (``api.list_optimizers()``: two_stage,
-reinforce, a2c, ppo2, relaxed, ga, nsga2, sa, bo, random, grid and
-fanout), plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-versions of the kernels) and, for fanout, its extras (``inner``,
+reinforce, a2c, ppo2, relaxed, ga, nsga2, sa, bo, random, grid, fanout and
+dist_reinforce, which runs on the default mesh: the ranks of an
+initialised ``torch.distributed`` world, else one device), plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
+kernels) and, for fanout, its extras (``inner``,
 ``n_shards``, ``backend``, ``total_samples``, ``shard_best_values``,
 ``best_seed``) in the last line and the ``--out`` record.  ``--arch``
 lowers an assigned architecture at ``--tokens`` positions
 (``costmodel.arch_workloads``).  On the card, stage 1
-(two_stage, reinforce) replays its epoch as one CUDA graph; a2c and ppo2
+(two_stage, reinforce, dist_reinforce) replays its epoch as one CUDA
+graph; a2c and ppo2
 run their epochs eagerly.  ``--trace-out`` / ``--metrics-out`` /
 ``--profile`` turn on telemetry (``repro_torch.obs``), as in the
 reference.

@@ -247,6 +247,7 @@ CASES = {
     "ppo2": (30, {"episodes_per_epoch": 3, "ppo_updates": 1}),
     "relaxed": (30, {"steps_per_eval": 4, "restarts": 2}),
     "fanout": (100, {"inner": "random", "n_shards": 2, "backend": "serial"}),
+    "dist_reinforce": (20, {}),
 }
 CHUNKED = ("reinforce", "two_stage", "ga", "nsga2", "sa", "a2c", "ppo2",
            "relaxed")

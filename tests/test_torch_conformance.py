@@ -39,8 +39,8 @@ from test_optimizer_conformance import CASES as REF_CASES  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ECFG = env_lib.EnvConfig(platform="cloud")
-METHODS = ("a2c", "bo", "fanout", "ga", "grid", "nsga2", "ppo2", "random",
-           "reinforce", "relaxed", "sa", "two_stage")
+METHODS = ("a2c", "bo", "dist_reinforce", "fanout", "ga", "grid", "nsga2",
+           "ppo2", "random", "reinforce", "relaxed", "sa", "two_stage")
 CASES = {m: REF_CASES[m] for m in METHODS}
 
 

@@ -801,6 +801,54 @@ def test_graph_replays_count_launches(dev):
     assert all(v == 0 for v in ref.cuda_calls.values())
 
 
+@pytest.mark.parametrize("compress", [False, True])
+def test_graphed_dist_reinforce_gives_the_bits_of_eager_epochs(dev,
+                                                               compress):
+    """``dist_reinforce`` on a (2, 2) pod x data virtual mesh, E = 2,
+    shard 1 dead: 20 epochs through ``run_distributed_search`` (one CUDA
+    graph, replayed) against 20 eager epochs of ``make_distributed_epoch``
+    from the same seed, every metric and the final state bit-equal; the
+    graph's launches exact: per epoch N table-cost and N LSTM-forward
+    launches at B = 8, and N LSTM-backward launches a backward pass (one
+    pass, or one a pod with the int8 hop)."""
+    from repro_torch.core import reinforce
+    from repro_torch.distributed import collectives, dist_search
+    from repro_torch.training import optim
+
+    wl, ecfg, pcfg, rcfg, env = _stage1(dev, 20, name="ncf")
+    mesh = collectives.VirtualMesh((2, 2), ("pod", "data"), dev)
+    dcfg = dist_search.DistConfig(episodes_per_device=2,
+                                  compress_pod_axis=compress)
+    mask = [True, False, True, True]
+    ops.reset_launch_counts()
+    got, hist = dist_search.run_distributed_search(
+        wl, ecfg, mesh, rcfg, dcfg, pcfg, straggler_mask=mask, env=env)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    N, passes = len(wl), 2 if compress else 1
+    assert counts["cost_eval"] == counts["lstm_cell"] == N * rcfg.epochs
+    assert counts["lstm_cell_bwd"] == passes * N * rcfg.epochs
+    assert all(v == 0 for v in ref.cuda_calls.values())
+
+    opt = optim.Adam(lr=rcfg.lr)
+    st = reinforce.init_search(env, ecfg, pcfg, rcfg, opt)
+    epoch_fn = dist_search.make_distributed_epoch(
+        ecfg, pcfg, rcfg, env, opt, mesh,
+        collectives.alive_flags(mesh, mask), dcfg)
+    metrics = []
+    for _ in range(rcfg.epochs):
+        st, m = epoch_fn(st)
+        metrics.append(m)
+    for k in dist_search.DIST_METRICS:
+        want = torch.stack([m[k] for m in metrics]).cpu().numpy()
+        assert hist[k].tobytes() == want.tobytes(), k
+    assert all(torch.equal(a, b) for a, b in zip(got.params.parameters(),
+                                                 st.params.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(
+        reinforce.state_tensors(got), reinforce.state_tensors(st)))
+    assert torch.equal(got.generator.get_state(), st.generator.get_state())
+
+
 def test_concurrent_stage1_captures_give_their_serial_bits(dev):
     """Two stage-1 searches and a GA through the service at once: both
     searches capture and replay their graphs in worker threads while the

@@ -133,6 +133,23 @@ def test_http_nsga2_frontier_bit_identical_to_in_process():
         _close(hub)
 
 
+def test_http_dist_reinforce_bit_identical_to_in_process():
+    """dist_reinforce over the wire (a method the service does not batch,
+    on the default mesh of one device) equals the in-process run."""
+    want = _run("dist_reinforce", 24, 5, options={"episodes_per_device": 2})
+    hub = _hub()
+    try:
+        client = _client(hub)
+        uid = client.submit({"workload": "ncf", "method": "dist_reinforce",
+                             "eps": 24, "seed": 5,
+                             "episodes_per_device": 2})["uid"]
+        out = client.result(uid, timeout=TIMEOUT)
+        _assert_wire_equal(out, want)
+        assert out["method"] == "dist_reinforce"
+    finally:
+        _close(hub)
+
+
 def test_http_full_env_spec_and_options_pass_through():
     """objective/constraint/dataflow and leftover option keys survive the
     spec -> SearchRequest translation (same convention as serve_search)."""

@@ -110,8 +110,8 @@ def test_run_search_on_cpu_holds_schema_and_rescores(method, options):
 
 
 # The reference's registry without what the port has not ported yet:
-# episode-parallel REINFORCE.
-NOT_PORTED = {"dist_reinforce"}
+# nothing.
+NOT_PORTED = set()
 
 
 def test_registry_is_the_references_minus_the_unported():
