@@ -49,10 +49,12 @@ and no result line:
    test shapes, ragged T, head dims 16 / 64 / 256, G up to 16, the split
    plan's edges (a split of one key, one tile + 1 key, T just over a
    whole number of splits, B * Hkv large enough for one split), the
-   reference's decode_32k batch and length (128, 16, 2, 128, 32768), and
-   views ``cache[:, :L]`` of a longer cache.  A second call on the same
-   inputs must give the same bits, and the combine kernel must launch
-   exactly when the plan has more than one split.
+   reference's decode_32k batch and length (128, 16, 2, 128, 32768), the
+   other families' shapes of phase 8b (whisper's and llama-3.2-vision's
+   cross-attention, qwen3-MoE's self-attention at G = 16, zamba2's shared
+   block), and views ``cache[:, :L]`` of a longer cache.  A second call on
+   the same inputs must give the same bits, and the combine kernel must
+   launch exactly when the plan has more than one split.
 6. Main path: ``api.run_search`` with method two_stage on mobilenet_v2 at
    full width (LSTM(128), L=12, latency / area / iot / dla, local GA with
    population 20 and 2000 generations), then method ga (population 100,
@@ -244,6 +246,24 @@ and no result line:
    position 32,767 (``init_cache(cfg, 8, 32768)``, no prefill: the
    kernel reads every byte whatever the cache holds): host ms per step
    against the step's bound, and flash decode's device ms per step.
+8b. The other families at full width, one model at a time (``LM_FAMILIES``,
+   random weights from a seed): phi3.5-MoE (16 of 32 layers: 32 are
+   ~84 GB of bf16 weights), qwen3-MoE (4 of 94 layers; 128 experts, top-8,
+   GQA group 16), mamba2-130m, zamba2-1.2b and whisper-small whole, and
+   llama-3.2-vision (10 of 100 layers: two groups of four self layers and
+   a cross layer).  Audio and vlm attend to seeded random frontend
+   features.  (a) float32 weights at one or two layers (one vlm group;
+   mamba2, zamba2 and whisper whole), 8 greedy steps of 4 requests
+   through the kernel and again through the plain version (mamba2, which
+   reaches no kernel: the card against the CPU): equal tokens, logits
+   within atol / rtol 1e-4.  (b) bfloat16 weights: ``serving.Engine``
+   serves 16 requests (prompt lengths 16 and 64, 16 new tokens, max_len
+   256, max_batch 8), counters set to 0 just before and read just after:
+   decode steps exact, flash_decode launched once per attention site
+   (self and cross) per step, no plain version on the card, every request
+   complete and in range.  (c) one step at B = 8 with the cache at
+   position 64: ms, the device busy share, the step's bound (an MoE step
+   reads the experts its routing picked), tokens/s and peak GB.
 9. Kernel timings at the paths' shapes: CUDA-event ms per call, and
    device µs per launch from a profiler trace of back-to-back calls
    (``search_kernel_times`` for the search path's calls: the cost kernel
@@ -397,8 +417,11 @@ BF16_FLOP_PER_S = 989e12
 # the reference's test shapes, ragged T, head dims 16 / 64 / 256, G = 16
 # and G = 12; the split plan's edges on one H100 (132 SMs): T = 513 leaves
 # a last split of one key, T = 33 is one tile + 1 key, T = 2049 is one key
-# over 32 splits of 64 keys, B * Hkv = 288 gives one split; and the
-# reference's decode_32k batch and length (4.3 GB of bf16 cache).
+# over 32 splits of 64 keys, B * Hkv = 288 gives one split; the
+# reference's decode_32k batch and length (4.3 GB of bf16 cache); and the
+# other families' paths (phase 8b): whisper's cross-attention (S = 1500),
+# llama-3.2-vision's (S = 1601), qwen3-MoE's self-attention (G = 16) and
+# zamba2's shared block (G = 1), the last two at the timed step's cache.
 FLASH_SHAPES = ((8, 16, 2, 128, 520), (8, 16, 2, 128, 32768),
                 (1, 4, 4, 128, 512), (2, 8, 2, 128, 1024),
                 (2, 16, 2, 128, 2048), (1, 8, 1, 256, 512),
@@ -406,7 +429,9 @@ FLASH_SHAPES = ((8, 16, 2, 128, 520), (8, 16, 2, 128, 32768),
                 (2, 4, 4, 16, 37), (2, 16, 16, 64, 65), (1, 32, 2, 256, 129),
                 (2, 24, 2, 128, 300), (8, 16, 2, 128, 513),
                 (2, 8, 2, 128, 33), (8, 16, 2, 128, 2049),
-                (144, 8, 2, 64, 100), (128, 16, 2, 128, 32768))
+                (144, 8, 2, 64, 100), (128, 16, 2, 128, 32768),
+                (8, 12, 12, 64, 1500), (8, 64, 8, 128, 1601),
+                (8, 64, 4, 128, 80), (8, 32, 32, 64, 80))
 # ... and timed: the path's shape, a decode-32k length at the path's batch
 # and at the reference's, and the reference's largest test shape.
 FLASH_TIMED = (((8, 16, 2, 128, 520), "bfloat16"),
@@ -419,6 +444,19 @@ LM_F32_BATCH, LM_F32_STEPS = 4, 8
 LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW = 16, (16, 520), 16
 LM_MAX_LEN, LM_MAX_BATCH = 1024, 8
 LM_LONG_CACHE = 32768        # phase 8 (d): one step with the cache full
+# Phase 8b: the other families at full width, as (arch, layers served,
+# layers of the float32 route check); None keeps the published depth.
+# Depth is cut only where bfloat16 weights do not fit one 80 GB card
+# (phi3.5-MoE: 32 layers are ~83.7 GB; qwen3-MoE: 94 layers ~470 GB;
+# llama-3.2-vision: 100 layers ~177 GB), and for the float32 check to what
+# fits beside its caches (one or two layers, one vlm group).
+LM_FAMILIES = (("phi3p5_moe_42b", 16, 2), ("qwen3_moe_235b", 4, 1),
+               ("mamba2_130m", None, None), ("zamba2_1p2b", None, None),
+               ("whisper_small", None, None),
+               ("llama3p2_vision_90b", 10, 5))
+# Phase 8b's engine runs take phase 8's request count, new tokens and
+# batch, with these prompt lengths and cache; (c) times a step here.
+FAMILY_PROMPT_LENS, FAMILY_MAX_LEN, FAMILY_STEP_POS = (16, 64), 256, 64
 # The service path: (method, workload, eps, seed, options), all at
 # latency / area / iot / dla, LP.  Requests 1 and 2 are the same query
 # from two users.
@@ -1864,14 +1902,19 @@ def phase_http(dev, serial, service):
     return counts, timing
 
 
-def _greedy(model, cfg, first, steps, dev):
+def _greedy(model, cfg, first, steps, dev, feats=None):
     """``steps`` greedy decode steps from the tokens ``first``: the tokens
-    and the logits of every step."""
+    and the logits of every step.  Audio and vlm models attend to the
+    frontend features ``feats`` (1, S, d)."""
     import torch
 
     from repro_torch.models import lm
 
     cache = lm.init_cache(cfg, first.shape[0], steps, device=dev)
+    if feats is not None:
+        k, v = lm.precompute_cross_kv(
+            model, cfg, feats.expand(first.shape[0], *feats.shape[1:]))
+        cache = cache._replace(cross_k=k, cross_v=v)
     tok, toks, logits = first, [], []
     for _ in range(steps):
         out, cache = lm.decode_step(model, cfg, cache, tok)
@@ -1881,19 +1924,58 @@ def _greedy(model, cfg, first, steps, dev):
     return torch.stack(toks), torch.stack(logits)
 
 
-def _step_bound(model, cfg, B, T):
+def _step_bound(model, cfg, B, T, moe_rows=None):
     """The least time (ms) and its limit for one decode step of B tokens
-    at cache length T: every weight read once (the token embedding only
-    for its B rows), the KV cache read once and one row written; against
-    the matrix products' operations at the bf16 tensor-core rate."""
-    size = lambda p: p.numel() * p.element_size()
-    tok = model.embed.tok
-    weights = sum(size(p) for p in model.parameters()) - size(tok)
-    kv = cfg.num_layers * B * cfg.num_kv_heads * cfg.hd() * tok.element_size()
-    nbytes = weights + B * cfg.d_model * tok.element_size() + 2 * kv * (T + 1)
-    matrix = sum(p.numel() for p in model.parameters() if p.dim() == 2)
-    ops = (2 * B * (matrix - tok.numel())
-           + 4 * cfg.num_layers * B * cfg.num_heads * T * cfg.hd())
+    at cache position T, and the step's bytes.
+
+    Bytes: each weight the step reads, once: of the token embedding its B
+    rows, unless the unembedding is tied to it and reads it whole; not the
+    audio encoder, which decode does not run, nor the cross-attention's
+    wk / wv, which made the cross K/V; of an MoE layer's experts only those
+    the step routed to (``moe_rows``: per MoE layer, (experts routed,
+    kept rows)).  Then the self-attention caches' T + 1 rows (the new one
+    written), every cross K/V row, the float32 Mamba states and conv
+    tails read and written, and the logits.  Operations: 2 per weight
+    element and row of each matrix product (hybrid's shared block at each
+    of its sites), 4 per key, head and head dim of each attention, at the
+    bf16 tensor-core rate."""
+    from repro_torch.models import lm, ssm
+
+    el = model.embed.tok.element_size()
+    nbytes = ops = 0
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        size = p.numel() * p.element_size()
+        if parts[0] in ("encoder", "enc_norm") or (
+                parts[-2] == "xattn" and parts[-1] in ("wk", "wv")):
+            continue
+        if name == "embed.tok":
+            if cfg.tie_embeddings:
+                nbytes += size
+                ops += 2 * B * p.numel()
+            else:
+                nbytes += B * cfg.d_model * el
+            continue
+        if parts[-2] == "moe" and parts[-1] != "router":
+            experts, rows = moe_rows[int(parts[1])]
+            nbytes += size * experts / cfg.num_experts
+            ops += 2 * rows * p.numel() / cfg.num_experts
+            continue
+        nbytes += size
+        if p.dim() == 2 and parts[-1] != "conv_w":
+            sites = lm.attention_sites(cfg) if parts[0] == "shared_attn" else 1
+            ops += 2 * B * p.numel() * sites
+    sites, xsites = lm.attention_sites(cfg), lm.cross_sites(cfg)
+    S = cfg.encoder_seq if cfg.family == "audio" else cfg.vision_seq
+    kv_row = 2 * B * cfg.num_kv_heads * cfg.hd() * el     # a K and a V row
+    nbytes += kv_row * (sites * (T + 1) + xsites * S)
+    ops += 4 * B * cfg.num_heads * cfg.hd() * (sites * (T + 1) + xsites * S)
+    if lm.mamba_layers(cfg):
+        d_inner, H, P, N = ssm.dims(cfg)
+        state = 4 * B * (H * P * N + (ssm.CONV_WIDTH - 1) * (d_inner + 2 * N))
+        nbytes += 2 * state * lm.mamba_layers(cfg)
+        ops += 5 * B * H * P * N * lm.mamba_layers(cfg)
+    nbytes += B * cfg.vocab_size * el
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations"), nbytes
@@ -3249,62 +3331,81 @@ def phase_dist(dev):
                     "quality": quality}
 
 
-def phase_lm(dev):
-    """The LM serving path at qwen2.5-3b's full width."""
+def _route_check(dev, base, layers):
+    """Float32 weights at ``layers`` layers of ``base``, LM_F32_STEPS greedy
+    steps of LM_F32_BATCH requests through the kernel and again through
+    the plain version (on the CPU for a family that reaches no kernel):
+    equal tokens, logits within atol / rtol 1e-4.  Both routes run the
+    same float32 products; only the attention's order of sums differs."""
     import dataclasses
 
     import torch
 
-    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(base, num_layers=layers,
+                              param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = lm.init_params(cfg, gen, device=dev)
+    first = torch.randint(0, cfg.vocab_size, (LM_F32_BATCH,), generator=gen,
+                          device=dev)
+    feats = _frontend_feats(cfg, dev, 1)
+    toks_k, logits_k = _greedy(model, cfg, first, LM_F32_STEPS, dev, feats)
+    if lm.attention_sites(cfg) + lm.cross_sites(cfg):
+        against = "plain route"
+        kernel_route = ops.decode_attention
+        ops.decode_attention = ref.flash_decode_ref
+        try:
+            toks_p, logits_p = _greedy(model, cfg, first, LM_F32_STEPS, dev,
+                                       feats)
+        finally:
+            ops.decode_attention = kernel_route
+    else:
+        against = "CPU"
+        cpu = lm.LM(cfg, "cpu")
+        cpu.load_state_dict(model.state_dict())
+        toks_p, logits_p = _greedy(cpu, cfg, first.cpu(), LM_F32_STEPS,
+                                   "cpu")
+    torch.cuda.synchronize()
+    toks_k, logits_k = toks_k.cpu(), logits_k.cpu()
+    toks_p, logits_p = toks_p.cpu(), logits_p.cpu()
+    err = float((logits_k - logits_p).abs().max())
+    check(bool(logits_k.isfinite().all()), f"{base.name} f32 logits not "
+          "finite")
+    check(torch.equal(toks_k, toks_p), f"{base.name} f32: the card's "
+          f"tokens {toks_k.T.tolist()} differ from the {against}'s "
+          f"{toks_p.T.tolist()}")
+    check(torch.allclose(logits_k, logits_p, rtol=1e-4, atol=1e-4),
+          f"{base.name} f32: logits differ from the {against}'s by {err}")
+    del model, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return {"layers": layers, "against": against, "max_abs_diff": err}
+
+
+def _engine_run(dev, cfg, model, feats, prompt_lens, max_len):
+    """``serving.Engine`` on ``cfg``'s model: a warm-up request, then
+    LM_REQUESTS ``synthetic_requests`` (``prompt_lens``, LM_MAX_NEW new
+    tokens, ``max_len``, LM_MAX_BATCH), counters set to 0 just before and
+    read just after.  Checks the decode steps the run implies,
+    flash_decode launched once per attention site (self and cross) per
+    step, no plain version on the card, and every request complete and
+    in range.  Returns the launch counts and the run's record."""
+    import torch
+
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
     from repro_torch.serving import Engine, ServeConfig, synthetic_requests
 
-    base = configs.get(LM_ARCH)
-    gen = torch.Generator(device=dev)
-
-    # (a) float32 weights: the kernel route against the plain route.  Both
-    # run the same float32 products; only the attention's order of sums
-    # differs, hence atol / rtol 1e-4.
-    cfg32 = dataclasses.replace(base, param_dtype="float32",
-                                compute_dtype="float32")
-    gen.manual_seed(0)
-    model = lm.init_params(cfg32, gen, device=dev)
-    first = torch.randint(0, cfg32.vocab_size, (LM_F32_BATCH,),
-                          generator=gen, device=dev)
-    toks_k, logits_k = _greedy(model, cfg32, first, LM_F32_STEPS, dev)
-    kernel_route = ops.decode_attention
-    ops.decode_attention = ref.flash_decode_ref      # the plain route
-    try:
-        toks_p, logits_p = _greedy(model, cfg32, first, LM_F32_STEPS, dev)
-    finally:
-        ops.decode_attention = kernel_route
-    torch.cuda.synchronize()
-    f32_err = float((logits_k - logits_p).abs().max())
-    check(bool(logits_k.isfinite().all()), "LM f32 logits not finite")
-    check(torch.equal(toks_k, toks_p), "LM f32: the kernel route's tokens "
-          f"{toks_k.T.tolist()} differ from the plain route's "
-          f"{toks_p.T.tolist()}")
-    check(torch.allclose(logits_k, logits_p, rtol=1e-4, atol=1e-4),
-          f"LM f32: logits differ between the routes by {f32_err}")
-    log(f"[lm] f32, {LM_F32_BATCH} requests x {LM_F32_STEPS} steps: "
-        f"tokens equal, logits max abs diff {f32_err:.3g} (atol / rtol "
-        "1e-4)")
-    del model, logits_k, logits_p
-    torch.cuda.empty_cache()
-
-    # (b) bfloat16 weights through the engine.
-    cfg = base
-    gen.manual_seed(0)
-    model = lm.init_params(cfg, gen, device=dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    eng = Engine(cfg, model, ServeConfig(max_len=LM_MAX_LEN,
-                                         max_batch=LM_MAX_BATCH))
+    eng = Engine(cfg, model, ServeConfig(max_len=max_len,
+                                         max_batch=LM_MAX_BATCH),
+                 cross_feats=feats)
     eng.serve(synthetic_requests(1, cfg.vocab_size, prompt_lens=(4,),
                                  max_new=2, seed=1))          # warm-up
     reqs = synthetic_requests(LM_REQUESTS, cfg.vocab_size,
-                              prompt_lens=LM_PROMPT_LENS,
-                              max_new=LM_MAX_NEW, seed=0)
+                              prompt_lens=prompt_lens, max_new=LM_MAX_NEW,
+                              seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     steps0 = eng.decode_steps
@@ -3317,16 +3418,64 @@ def phase_lm(dev):
     lens = [len(r.prompt) for r in reqs]
     want_steps = sum(-(-lens.count(n) // LM_MAX_BATCH) * (n + LM_MAX_NEW)
                      for n in set(lens))
-    check(steps == want_steps, f"LM engine made {steps} decode steps, the "
-          f"run implies {want_steps}")
-    check(counts["flash_decode"] == cfg.num_layers * steps,
-          f"flash_decode launched {counts['flash_decode']} times in {steps} "
-          f"decode steps of {cfg.num_layers} layers")
+    sites = lm.attention_sites(cfg) + lm.cross_sites(cfg)
+    check(steps == want_steps, f"{cfg.name}: the engine made {steps} decode "
+          f"steps, the run implies {want_steps}")
+    check(counts["flash_decode"] == sites * steps,
+          f"{cfg.name}: flash_decode launched {counts['flash_decode']} "
+          f"times in {steps} decode steps of {sites} attention sites")
     check(all(v == 0 for v in plain_on_card.values()),
-          f"a plain version ran on the card: {plain_on_card}")
+          f"{cfg.name}: a plain version ran on the card: {plain_on_card}")
     check(all(r.done and len(r.output) == LM_MAX_NEW
               and all(0 <= t < cfg.vocab_size for t in r.output)
-              for r in reqs), "LM engine: a request is short or out of range")
+              for r in reqs), f"{cfg.name}: a request is short or out of "
+          "range")
+    return counts, {
+        "requests": stats["requests"], "tokens": stats["tokens"],
+        "wall_s": stats["wall_s"], "tok_per_s": stats["tok_per_s"],
+        "buckets": stats["buckets"], "decode_steps": steps,
+        "attention_sites": sites, "ms_per_decode_step":
+            1e3 * stats["wall_s"] / steps,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "plain_on_card": plain_on_card}
+
+
+def _step_ms(step, iters=20):
+    """Host ms per call of ``step`` after 3 warm-up calls, ending in a
+    synchronize."""
+    import torch
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def phase_lm(dev):
+    """The LM serving path at qwen2.5-3b's full width."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get(LM_ARCH)
+    # (a) float32 weights: the kernel route against the plain route.
+    f32 = _route_check(dev, cfg, cfg.num_layers)
+    log(f"[lm] f32, {LM_F32_BATCH} requests x {LM_F32_STEPS} steps: "
+        f"tokens equal, logits max abs diff {f32['max_abs_diff']:.3g} "
+        "(atol / rtol 1e-4)")
+
+    # (b) bfloat16 weights through the engine.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = lm.init_params(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    counts, run = _engine_run(dev, cfg, model, None, LM_PROMPT_LENS,
+                              LM_MAX_LEN)
 
     # (c) one step at the path's shape (8 requests, cache at 520): host
     # clock, profiler, and the byte bound.
@@ -3334,14 +3483,7 @@ def phase_lm(dev):
     cache = lm.init_cache(cfg, B, LM_MAX_LEN, device=dev)._replace(pos=T)
     tok = torch.zeros(B, dtype=torch.int64, device=dev)
     step = lambda: lm.decode_step(model, cfg, cache, tok)
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        step()
-    torch.cuda.synchronize()
-    steady_ms = 1e3 * (time.perf_counter() - t0) / 20
+    steady_ms = _step_ms(step)
     busy = _device_busy(step, 5)
     check(busy is not None, "the profiler trace of the LM step shows no "
           "device time")
@@ -3354,17 +3496,13 @@ def phase_lm(dev):
         1e3 * busy["flash_decode_device_ms_per_step"] / cfg.num_layers)
     del cache
     long = _long_cache_step(model, cfg, dev)
+    plain_on_card = run.pop("plain_on_card")
     timing = {
         "arch": cfg.name, "params": n_params, "dtype": cfg.compute_dtype,
-        "requests": stats["requests"], "tokens": stats["tokens"],
-        "wall_s": stats["wall_s"], "tok_per_s": stats["tok_per_s"],
-        "buckets": stats["buckets"], "decode_steps": steps,
-        "ms_per_decode_step": 1e3 * stats["wall_s"] / steps,
-        "step_ms_at_T520_B8": steady_ms, "step_bound_ms": bound_ms,
+        **run, "step_ms_at_T520_B8": steady_ms, "step_bound_ms": bound_ms,
         "step_bound_by": bound_by, "step_bytes": step_bytes,
         "profile": busy, "long_cache": long,
-        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-        "f32_route_max_abs_diff": f32_err}
+        "f32_route_max_abs_diff": f32["max_abs_diff"]}
     log(f"[lm] launches {json.dumps(counts)}; plain versions on the card "
         f"{json.dumps(plain_on_card)}; {json.dumps(timing)}")
     del model
@@ -3423,16 +3561,138 @@ def _long_cache_step(model, cfg, dev):
     return out
 
 
-def _flash_entry(dev, counts, flash_err):
+def _moe_rows(step):
+    """Per MoE layer, (experts routed to, kept rows) in one call of
+    ``step``: each ``moe_ffn`` call's routing, recomputed on its input."""
+    from repro_torch.models import moe
+
+    seen, ffn = [], moe.moe_ffn
+
+    def spy(p, cfg, x, n_groups=None):
+        r = moe.route(p, cfg, x, n_groups)
+        seen.append((int(r.experts[r.keep].unique().numel()),
+                     int(r.keep.sum())))
+        return ffn(p, cfg, x, n_groups)
+
+    moe.moe_ffn = spy
+    try:
+        step()
+    finally:
+        moe.moe_ffn = ffn
+    return seen
+
+
+def _frontend_feats(cfg, dev, seed):
+    """Seeded random frontend features (1, S, d) of an audio / vlm config
+    in its compute dtype (the launcher's zeros would make every cross key
+    equal); None for the other families."""
+    import torch
+
+    from repro_torch.models import common, lm
+
+    if not lm.cross_sites(cfg):
+        return None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    S = cfg.encoder_seq if cfg.family == "audio" else cfg.vision_seq
+    return torch.randn((1, S, cfg.d_model), generator=gen, device=dev).to(
+        common.dtype(cfg.compute_dtype))
+
+
+def phase_lm_families(dev):
+    """Phase 8b: the MoE, SSM, hybrid, audio and vlm families at full
+    width (``LM_FAMILIES``), one model at a time: (a) the float32 route
+    check, (b) the engine in bfloat16, (c) one step at B = 8 with the
+    cache at FAMILY_STEP_POS."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    total, out = collections.Counter(), {}
+    for arch, layers, check_layers in LM_FAMILIES:
+        t0 = time.perf_counter()
+        base = configs.get(arch)
+        cfg = base if layers is None else dataclasses.replace(
+            base, num_layers=layers)
+        rec = {"family": cfg.family, "layers": cfg.num_layers,
+               "published_layers": base.num_layers,
+               "published_bf16_gb": 2 * sum(
+                   p.numel() for p in lm.LM(base, "meta").parameters())
+               / 1e9}
+        rec["f32_route"] = _route_check(dev, base,
+                                        check_layers or base.num_layers)
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = lm.init_params(cfg, gen, device=dev)
+        rec["params"] = sum(p.numel() for p in model.parameters())
+        feats = _frontend_feats(cfg, dev, 1)
+        counts, run = _engine_run(dev, cfg, model, feats,
+                                  FAMILY_PROMPT_LENS, FAMILY_MAX_LEN)
+        total.update(counts)
+        del run["plain_on_card"]            # all 0, checked
+        rec.update(run)
+        rec["flash_decode_launches"] = counts["flash_decode"]
+
+        B, T = LM_MAX_BATCH, FAMILY_STEP_POS
+        cache = lm.init_cache(cfg, B, FAMILY_MAX_LEN, device=dev)._replace(
+            pos=T)
+        if feats is not None:
+            k, v = lm.precompute_cross_kv(model, cfg,
+                                          feats.expand(B, *feats.shape[1:]))
+            cache = cache._replace(cross_k=k, cross_v=v)
+        tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                            device=dev)
+        step = lambda: lm.decode_step(model, cfg, cache, tok)
+        step_ms = _step_ms(step)
+        busy = _device_busy(step, 5)
+        check(busy is not None, f"the profiler trace of {arch}'s step shows "
+              "no device time")
+        rows = _moe_rows(step) if cfg.family == "moe" else None
+        bound_ms, bound_by, step_bytes = _step_bound(model, cfg, B, T, rows)
+        rec.update({
+            "step_ms": step_ms, "step_bound_ms": bound_ms,
+            "step_bound_by": bound_by, "step_bytes": step_bytes,
+            "device_ms_per_step": busy["device_ms_per_step"],
+            "device_busy_share_unprofiled": busy["device_ms_per_step"]
+            / step_ms,
+            "device_busy_share_profiled": busy["device_busy_share"],
+            "flash_decode_device_ms_per_step":
+                busy["flash_decode_device_ms_per_step"],
+            "top_kernels": busy["top_kernels"],
+            "moe_experts_routed": rows and [r[0] for r in rows],
+            "seconds": time.perf_counter() - t0})
+        log(f"[lm8b] {arch} ({cfg.family}, {cfg.num_layers} of "
+            f"{base.num_layers} layers): f32 route {rec['f32_route']}; "
+            f"{run['decode_steps']} steps, flash_decode "
+            f"{counts['flash_decode']} = {run['attention_sites']} x "
+            f"{run['decode_steps']}; {run['tok_per_s']:.2f} tokens/s; one "
+            f"step at B = {B}, T = {T}: {step_ms:.3f} ms against a bound "
+            f"of {bound_ms:.3f} ms ({bound_by}), busy "
+            f"{rec['device_busy_share_unprofiled']:.3f}; {json.dumps(rec)}")
+        out[arch] = rec
+        del model, cache, step
+        torch.cuda.empty_cache()
+    return dict(total), out
+
+
+def _flash_entry(dev, counts_by_path, flash_err):
     """The flash-decode kernel's line: ms, plain and library ms and the
     bound at each timed shape, cycling through enough input copies that
     each call finds its inputs outside the L2 cache, as a decode step
-    does."""
+    does.  ``launches`` sums the counted runs of ``counts_by_path``
+    (phase 8's engine run and phase 8b's, by path)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_decode, ref
 
+    counts = {k: sum(c.get(k, 0) for c in counts_by_path.values())
+              for k in ("flash_decode", "flash_decode_combine")}
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(
         q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
         enable_gqa=True)
@@ -3482,6 +3742,8 @@ def _flash_entry(dev, counts, flash_err):
         "launches": counts["flash_decode"],
         "launches_per_run": counts["flash_decode"],
         "combine_launches": counts["flash_decode_combine"],
+        "launches_by_path": {path: c.get("flash_decode", 0)
+                             for path, c in counts_by_path.items()},
         "max_abs_err": max(flash_err["float32"], flash_err["bfloat16"]),
         "max_err": max(flash_err["float32"], flash_err["bfloat16"]),
         "max_abs_err_f32": flash_err["float32"],
@@ -3767,6 +4029,8 @@ def main(argv=None):
                                                 dev)
         http_counts, http = timed("http", phase_http, dev, serial, service)
         lm_counts, lm = timed("lm", phase_lm, dev)
+        family_counts, families = timed("lm_families", phase_lm_families,
+                                        dev)
         kernels = timed("timings", phase_timings, dev, counts, cost_err,
                         lstm_err, service_counts, multi_err,
                         {f"{phase}_{k}": v
@@ -3776,7 +4040,8 @@ def main(argv=None):
                                                ("dist", dist_counts),
                                                ("http", http_counts))
                          for k, v in by_run.items()})
-        kernels.append(timed("flash_timings", _flash_entry, dev, lm_counts,
+        kernels.append(timed("flash_timings", _flash_entry, dev,
+                             {"lm": lm_counts, "lm_families": family_counts},
                              flash_err))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3796,7 +4061,9 @@ def main(argv=None):
              "dist_path": dist_out, "dist_launches": dist_counts,
              "service_path": service, "service_launches": service_counts,
              "http_path": http, "http_launches": http_counts,
-             "lm_path": lm, "lm_launches": lm_counts, "phase_s": phase_s,
+             "lm_path": lm, "lm_launches": lm_counts,
+             "lm_families_path": families,
+             "lm_families_launches": family_counts, "phase_s": phase_s,
              "kernels": kernels, **result}, indent=1))
     log(json.dumps(result))
     return 0

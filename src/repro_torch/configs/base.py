@@ -5,8 +5,8 @@ of it).  One file per assigned architecture lives in this package, all
 ten of them; each exposes ``CONFIG`` (the exact published shape) and
 ``smoke()`` (a reduced same-family config for CPU tests).  ``get`` and
 ``get_smoke`` look either up; an unknown id raises ``ValueError``.  The
-LM itself runs the dense family only (``models.lm.check_family``); every
-family lowers to a search workload (``costmodel.arch_workloads``).
+LM decodes and serves every family (``models.lm``), and every family
+lowers to a search workload (``costmodel.arch_workloads``).
 """
 from __future__ import annotations
 

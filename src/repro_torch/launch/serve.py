@@ -4,17 +4,20 @@ the bucketed engine.
     # On the card (every decode attention through the flash-decode kernel):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2p5_3b \
         --requests 16 --prompt-lens 16,520 --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_small \
+        --prompt-lens 16,64
 
     # On the CPU, with the kernel's plain version, at a smoke size:
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2p5_3b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \
         --smoke --device cpu
 
 The flags and the last line (the stats JSON) are those of
 ``repro.launch.serve``, plus ``--device`` (default ``cuda``; without a card
-it fails, and nothing falls back to the CPU).  Only the dense family is
-served (another family's config loads, and the launcher rejects it as not
-ported yet); ``--mesh`` (sharded decode) is not ported yet and is rejected.
-The weights are a random init from ``--seed``; nothing is downloaded.
+it fails, and nothing falls back to the CPU).  Every family is served; audio
+and vlm models attend to zero frontend features of the config's
+``encoder_seq`` / ``vision_seq`` rows, as the reference's launcher gives
+them.  ``--mesh`` (sharded decode) is not ported yet and is rejected.  The
+weights are a random init from ``--seed``; nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import env as env_lib
-from repro_torch.models import lm
+from repro_torch.models import common, lm
 from repro_torch.serving import Engine, ServeConfig, synthetic_requests
 
 
@@ -56,8 +59,7 @@ def main(argv=None):
     try:
         cfg = (configs.get_smoke(args.arch) if args.smoke
                else configs.get(args.arch))
-        lm.check_family(cfg)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))
     if args.f32:
         cfg = dataclasses.replace(cfg, param_dtype="float32",
@@ -68,8 +70,14 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device=dev)
     n_params = sum(p.numel() for p in params.parameters())
+    cross_feats = None
+    if lm.cross_sites(cfg):
+        S = cfg.encoder_seq if cfg.family == "audio" else cfg.vision_seq
+        cross_feats = torch.zeros((1, S, cfg.d_model), device=dev,
+                                  dtype=common.dtype(cfg.compute_dtype))
     engine = Engine(cfg, params, ServeConfig(max_len=args.max_len,
-                                             max_batch=args.max_batch))
+                                             max_batch=args.max_batch),
+                    cross_feats=cross_feats)
     plens = tuple(int(x) for x in args.prompt_lens.split(","))
     reqs = synthetic_requests(args.requests, cfg.vocab_size,
                               prompt_lens=plens, max_new=args.max_new,

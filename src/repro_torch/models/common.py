@@ -1,8 +1,10 @@
 """Shared model primitives of the PyTorch port: what one decode step needs.
 
-The counterpart of the JAX package's ``models/common.py`` for the dense
-decode path: norms, RoPE, the attention and MLP parameters and their
-one-token steps, embedding and unembedding.  The layout is the JAX
+The counterpart of the JAX package's ``models/common.py`` for the decode
+path: norms, RoPE, the attention and MLP parameters and their one-token
+steps, the cross-attention decode pieces (the reference's
+``lm.precompute_cross_kv`` per layer and ``lm._cross_step_cached``),
+embedding and unembedding.  The layout is the JAX
 package's: weights are ``(in, out)`` and applied as ``x @ W``, and a KV
 cache is ``(B, Tmax, Kv, hd)``, so weights carry across without a
 transpose.
@@ -20,6 +22,11 @@ Differences from the reference, all of them value-preserving:
   card.  The reference masks rows past ``pos`` with -1e30 and takes a
   softmax over all ``Tmax`` rows; ``exp(-1e30 - m)`` is exactly 0 in
   float32, so the two agree up to the order of the sums.
+* :func:`cross_attention_step` attends over all S precomputed keys through
+  the same call.  The reference casts its float32 softmax weights to
+  ``x``'s dtype before the product with V, where the kernel keeps float32
+  throughout: a float32 model agrees up to the order of the sums, a
+  bfloat16 one up to that rounding (as in the self-attention step).
 
 The forward (training / prefill) paths -- ``attention``,
 ``blockwise_attention``, ``cross_attention`` -- are not ported yet.
@@ -146,6 +153,34 @@ def decode_attention_step(p: Attention, cfg, x, cache_k, cache_v, pos: int,
                              cache_v[:, :pos + 1])          # (B, H, hd) f32
     o = o.to(x.dtype).reshape(B, 1, H * hd)
     return o @ p.wo
+
+
+def cross_kv(p: Attention, cfg, feats):
+    """Cross-attention keys and values of one layer from frontend features
+    (B, S, d): ``feats @ wk`` and ``feats @ wv`` without bias or RoPE,
+    ``k_norm`` under ``qk_norm``.  Returns k, v (B, S, Kv, hd) in
+    ``compute_dtype`` (the features are cast to it first)."""
+    B, S, _ = feats.shape
+    hd, Kv = cfg.hd(), cfg.num_kv_heads
+    feats = feats.to(p.wk.dtype)
+    k = (feats @ p.wk).reshape(B, S, Kv, hd)
+    v = (feats @ p.wv).reshape(B, S, Kv, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return k, v
+
+
+def cross_attention_step(p: Attention, cfg, x, k, v):
+    """One token's cross-attention over precomputed k, v (B, S, Kv, hd):
+    ``q = x @ wq`` without bias or RoPE, ``q_norm`` under ``qk_norm``, no
+    mask.  x: (B, 1, D) -> (B, 1, D)."""
+    B = x.shape[0]
+    hd, H = cfg.hd(), cfg.num_heads
+    q = (x[:, 0] @ p.wq).reshape(B, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    o = ops.decode_attention(q, k, v)                      # (B, H, hd) f32
+    return o.to(x.dtype).reshape(B, 1, H * hd) @ p.wo
 
 
 # ---------------------------------------------------------------------------

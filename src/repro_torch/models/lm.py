@@ -1,40 +1,56 @@
-"""The dense LM family in PyTorch: parameters, KV cache, decode and serve
+"""The LM families in PyTorch: parameters, decode caches, decode and serve
 steps.
 
-The counterpart of the JAX package's ``models/lm.py`` for the dense family
-(qwen1.5-0.5b, qwen2.5-3b, qwen3-32b, starcoder2-3b): GQA transformer
-blocks with RoPE, optional QKV bias and qk-norm, and a SwiGLU or GELU MLP.
-Every decode attention runs through the flash-decode kernel on the card
-(:func:`repro_torch.models.common.decode_attention_step`).
+The counterpart of the JAX package's ``models/lm.py`` for decoding, in all
+six families of its configs:
 
-The model is an ``nn.Module`` (:class:`LM`): ``embed`` and a list of
-``blocks``, one per layer, where the reference stacks each parameter on a
-leading L axis and scans over it; here a Python loop walks the blocks.
-Parameter names follow the reference's tree (``blocks.3.attn.wq`` is
-``params["blocks"]["attn"]["wq"][3]``), and :func:`params_from_jax`
-carries a reference tree across.
+  dense   -- GQA transformer blocks with RoPE, optional QKV bias and
+             qk-norm, a SwiGLU or GELU MLP (qwen1.5-0.5b, qwen2.5-3b,
+             qwen3-32b, starcoder2-3b)
+  moe     -- the same attention with a top-k mixture-of-experts FFN
+             (phi3.5-moe, qwen3-moe; :mod:`repro_torch.models.moe`)
+  ssm     -- Mamba2 blocks (mamba2-130m; :mod:`repro_torch.models.ssm`)
+  hybrid  -- groups of Mamba2 blocks, each followed by one *shared*
+             attention block with a KV cache of its own per site, then a
+             tail of Mamba2 blocks (zamba2-1.2b)
+  audio   -- self-attention blocks, each followed by a cross-attention
+             block over precomputed encoder K/V (whisper-small; the
+             encoder's weights are held, as the reference's tree has them,
+             but decode does not run the encoder)
+  vlm     -- groups of self-attention blocks, each group followed by one
+             cross-attention block over precomputed vision K/V
+             (llama-3.2-vision)
 
-The MoE, SSM, hybrid, audio and VLM families, and the forward, loss and
-train steps, are not ported yet: :class:`LM` raises on another family
-(:func:`check_family`).
+Every self- and cross-attention of a decode step runs through the
+flash-decode kernel on the card (:func:`common.decode_attention_step`,
+:func:`common.cross_attention_step`).
+
+The model is an ``nn.Module`` (:class:`LM`) whose stacks are
+``nn.ModuleList`` s, where the reference stacks each parameter on leading
+axes and scans over them.  Parameter names follow the reference's tree:
+``blocks.3.attn.wq`` is ``params["blocks"]["attn"]["wq"][3]``,
+``groups.2.3.mamba.in_proj`` is ``params["groups"]["mamba"]["in_proj"][2,
+3]``, and ``shared_attn.attn.wq`` is unstacked (:func:`jax_name`);
+:func:`params_from_jax` carries a reference tree across.
+
+The forward, prefill, loss and train steps are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple
+from typing import Any, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models import common
+from repro_torch.models import common, moe, ssm
 
-
-def check_family(cfg):
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense family."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet in the "
-            "PyTorch port: only the dense family is")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# Leading stack axes of each top-level list, as the reference stacks them.
+STACK_AXES = {"blocks": 1, "encoder": 1, "cross": 1, "tail": 1, "groups": 2}
+# Leaves the reference initializes to ones, beside the Mamba leaves of
+# :func:`ssm.init_fixed`.
+ONES = common.NORM_PARAMS + ("enc_norm",)
 
 
 class Block(nn.Module):
@@ -48,23 +64,89 @@ class Block(nn.Module):
         self.mlp = common.MLP(cfg, device)
 
 
-class LM(nn.Module):
-    """A dense decoder-only LM with uninitialized parameters (use
-    :func:`init_params` or :func:`params_from_jax`).  ``device="meta"``
-    builds it without memory, for shapes."""
+class MoEBlock(nn.Module):
+    """One MoE block: ln1, attn, ln2, moe."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        check_family(cfg)
+        self.ln1 = common.param((cfg.d_model,), torch.float32, device)
+        self.attn = common.Attention(cfg, device)
+        self.ln2 = common.param((cfg.d_model,), torch.float32, device)
+        self.moe = moe.MoE(cfg, device)
+
+
+class MambaBlock(nn.Module):
+    """One Mamba2 block: ln1, mamba."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.ln1 = common.param((cfg.d_model,), torch.float32, device)
+        self.mamba = ssm.Mamba(cfg, device)
+
+
+class CrossBlock(nn.Module):
+    """One cross-attention block: ln1, xattn, ln2, mlp."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.ln1 = common.param((cfg.d_model,), torch.float32, device)
+        self.xattn = common.Attention(cfg, device)
+        self.ln2 = common.param((cfg.d_model,), torch.float32, device)
+        self.mlp = common.MLP(cfg, device)
+
+
+def _stack(n, block, cfg, device):
+    return nn.ModuleList(block(cfg, device) for _ in range(n))
+
+
+def _check_family(cfg):
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+class LM(nn.Module):
+    """A decoder LM of any family with uninitialized parameters (use
+    :func:`init_params` or :func:`params_from_jax`).  ``device="meta"``
+    builds it without memory, for shapes.  An unknown family raises
+    ``ValueError``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        _check_family(cfg)
         self.cfg = cfg
         self.embed = common.Embed(cfg, device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        fam, L = cfg.family, cfg.num_layers
+        if fam in ("dense", "moe"):
+            self.blocks = _stack(L, MoEBlock if fam == "moe" else Block, cfg,
+                                 device)
+        elif fam == "ssm":
+            self.blocks = _stack(L, MambaBlock, cfg, device)
+        elif fam == "hybrid":
+            n_groups, rem = divmod(L, cfg.shared_attn_period)
+            self.groups = nn.ModuleList(
+                _stack(cfg.shared_attn_period, MambaBlock, cfg, device)
+                for _ in range(n_groups))
+            self.tail = _stack(rem, MambaBlock, cfg, device)
+            self.shared_attn = Block(cfg, device)
+        elif fam == "audio":
+            self.encoder = _stack(cfg.encoder_layers, Block, cfg, device)
+            self.enc_norm = common.param((cfg.d_model,), torch.float32,
+                                         device)
+            self.blocks = _stack(L, Block, cfg, device)
+            self.cross = _stack(L, CrossBlock, cfg, device)
+        else:                                               # vlm
+            n_cross = L // cfg.cross_attn_period
+            self.groups = nn.ModuleList(
+                _stack(cfg.cross_attn_period - 1, Block, cfg, device)
+                for _ in range(n_cross))
+            self.cross = _stack(n_cross, CrossBlock, cfg, device)
 
 
 def init_params(cfg, generator: torch.Generator, device="cpu") -> LM:
     """A freshly initialized model, as the reference initializes one:
-    normal(0, 0.02) matrices and embeddings, zero biases, unit norm gains.
+    normal(0, 0.02) matrices and embeddings, normal(0, 0.5) Mamba conv
+    weights, zero biases, unit norm gains, and the Mamba leaves the
+    reference fixes (:func:`ssm.init_fixed`).
 
     ``generator`` must live on ``device``.  The draws are made in float32
     and cast to the parameter's type, so a bfloat16 model is its float32
@@ -74,34 +156,42 @@ def init_params(cfg, generator: torch.Generator, device="cpu") -> LM:
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in common.NORM_PARAMS:
+            if leaf in ONES:
                 p.fill_(1.0)
             elif leaf in common.BIAS_PARAMS:
                 p.zero_()
-            else:
+            elif not ssm.init_fixed(leaf, p):
+                scale = 0.5 if leaf == "conv_w" else 0.02
                 p.copy_(torch.randn(p.shape, generator=generator,
-                                    device=device) * 0.02)
+                                    device=device) * scale)
     return model
 
 
 def jax_name(name: str):
     """Where the port's parameter ``name`` lives in the reference tree:
-    (path of keys, layer index or None)."""
+    (path of keys, index into the leaf's leading stack axes, () if it has
+    none)."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ("blocks", *parts[2:]), int(parts[1])
-    return tuple(parts), None
+    n = STACK_AXES.get(parts[0], 0)
+    return ((parts[0], *parts[1 + n:]),
+            tuple(int(i) for i in parts[1:1 + n]))
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg, device="cpu") -> LM:
     """A model holding the reference's params: the tree of
-    ``repro.models.lm.init_params`` as numpy arrays, ``{"embed": {tok,
-    norm_f, unembed}, "blocks": {ln1, attn: {wq, wk, wv, wo, bq?, bk?,
-    bv?, q_norm?, k_norm?}, ln2, mlp: {...}}}`` with every block leaf
-    stacked on a leading L axis.  Values are cast to each parameter's
-    type (``compute_dtype`` for matrices, float32 for norm gains)."""
+    ``repro.models.lm.init_params`` as numpy arrays (``{"embed": {tok,
+    norm_f, unembed?}, "blocks": {ln1, attn: {...}, ...}, ...}``, each
+    stacked leaf with its layer axes in front).  Values are cast to each
+    parameter's type (``compute_dtype`` for matrices, float32 for norm
+    gains and the Mamba scalars)."""
     model = LM(cfg, device)
-    names = {jax_name(n)[0] for n, _ in model.named_parameters()}
+    where = {n: jax_name(n) for n, _ in model.named_parameters()}
+    names = {path for path, _ in where.values()}
+    stacks = {}                  # path -> the leading shape its leaf needs
+    for path, idx in where.values():
+        if idx:
+            old = stacks.get(path, (0,) * len(idx))
+            stacks[path] = tuple(max(a, i + 1) for a, i in zip(old, idx))
 
     def leaves(node, path=()):
         if isinstance(node, Mapping):
@@ -117,16 +207,17 @@ def params_from_jax(tree: Mapping[str, Any], cfg, device="cpu") -> LM:
                          f"{sorted(given - names)}")
     with torch.no_grad():
         for name, p in model.named_parameters():
-            path, layer = jax_name(name)
+            path, idx = where[name]
             val = tree
             for key in path:
                 val = val[key]
             val = np.asarray(val)
-            if layer is not None:
-                if val.shape[0] != cfg.num_layers:
-                    raise ValueError(f"{'/'.join(path)}: {val.shape[0]} "
-                                     f"layers, expected {cfg.num_layers}")
-                val = val[layer]
+            if idx:
+                if val.shape[:len(idx)] != stacks[path]:
+                    raise ValueError(f"{'/'.join(path)}: "
+                                     f"{val.shape[:len(idx)]} layers, "
+                                     f"expected {stacks[path]}")
+                val = val[idx]
             if val.shape != tuple(p.shape):
                 raise ValueError(f"{name}: shape {val.shape}, expected "
                                  f"{tuple(p.shape)}")
@@ -134,50 +225,154 @@ def params_from_jax(tree: Mapping[str, Any], cfg, device="cpu") -> LM:
     return model
 
 
-class Cache(NamedTuple):
-    """Decode state of the dense family.
+# ---------------------------------------------------------------------------
+# Decode.
+# ---------------------------------------------------------------------------
+def attention_sites(cfg) -> int:
+    """Self-attention KV caches a decode step uses (the reference's site
+    count): a layer each for dense, moe and audio, a shared-block call
+    each for hybrid, a self-attention layer each for vlm, none for ssm."""
+    fam = cfg.family
+    if fam in ("dense", "moe", "audio"):
+        return cfg.num_layers
+    if fam == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_period
+    if fam == "vlm":
+        period = cfg.cross_attn_period
+        return (cfg.num_layers // period) * (period - 1)
+    return 0
 
-    attn_k/attn_v: (L, B, Tmax, Kv, hd), written in place by each step;
-    pos: the next position, a host int, so no step reads it back from the
-    device.
+
+def cross_sites(cfg) -> int:
+    """Cross-attention layers: audio's num_layers, vlm's one a group."""
+    if cfg.family == "audio":
+        return cfg.num_layers
+    if cfg.family == "vlm":
+        return cfg.num_layers // cfg.cross_attn_period
+    return 0
+
+
+def mamba_layers(cfg) -> int:
+    """Mamba2 layers (each with its own cache): ssm's and hybrid's."""
+    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+class Cache(NamedTuple):
+    """Decode state.
+
+    attn_k/attn_v: (sites, B, Tmax, Kv, hd) with ``attention_sites``
+    sites, written in place by each step (None without attention);
+    mamba: a list of :class:`ssm.MambaCache`, one a Mamba layer in the
+    order decode meets them (hybrid: group by group, then the tail),
+    float32 and updated in place; cross_k/cross_v: (cross_sites, B, S, Kv,
+    hd) from :func:`precompute_cross_kv` (audio and vlm); pos: the next
+    position, a host int, so no step reads it back from the device.
     """
 
-    attn_k: torch.Tensor
-    attn_v: torch.Tensor
+    attn_k: Optional[torch.Tensor] = None
+    attn_v: Optional[torch.Tensor] = None
+    mamba: Optional[List[ssm.MambaCache]] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
     pos: int = 0
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cpu") -> Cache:
-    """A zeroed cache in ``cfg.compute_dtype``, the dtype of every q the
-    decode step makes (the kernel takes k and v only in q's dtype)."""
-    check_family(cfg)
-    dt = common.dtype(cfg.compute_dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd())
-    return Cache(attn_k=torch.zeros(shape, dtype=dt, device=device),
-                 attn_v=torch.zeros(shape, dtype=dt, device=device), pos=0)
+    """A zeroed cache.  Attention caches take ``cfg.compute_dtype``, the
+    dtype of every q the decode step makes (the kernel takes k and v only
+    in q's dtype); Mamba caches are float32, as the reference's
+    ``init_cache`` makes them.  Audio and vlm still need the cross K/V
+    (:func:`precompute_cross_kv`)."""
+    _check_family(cfg)
+    sites = attention_sites(cfg)
+    k = v = mamba = None
+    if sites:
+        shape = (sites, batch, max_len, cfg.num_kv_heads, cfg.hd())
+        dt = common.dtype(cfg.compute_dtype)
+        k = torch.zeros(shape, dtype=dt, device=device)
+        v = torch.zeros(shape, dtype=dt, device=device)
+    if mamba_layers(cfg):
+        mamba = [ssm.init_mamba_cache(cfg, batch, device=device)
+                 for _ in range(mamba_layers(cfg))]
+    return Cache(attn_k=k, attn_v=v, mamba=mamba, pos=0)
+
+
+@torch.no_grad()
+def precompute_cross_kv(params: LM, cfg, feats):
+    """Project frontend features (B, S, d) once into every cross layer's
+    K/V: two (cross_sites, B, S, Kv, hd) tensors in ``compute_dtype``."""
+    ks, vs = zip(*(common.cross_kv(xp.xattn, cfg, feats)
+                   for xp in params.cross))
+    return torch.stack(ks), torch.stack(vs)
 
 
 @torch.no_grad()
 def decode_step(params: LM, cfg, cache: Cache, token):
     """One decode step.  token: (B,) int -> (logits (B, V), cache with
-    pos + 1).  The cache's tensors are updated in place."""
-    check_family(cfg)
-    pos = cache.pos
-    if pos >= cache.attn_k.shape[2]:
+    pos + 1).  The cache's tensors are updated in place; audio and vlm
+    need its cross K/V."""
+    _check_family(cfg)
+    pos, fam = cache.pos, cfg.family
+    if cache.attn_k is not None and pos >= cache.attn_k.shape[2]:
         raise ValueError(f"cache full: position {pos} of "
                          f"{cache.attn_k.shape[2]}")
+    if cross_sites(cfg) and cache.cross_k is None:
+        raise ValueError(f"family {fam!r} decodes against cross K/V: set "
+                         "the cache's cross_k / cross_v from "
+                         "precompute_cross_kv")
     B = token.shape[0]
     x = common.embed(params.embed, cfg, token[:, None])
-    cos_sin = common.rope_tables(torch.full((B, 1), pos, device=x.device),
-                                 cfg.hd(), cfg.rope_theta)
-    for layer, p in enumerate(params.blocks):
-        hn = common.rms_norm(x, p.ln1, cfg.norm_eps)
-        out = common.decode_attention_step(
-            p.attn, cfg, hn, cache.attn_k[layer], cache.attn_v[layer], pos,
+    cos_sin = (common.rope_tables(torch.full((B, 1), pos, device=x.device),
+                                  cfg.hd(), cfg.rope_theta)
+               if cache.attn_k is not None else None)
+
+    def attn_site(p, h, site):
+        hn = common.rms_norm(h, p.ln1, cfg.norm_eps)
+        h = h + common.decode_attention_step(
+            p.attn, cfg, hn, cache.attn_k[site], cache.attn_v[site], pos,
             cos_sin=cos_sin)
-        x = x + out
-        x = x + common.mlp(p.mlp, cfg, common.rms_norm(x, p.ln2,
-                                                        cfg.norm_eps))
+        z = common.rms_norm(h, p.ln2, cfg.norm_eps)
+        if isinstance(p, MoEBlock):
+            return h + moe.moe_ffn(p.moe, cfg, z, n_groups=1)
+        return h + common.mlp(p.mlp, cfg, z)
+
+    def mamba_layer(p, h, mc):
+        out, _ = ssm.mamba_step(p.mamba, cfg,
+                                common.rms_norm(h, p.ln1, cfg.norm_eps), mc)
+        return h + out
+
+    def cross_layer(p, h, i):
+        hn = common.rms_norm(h, p.ln1, cfg.norm_eps)
+        h = h + common.cross_attention_step(p.xattn, cfg, hn,
+                                            cache.cross_k[i],
+                                            cache.cross_v[i])
+        return h + common.mlp(p.mlp, cfg,
+                              common.rms_norm(h, p.ln2, cfg.norm_eps))
+
+    if fam in ("dense", "moe"):
+        for i, p in enumerate(params.blocks):
+            x = attn_site(p, x, i)
+    elif fam == "ssm":
+        for p, mc in zip(params.blocks, cache.mamba):
+            x = mamba_layer(p, x, mc)
+    elif fam == "hybrid":
+        mcs = iter(cache.mamba)
+        for g, group in enumerate(params.groups):
+            for p in group:
+                x = mamba_layer(p, x, next(mcs))
+            x = attn_site(params.shared_attn, x, g)
+        for p in params.tail:
+            x = mamba_layer(p, x, next(mcs))
+    elif fam == "audio":
+        for i, (p, xp) in enumerate(zip(params.blocks, params.cross)):
+            x = cross_layer(xp, attn_site(p, x, i), i)
+    else:                                                   # vlm
+        site = 0
+        for g, (group, xp) in enumerate(zip(params.groups, params.cross)):
+            for p in group:
+                x = attn_site(p, x, site)
+                site += 1
+            x = cross_layer(xp, x, g)
     logits = common.unembed(params.embed, cfg, x)
     return logits[:, 0, :], cache._replace(pos=pos + 1)
 

@@ -1,0 +1,129 @@
+"""Grouped top-k mixture-of-experts FFN of the PyTorch port.
+
+The counterpart of the JAX package's ``models/moe.py``.  Tokens are cut
+into ``n_groups`` groups of ``g``; each token picks its top ``k`` experts,
+and each expert takes at most ``C = capacity(g)`` choices of a group, in
+token-major order (token, then choice).  A choice past its expert's
+capacity is dropped: it gets weight 0.
+
+The reference dispatches with a one-hot ``(g, E*C)`` matrix and runs every
+expert over its whole capacity buffer.  Here each expert's products run
+only on the rows it was given (:func:`moe_ffn`), and an expert that got no
+row is skipped: an empty slot is a zero row, which neither activation
+moves off zero, so the sums are the reference's up to their order.  The
+reference's semantics are kept where a port could silently differ:
+
+* Ties in the top-k keep the lower expert index first, as
+  ``jax.lax.top_k`` does (a stable descending sort; router logits in a
+  bfloat16 model tie often).
+* The renormalized weight multiplies an expert's input *and* its output
+  (the reference's dispatch matrix carries the weight and does the
+  combine too): ``y = sum_k w_k * f_e(w_k * x)``.
+* The weight is cast to ``x``'s dtype before either product; the combine
+  sums in float32 and casts to ``x``'s dtype.
+
+The auxiliary load-balance loss belongs to training and is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import common
+
+
+class MoE(nn.Module):
+    """router (d, E); w_gate / w_up (E, d, f) and w_down (E, f, d) (GELU:
+    no w_gate), all in ``compute_dtype``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+        dt = common.dtype(cfg.compute_dtype)
+        self.router = common.param((d, E), dt, device)
+        if cfg.mlp_act == "swiglu":
+            self.w_gate = common.param((E, d, f), dt, device)
+        self.w_up = common.param((E, d, f), dt, device)
+        self.w_down = common.param((E, f, d), dt, device)
+
+
+def capacity(g: int, cfg) -> int:
+    """Slots per expert in a group of ``g`` tokens (the reference's
+    expression, in its order)."""
+    c = int(g * cfg.experts_per_token / cfg.num_experts
+            * cfg.moe_capacity_factor)
+    return max(c, cfg.experts_per_token)
+
+
+def group_count(n_tokens: int, n_groups: Optional[int] = None) -> int:
+    """The reference's group count: ``n_groups`` (default one group per
+    512 tokens), lowered until it divides the token count."""
+    n_groups = n_groups or max(1, n_tokens // 512)
+    while n_tokens % n_groups:
+        n_groups -= 1
+    return n_groups
+
+
+class Routing(NamedTuple):
+    """Each token's choices, (N, k) with N = B * T, best first."""
+
+    experts: torch.Tensor   # int64 expert ids
+    weight: torch.Tensor    # float32 renormalized weights, 0 where dropped
+    keep: torch.Tensor      # bool: the choice found a slot
+
+
+def route(p: MoE, cfg, x, n_groups: Optional[int] = None) -> Routing:
+    """Top-k routing with per-group capacity.  x: (B, T, D)."""
+    B, T, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    N = B * T
+    n = group_count(N, n_groups)
+    g = N // n
+    logits = (x.reshape(N, D) @ p.router).to(torch.float32)
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)      # jax.nn.softmax
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    # A choice's slot: how many earlier (token, choice) pairs of its group
+    # picked the same expert.
+    onehot = F.one_hot(top_e, E).reshape(n, g * k, E)
+    pos = ((onehot.cumsum(1) - onehot) * onehot).sum(-1).reshape(N, k)
+    keep = pos < capacity(g, cfg)
+    return Routing(top_e, torch.where(keep, top_p, 0.0), keep)
+
+
+def moe_ffn(p: MoE, cfg, x, n_groups: Optional[int] = None):
+    """x: (B, T, D) -> (B, T, D).  Decode passes ``n_groups=1``.
+
+    Reads the per-expert row counts back to the host once (one device
+    sync a call) to run each routed expert on its rows alone."""
+    B, T, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    r = route(p, cfg, x, n_groups)
+    # Kept pairs sorted by expert (stable: token-major within one), the
+    # dropped ones last, under the id E.
+    ids = torch.where(r.keep, r.experts, E).reshape(-1)
+    order = torch.argsort(ids, stable=True)
+    counts = torch.bincount(ids, minlength=E + 1).tolist()
+    rows = order // k
+    wts = r.weight.reshape(-1)[order].to(x.dtype)[:, None]
+    xf = x.reshape(-1, D)
+    out = torch.zeros((B * T, D), dtype=torch.float32, device=x.device)
+    start = 0
+    for e, c in enumerate(counts[:E]):
+        if c:
+            tok, w = rows[start:start + c], wts[start:start + c]
+            xe = xf[tok] * w
+            if cfg.mlp_act == "swiglu":
+                h = F.silu(xe @ p.w_gate[e]) * (xe @ p.w_up[e])
+            else:
+                h = F.gelu(xe @ p.w_up[e], approximate="tanh")
+            ye = h @ p.w_down[e]
+            out.index_put_((tok,), ye.to(torch.float32)
+                           * w.to(torch.float32), accumulate=True)
+        start += c
+    return out.to(x.dtype).reshape(B, T, D)

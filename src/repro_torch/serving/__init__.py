@@ -5,7 +5,7 @@
   search_service -- SearchService / SearchTicket / ServiceConfig
   http_service   -- the HTTP/JSON front door over the service
                     (SearchHTTPService / SearchClient / HttpConfig)
-  engine         -- batched greedy LM decoding for the dense family
+  engine         -- batched greedy LM decoding for every family
                     (Engine / ServeConfig / Request, flash-decode kernel)
 """
 from repro_torch.serving.batcher import CostEvalBatcher  # noqa: F401

@@ -1,14 +1,15 @@
 """Batched LM serving engine: bucketed prefill + lockstep greedy decode.
 
-The counterpart of the JAX package's ``serving/engine.py``, for the dense
-family:
+The counterpart of the JAX package's ``serving/engine.py``; the same code
+serves every family of ``models/lm.py``:
 
 * **Bucketed batching.** Requests are grouped by prompt length, so each
   batch prefills and decodes in lockstep with one cache position.
 * **Prefill via the decode path.** The prompt is teacher-forced through
   ``decode_step`` in a Python loop (the reference scans it with
-  ``lax.scan``); this fills the KV cache token by token.  The prefill
-  never reads a value back to the host.
+  ``lax.scan``); this fills the KV caches and Mamba states token by
+  token.  The prefill reads nothing back to the host but the MoE
+  family's per-expert row counts.
 * **Early-stop masking.** Finished requests (``stop_token`` or their token
   budget) keep decoding in lockstep with their outputs masked; the batch
   retires when all are done.
@@ -16,6 +17,10 @@ family:
   place by every step.  A batch decodes at most ``max_len - prompt - 1``
   new tokens, as in the reference; a prompt longer than ``max_len``
   raises (the reference's cache update would clamp it silently).
+* **Cross K/V.** Audio and vlm models attend to frontend features
+  (``cross_feats``, (1, S, d) or (B, S, d); the first row serves every
+  request), projected into each cross layer's K/V once per batch, when
+  its cache is made, as the reference does.
 
 The engine runs on the device its parameters live on.  ``decode_steps``
 counts the ``decode_step`` calls it has made (prefill and decode).
@@ -52,12 +57,29 @@ class Request:
 class Engine:
     """Batched greedy-decode engine over a fixed parameter set."""
 
-    def __init__(self, cfg, params: lm.LM, scfg: ServeConfig = ServeConfig()):
+    def __init__(self, cfg, params: lm.LM, scfg: ServeConfig = ServeConfig(),
+                 *, cross_feats=None):
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
         self.device = params.embed.tok.device
+        self.cross_feats = (None if cross_feats is None else
+                            torch.as_tensor(cross_feats).to(self.device))
         self.decode_steps = 0
+
+    def _fresh_cache(self, batch: int):
+        cache = lm.init_cache(self.cfg, batch, self.scfg.max_len,
+                              device=self.device)
+        if lm.cross_sites(self.cfg):
+            if self.cross_feats is None:
+                raise ValueError(f"family {self.cfg.family!r} serves "
+                                 "against frontend features: pass "
+                                 "cross_feats")
+            feats = self.cross_feats[:1].expand(
+                batch, *self.cross_feats.shape[1:])
+            k, v = lm.precompute_cross_kv(self.params, self.cfg, feats)
+            cache = cache._replace(cross_k=k, cross_v=v)
+        return cache
 
     def _step(self, cache, token):
         self.decode_steps += 1
@@ -74,8 +96,7 @@ class Engine:
                              f"capacity max_len={self.scfg.max_len}")
         prompts = torch.tensor([r.prompt for r in requests],
                                dtype=torch.int64, device=self.device)
-        cache = lm.init_cache(self.cfg, B, self.scfg.max_len,
-                              device=self.device)
+        cache = self._fresh_cache(B)
         for t in range(Tp):
             token, cache = self._step(cache, prompts[:, t])
 

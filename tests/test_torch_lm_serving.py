@@ -2,9 +2,10 @@
 
 The port's ``Engine`` and the JAX package's serve the same
 ``synthetic_requests`` (same numpy draws) with the same weights
-(``params_from_jax``) in float32, and must emit the same tokens.  The
-rest are the port's counterparts of the reference's engine tests
-(tests/test_serving.py).
+(``params_from_jax`` of ``test_torch_lm.reference_tree``) in float32, and
+must emit the same tokens; audio and vlm engines attend to the same
+seeded random frontend features.  The rest are the port's counterparts of
+the reference's engine tests (tests/test_serving.py).
 """
 import dataclasses
 import json
@@ -18,7 +19,6 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.models import lm as jlm
 from repro.serving import Engine as JEngine
 from repro.serving import ServeConfig as JServeConfig
 from repro.serving.engine import synthetic_requests as jsynthetic
@@ -26,6 +26,7 @@ from repro_torch import configs
 from repro_torch.models import lm
 from repro_torch.serving import (Engine, Request, ServeConfig,
                                  synthetic_requests)
+from test_torch_lm import reference_tree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,20 +43,35 @@ def _engine(arch="qwen1p5_0p5b", **scfg):
                                                   "max_batch": 4, **scfg}))
 
 
-@pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "qwen2p5_3b"])
+# The six families of the reference's engine test (tests/test_serving.py),
+# and qwen2.5-3b (GQA, QKV bias).
+@pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "qwen2p5_3b",
+                                  "mamba2_130m", "zamba2_1p2b",
+                                  "whisper_small", "llama3p2_vision_90b",
+                                  "phi3p5_moe_42b"])
 def test_engine_tokens_equal_reference_engine(arch):
     jcfg = _f32(jconfigs.get_smoke(arch))
     cfg = _f32(configs.get_smoke(arch))
-    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    model = lm.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    tree = reference_tree(jcfg)
+    jparams = jax.tree.map(jax.numpy.asarray, tree)
+    model = lm.params_from_jax(tree, cfg)
+    feats = None
+    if lm.cross_sites(cfg):
+        S = cfg.encoder_seq if cfg.family == "audio" else cfg.vision_seq
+        feats = np.random.default_rng(8).standard_normal(
+            (1, S, cfg.d_model)).astype(np.float32)
     scfg = dict(max_len=24, max_batch=3)
     jreqs = jsynthetic(7, cfg.vocab_size, prompt_lens=(4, 9), max_new=6,
                        seed=3)
     reqs = synthetic_requests(7, cfg.vocab_size, prompt_lens=(4, 9),
                               max_new=6, seed=3)
     assert [r.prompt for r in reqs] == [r.prompt for r in jreqs]
-    jstats = JEngine(jcfg, jparams, JServeConfig(**scfg)).serve(jreqs)
-    eng = Engine(cfg, model, ServeConfig(**scfg))
+    jstats = JEngine(jcfg, jparams, JServeConfig(**scfg),
+                     cross_feats=None if feats is None
+                     else jax.numpy.asarray(feats)).serve(jreqs)
+    eng = Engine(cfg, model, ServeConfig(**scfg),
+                 cross_feats=None if feats is None
+                 else torch.from_numpy(feats))
     stats = eng.serve(reqs)
     for a, b in zip(reqs, jreqs):
         assert a.output == b.output, (a.uid, a.output, b.output)
@@ -68,6 +84,18 @@ def test_engine_tokens_equal_reference_engine(arch):
     lens = [len(r.prompt) for r in reqs]
     batches = {n: -(-lens.count(n) // 3) for n in set(lens)}
     assert eng.decode_steps == sum(b * (n + 6) for n, b in batches.items())
+
+
+def test_cross_families_need_frontend_features():
+    cfg = _f32(configs.get_smoke("whisper_small"))
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(cfg, model, ServeConfig(max_len=16, max_batch=2))
+    with pytest.raises(ValueError, match="cross_feats"):
+        eng.serve(synthetic_requests(1, cfg.vocab_size, prompt_lens=(3,),
+                                     max_new=2))
+    with pytest.raises(ValueError, match="cross K/V"):
+        lm.decode_step(model, cfg, lm.init_cache(cfg, 1, 4),
+                       torch.tensor([1]))
 
 
 def test_generates_requested_tokens():
@@ -133,11 +161,34 @@ def test_serve_cli_on_cpu_prints_stats():
     assert stats["requests"] == 5 and stats["tokens"] == 20
 
 
+@pytest.mark.parametrize("arch", ["mamba2_130m", "whisper_small"])
+def test_serve_cli_serves_other_families_on_cpu(arch):
+    """The SSM family (no attention cache) and the audio family (cross
+    K/V from the launcher's zero features) through the CLI."""
+    proc = _cli("--arch", arch, "--smoke", "--device", "cpu",
+                "--requests", "3", "--max-new", "3", "--prompt-lens", "2,5")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert f"family={configs.get(arch).family}" in proc.stdout
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert stats["requests"] == 3 and stats["tokens"] == 9
+
+
 @pytest.mark.parametrize("args,msg", [
     (("--mesh", "1x1"), "not ported yet"),
-    (("--arch", "mamba2_130m"), "not ported yet"),
+    pytest.param(("--arch", "no_such_arch"), "unknown architecture",
+                 id="args1-not ported yet"),
 ])
 def test_serve_cli_rejects_what_is_not_ported(args, msg):
+    """``--mesh`` (sharded decode) is refused; so is an unknown --arch."""
     proc = _cli("--smoke", "--device", "cpu", *args)
     assert proc.returncode == 2
     assert msg in proc.stderr
+
+
+def test_serve_cli_without_a_card_does_not_fall_back_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: --device cuda serves on it")
+    proc = _cli("--arch", "mamba2_130m", "--smoke")      # --device cuda
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "tok_per_s" not in proc.stdout
