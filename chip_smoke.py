@@ -135,7 +135,8 @@ and no result line:
    extras byte for byte, the launches exact and equal to serial's
    (replays counted), no plain version on the card, at least one shard
    feasible.  (b) Wall seconds of ``serial``, ``threads`` and ``device``
-   at 4 and 10 shards for reinforce (eps 1000, iot) and ga (population
+   at 4 and 10 shards for reinforce (eps 200, iot; cut from 1000 to make
+   room for phases 8c and 10) and ga (population
    100, 500 generations, cloud), each held to serial's bytes and
    launches; then the device backend's reinforce fleet alone at 1, 4
    and 10 shards: ms a fleet epoch over 50 unprofiled epochs (and its
@@ -148,8 +149,8 @@ and no result line:
    (c) The search-quality check: each config of
    ``results/search_quality_ref.json`` (the JAX package's seeds 0-9,
    ``tools/search_quality_ref.py``) through fanout at 10 shards, seed 0
-   (two_stage on ``threads``, reinforce and ga on ``device``; the
-   reinforce config is (b)'s 10-shard run): each side's median and
+   (two_stage on ``threads``, reinforce and ga on ``device``, each its
+   own run at the file's eps): each side's median and
    interquartile range, the median ratio, Mann-Whitney U p-values
    (two-sided, and one-sided for the port worse) and the Hodges-Lehmann
    shift with its 95% interval.  It fails where the port is worse at
@@ -264,6 +265,36 @@ and no result line:
    complete and in range.  (c) one step at B = 8 with the cache at
    position 64: ms, the device busy share, the step's bound (an MoE step
    reads the experts its routing picked), tokens/s and peak GB.
+8c. Prefill of every family at full width (``PREFILL_*``): phase 8's
+   qwen2.5-3b whole and phase 8b's models with its depth cuts (random
+   weights from a seed, bfloat16), B = 8 at T = 512 (the direct attention
+   path) and T = 2,048 (the blockwise path; whisper's encoder takes its
+   ragged blockwise path over 1,500 frames, llama-vision's cross layers
+   over 1,601 patches at T = 2,048): ms a prefill, peak GB (above what
+   earlier phases left allocated, weights included), the FLOP
+   bound and the share of the bf16 peak.  Float32 checks, atol / rtol
+   1e-4: each family's prefill logits against the last logits of the
+   teacher-forced decode steps (flash decode) on phase 8b's route-check
+   depths at B = 2, T = 64 (MoE at capacity factor 8, where neither path
+   drops a token), qwen2.5 at 2 layers and T = 1,100 (the blockwise
+   prefill), and the blockwise path against the direct one at
+   ``BLOCKWISE_SHAPES``.
+10. Training: ``repro_torch.launch.train`` in process on qwen1.5-0.5b at
+   full width, bfloat16 compute with float32 master weights, B = 8, T =
+   1,024, 40 steps of Adam with the launcher's cosine warm-up and a
+   checkpoint at step 20, under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)``: the loss must fall (the launcher's exit rule).  A
+   resume from the step-20 checkpoint must give the uninterrupted run's
+   losses within rtol 1e-3 (their bit equality and the operations that
+   warn of nondeterminism are recorded); one ``--micro 2`` step from it
+   must give the full batch's loss within 1e-2.  ms a step, tokens/s,
+   peak GB (above earlier phases' leftovers), a profiler trace of 2
+   steps, the share of the bf16 dense peak (model FLOPs 6 N per token
+   plus attention, against 989 TFLOP/s).  Then one bfloat16 smoke-size
+   step of each other family (MoE, SSD, the shared block, cross-attention
+   and the audio encoder backward on the card): loss and parameters
+   finite; each step twice from one seed (bit-equal or not is recorded)
+   and once under deterministic algorithms (warnings recorded).
 9. Kernel timings at the paths' shapes: CUDA-event ms per call, and
    device µs per launch from a profiler trace of back-to-back calls
    (``search_kernel_times`` for the search path's calls: the cost kernel
@@ -346,8 +377,10 @@ SERVICE_NSGA2_EPS, SERVICE_GA_EPS = 640, 2000
 # Phase 6d: fanout on mobilenet_v2 at full width (latency / area / dla,
 # LP, seed 0).  (a) Each backend against serial at 4 shards: inner ->
 # (eps, inner options, platform, backends held to serial).  (b) Walls of
-# serial, threads and device at 4 and 10 shards: reinforce at eps 1000
-# (iot) and ga at population 100 and 500 generations (cloud); shards ->
+# serial, threads and device at 4 and 10 shards: reinforce at eps 200
+# (iot; cut from 1000 for phases 8c and 10: the backends stay bit-equal to
+# serial at any eps) and ga at population 100 and 500 generations
+# (cloud); shards ->
 # epochs of the device backend's traced fleet runs, and the unprofiled
 # fleet epochs timed before each trace.  (c) The search-quality
 # check: ten shards (seeds 0-9) of each config of the JAX package's
@@ -361,7 +394,7 @@ FANOUT_CHECK_RUNS = {
     "sa": (200, {}, "cloud", ("threads",)),
 }
 FANOUT_WALL_SHARDS = (4, 10)
-FANOUT_WALL_RUNS = {"reinforce": (1000, {}, "iot"),
+FANOUT_WALL_RUNS = {"reinforce": (200, {}, "iot"),
                     "ga": (50_000, {"population": 100}, "cloud")}
 FANOUT_TRACE_EPOCHS = {1: 3, 4: 2, 10: 1}
 FANOUT_TIMED_EPOCHS = 50
@@ -457,6 +490,38 @@ LM_FAMILIES = (("phi3p5_moe_42b", 16, 2), ("qwen3_moe_235b", 4, 1),
 # Phase 8b's engine runs take phase 8's request count, new tokens and
 # batch, with these prompt lengths and cache; (c) times a step here.
 FAMILY_PROMPT_LENS, FAMILY_MAX_LEN, FAMILY_STEP_POS = (16, 64), 256, 64
+# Phase 8c: prefill of every family at full width -- phase 8's qwen2.5-3b
+# whole and phase 8b's models with its depth cuts -- at B = 8, T = 512
+# (the direct attention path) and T = 2,048 (the blockwise path; whisper's
+# encoder takes the ragged blockwise path over its 1,500 frames at either
+# T, llama-vision's cross-attention over 1,601 patches at T = 2,048).  The
+# float32 checks: prefill against the teacher-forced decode on phase 8b's
+# route-check depths (qwen2.5 at 2 layers) at B = 2, T = 64, and at T =
+# 1,100 for qwen2.5 (blockwise prefill against flash decode); then the
+# blockwise path against the direct one on full-width shapes.
+PREFILL_BATCH, PREFILL_LENS = 8, (512, 2048)
+PREFILL_CHECK_BATCH, PREFILL_CHECK_T, PREFILL_CHECK_LONG_T = 2, 64, 1100
+PREFILL_TIMED = 3
+# (name, B, T, S, Hq, Hkv, hd, causal) of the blockwise-against-direct
+# check: qwen2.5's self-attention at T = 2,048, whisper's encoder over
+# 1,500 frames, llama-vision's cross-attention over 1,601 patches.
+BLOCKWISE_SHAPES = (("qwen2p5_self", 2, 2048, 2048, 16, 2, 128, True),
+                    ("whisper_encoder", 2, 1500, 1500, 12, 12, 64, False),
+                    ("llama_vision_cross", 2, 2048, 1601, 64, 8, 128, False))
+# Phase 10: ``repro_torch.launch.train`` in process on qwen1.5-0.5b at full
+# width in bfloat16 (float32 master weights), B = 8, T = 1,024, 40 steps of
+# Adam with the launcher's cosine warm-up over 20, a checkpoint at step 20;
+# then a resume from it (losses held to the uninterrupted run's, rtol
+# TRAIN_RESUME_RTOL, and their bit equality recorded), one --micro 2 step
+# from it (loss within TRAIN_MICRO_RTOL of the full batch's: the halves
+# round differently in bfloat16), and one smoke-size bfloat16 step of each
+# other family at B = 2, T = 64.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_RESUME_AT = "qwen1p5_0p5b", 40, 20
+TRAIN_ARGS = ("--batch", "8", "--seq", "1024", "--warmup", "20")
+TRAIN_RESUME_RTOL, TRAIN_MICRO_RTOL = 1e-3, 1e-2
+TRAIN_FAMILIES = ("phi3p5_moe_42b", "qwen3_moe_235b", "mamba2_130m",
+                  "zamba2_1p2b", "whisper_small", "llama3p2_vision_90b")
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_T = 2, 64
 # The service path: (method, workload, eps, seed, options), all at
 # latency / area / iot / dla, LP.  Requests 1 and 2 are the same query
 # from two users.
@@ -1981,9 +2046,9 @@ def _step_bound(model, cfg, B, T, moe_rows=None):
                                        else "operations"), nbytes
 
 
-def _device_busy(fn, steps):
+def _device_busy(fn, steps, top=3):
     """Device time per call of ``fn`` from a profiler trace of ``steps``
-    calls, the wall time per call, the three kernels that took most, and
+    calls, the wall time per call, the ``top`` kernels that took most, and
     the flash-decode kernels' device time and launches per call (split and
     combine together); None where the trace shows no device time."""
     import torch
@@ -2003,7 +2068,7 @@ def _device_busy(fn, steps):
     device_us = sum(e.self_device_time_total for e in events)
     if device_us <= 0:
         return None
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
     flash = [e for e in events if "flash_decode" in e.key]
     return {"device_ms_per_step": device_us / 1e3 / steps,
             "flash_decode_device_ms_per_step": sum(
@@ -3680,6 +3745,456 @@ def phase_lm_families(dev):
     return dict(total), out
 
 
+def _aux_feats(cfg, B, dev, seed):
+    """Seeded random frontend stubs of an audio / vlm config in its compute
+    dtype, as ``forward_hidden`` takes them ({"frames"} / {"patches"}, B
+    rows); None for the other families."""
+    feats = _frontend_feats(cfg, dev, seed)
+    if feats is None:
+        return None
+    key = "frames" if cfg.family == "audio" else "patches"
+    return {key: feats.expand(B, *feats.shape[1:]).contiguous()}
+
+
+def _prefill_vs_decode(dev, base, layers, T):
+    """Float32 weights at ``layers`` layers of ``base`` (MoE at capacity
+    factor 8, where neither path drops a token): the prefill's logits of
+    a prompt of T tokens against the last logits of T teacher-forced
+    decode steps (flash decode on the card), atol / rtol 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(base, num_layers=layers,
+                              param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    model = lm.init_params(cfg, gen, device=dev)
+    B = PREFILL_CHECK_BATCH
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=dev)
+    aux = _aux_feats(cfg, B, dev, 3)
+    last = lm.prefill(model, cfg, tokens, aux)
+    cache = lm.init_cache(cfg, B, T, device=dev)
+    if aux is not None:
+        with torch.no_grad():
+            feats = (lm._encode_audio(model, cfg, aux["frames"])
+                     if cfg.family == "audio" else aux["patches"])
+        k, v = lm.precompute_cross_kv(model, cfg, feats)
+        cache = cache._replace(cross_k=k, cross_v=v)
+    for t in range(T):
+        logits, cache = lm.decode_step(model, cfg, cache, tokens[:, t])
+    torch.cuda.synchronize()
+    err = float((last - logits).abs().max())
+    check(bool(last.isfinite().all()), f"{base.name} prefill logits not "
+          "finite")
+    check(torch.allclose(last, logits, rtol=1e-4, atol=1e-4),
+          f"{base.name} f32 at {layers} layers, T = {T}: prefill differs "
+          f"from the teacher-forced decode by {err}")
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"layers": layers, "T": T, "max_abs_diff": err}
+
+
+def _prefill_bound(model, cfg, B, T, moe_rows):
+    """The least time (ms) and its limit for one prefill of B x T tokens,
+    with its FLOPs and bytes.  FLOPs: 2 per weight element and row of
+    each matrix product (the embedding is a gather; the unembedding and a
+    tied table multiply only the last position; the audio encoder's
+    weights B x S frames; cross wk / wv the B x S features; hybrid's
+    shared block at each site; of an MoE layer's experts the kept rows of
+    ``moe_rows``), the attentions' score and value products (causal: the
+    half on or below the diagonal), and SSD's products within and across
+    chunks.  Bytes: every weight read once, tokens in and logits out.  At
+    the bf16 tensor-core rate."""
+    from repro_torch.models import lm, ssm
+
+    S = cfg.encoder_seq if cfg.family == "audio" else cfg.vision_seq
+    hd, H = cfg.hd(), cfg.num_heads
+    nbytes = ops = 0
+    for name, p in model.named_parameters():
+        parts = ["", *name.split(".")]
+        nbytes += p.numel() * p.element_size()
+        if name == "embed.tok":
+            if cfg.tie_embeddings:
+                ops += 2 * B * p.numel()
+            continue
+        if name == "embed.unembed":
+            ops += 2 * B * p.numel()
+            continue
+        if parts[-2] == "moe" and parts[-1] != "router":
+            ops += 2 * moe_rows[int(parts[2])][1] * p.numel() / (
+                cfg.num_experts)
+            continue
+        if p.dim() < 2 or parts[-1] == "conv_w":
+            continue
+        if parts[1] == "encoder" or (parts[-2] == "xattn"
+                                     and parts[-1] in ("wk", "wv")):
+            rows = B * S
+        else:
+            rows = B * T
+        sites = lm.attention_sites(cfg) if parts[1] == "shared_attn" else 1
+        ops += 2 * rows * p.numel() * sites
+    ops += 2 * B * H * hd * T * T * lm.attention_sites(cfg)
+    ops += 4 * B * H * hd * T * S * lm.cross_sites(cfg)
+    if cfg.family == "audio":
+        ops += 4 * B * H * hd * S * S * cfg.encoder_layers
+    if lm.mamba_layers(cfg):
+        d_inner, Hs, P, N = ssm.dims(cfg)
+        Q = min(cfg.ssm_chunk, T)
+        per = B * T * (Q * (N + Hs * P) + 4 * Hs * P * N)
+        ops += per * lm.mamba_layers(cfg)
+    nbytes += 8 * B * T + B * cfg.vocab_size * model.embed.tok.element_size()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
+
+
+def _blockwise_checks(dev):
+    """The blockwise path against the direct one at ``BLOCKWISE_SHAPES``
+    (float32, atol / rtol 1e-4): the online softmax over chunks of 1,024
+    keys, and its ragged tail at S = 1,500 and 1,601."""
+    import torch
+
+    from repro_torch.models import common
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    out = {}
+    for name, B, T, S, Hq, Hkv, hd, causal in BLOCKWISE_SHAPES:
+        q = torch.randn((B, T, Hq, hd), generator=gen, device=dev)
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+                for _ in range(2))
+        with torch.no_grad():
+            got = common.blockwise_attention(q, k, v, causal=causal)
+            want = common._direct_attention(q, k, v, torch.float32, causal)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+              f"blockwise attention {name} differs from the direct path by "
+              f"{err}")
+        out[name] = err
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_prefill(dev):
+    """Phase 8c: prefill of every family at full width, its float32
+    checks against the teacher-forced decode, and the blockwise path
+    against the direct one."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    # Peaks are read above what earlier phases left allocated.
+    mem0 = torch.cuda.memory_allocated(dev)
+    out = {"blockwise_vs_direct_max_abs_diff": _blockwise_checks(dev),
+           "base_gb": mem0 / 1e9}
+    log(f"[prefill] blockwise vs direct (f32, atol / rtol 1e-4): "
+        f"{json.dumps(out['blockwise_vs_direct_max_abs_diff'])}")
+    base = configs.get(LM_ARCH)
+    out["long_check"] = _prefill_vs_decode(dev, base, 2,
+                                           PREFILL_CHECK_LONG_T)
+    log(f"[prefill] {LM_ARCH} f32: prefill of {PREFILL_CHECK_LONG_T} tokens "
+        f"(blockwise) against {PREFILL_CHECK_LONG_T} decode steps "
+        f"{json.dumps(out['long_check'])}")
+    for arch, layers, check_layers in ((LM_ARCH, None, 2),) + LM_FAMILIES:
+        t0 = time.perf_counter()
+        base = configs.get(arch)
+        cfg = base if layers is None else dataclasses.replace(
+            base, num_layers=layers)
+        rec = {"family": cfg.family, "layers": cfg.num_layers,
+               "published_layers": base.num_layers,
+               "f32_check": _prefill_vs_decode(
+                   dev, base, check_layers or base.num_layers,
+                   PREFILL_CHECK_T)}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = lm.init_params(cfg, gen, device=dev)
+        B = PREFILL_BATCH
+        aux = _aux_feats(cfg, B, dev, 1)
+        for T in PREFILL_LENS:
+            tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                                   device=dev)
+            run = lambda: lm.prefill(model, cfg, tokens, aux)
+            last = run()                                    # warm-up
+            check(tuple(last.shape) == (B, cfg.vocab_size)
+                  and bool(last.isfinite().all()),
+                  f"{arch} prefill at T = {T}: shape {tuple(last.shape)} "
+                  "or values not finite")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            for _ in range(PREFILL_TIMED):
+                run()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1) / PREFILL_TIMED
+            peak = (torch.cuda.max_memory_allocated(dev) - mem0) / 1e9
+            rows = _moe_rows(run) if cfg.family == "moe" else None
+            bound_ms, bound_by, flops, nbytes = _prefill_bound(
+                model, cfg, B, T, rows)
+            rec[f"T{T}"] = {
+                "ms": ms, "peak_gb": peak, "bound_ms": bound_ms,
+                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                "share_of_bf16_peak": flops / (1e-3 * ms) / BF16_FLOP_PER_S,
+                "tokens_per_s": B * T / (1e-3 * ms)}
+            log(f"[prefill] {arch} ({cfg.family}, {cfg.num_layers} of "
+                f"{base.num_layers} layers) B = {B}, T = {T}: {ms:.2f} ms a "
+                f"prefill, peak {peak:.2f} GB, bound {bound_ms:.3f} ms "
+                f"({bound_by}; {flops:.3g} FLOPs), "
+                f"{100 * rec[f'T{T}']['share_of_bf16_peak']:.1f}% of the "
+                "bf16 peak")
+            if arch == LM_ARCH:
+                rec[f"T{T}"]["trace"] = _device_busy(run, 1, top=8)
+                log(f"[prefill] {arch} T = {T} trace: "
+                    f"{json.dumps(rec[f'T{T}']['trace'])}")
+            del tokens, last, run
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"[prefill] {arch}: f32 check {json.dumps(rec['f32_check'])}")
+        out[arch] = rec
+        del model, aux
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_flops(cfg, B, T):
+    """Model FLOPs of one training step: 6 per weight element a token of
+    the matrix products (the embedding gather excluded, the unembedding
+    included) plus 3x the causal attention's score and value products;
+    remat's recomputation not counted."""
+    from repro_torch.models import lm
+
+    model = lm.LM(cfg, "meta")
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if p.dim() == 2 and name != "embed.tok")
+    if cfg.tie_embeddings:
+        n += model.embed.tok.numel()
+    attn = 2 * B * cfg.num_heads * cfg.hd() * T * T * cfg.num_layers
+    return 6 * n * B * T + 3 * attn
+
+
+def _deterministic():
+    """A context that turns on ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` and yields the list of warnings raised inside it
+    (an operation without a deterministic implementation warns)."""
+    import contextlib
+    import warnings
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                yield caught
+        finally:
+            torch.use_deterministic_algorithms(prev)
+
+    return ctx()
+
+
+def _nondeterministic(caught):
+    return sorted({str(w.message).split(".")[0][:160] for w in caught
+                   if "determinis" in str(w.message)})
+
+
+def _family_train_steps(dev):
+    """One bfloat16 ``lm.train_step`` of each other family at a smoke size
+    (float32 master weights, the launcher's optimizer): the backward
+    through MoE, SSD, the shared block, cross-attention and the audio
+    encoder on the card; loss and every parameter finite.  Each step runs
+    twice from the same seed with deterministic algorithms off (are the
+    parameters bit-equal?) and once more with them on, recording the
+    operations that warn of having no deterministic implementation."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.training import data, optim
+
+    def one_step(cfg):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = lm.init_params(cfg, gen, device=dev, dtype=torch.float32)
+        opt = optim.Adam(lr=optim.cosine_schedule(3e-4, 1, 10),
+                         weight_decay=0.01, clip_norm=1.0)
+        state = opt.init(dict(model.named_parameters()))
+        B, T = TRAIN_SMOKE_BATCH, TRAIN_SMOKE_T
+        batch = data.device_batch(data.SyntheticLM(data.DataConfig(
+            seq_len=T, global_batch=B, vocab_size=cfg.vocab_size)).batch(0),
+            dev)
+        batch.update(_aux_feats(cfg, B, dev, 5) or {})
+        t0 = time.perf_counter()
+        model, state, loss = lm.train_step(model, state, batch, cfg, opt)
+        torch.cuda.synchronize()
+        return (float(loss), [p.detach().clone() for p in
+                              model.parameters()],
+                1e3 * (time.perf_counter() - t0))
+
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(configs.get_smoke(arch),
+                                  compute_dtype="bfloat16")
+        loss, params, ms = one_step(cfg)
+        check(math.isfinite(loss) and all(bool(p.isfinite().all())
+                                          for p in params),
+              f"{arch}: a smoke training step gave a loss {loss} or "
+              "parameters that are not finite")
+        loss2, params2, _ = one_step(cfg)
+        with _deterministic() as caught:
+            one_step(cfg)
+        out[arch] = {
+            "loss": loss, "first_step_ms": ms,
+            "repeat_bit_equal": loss == loss2 and all(
+                torch.equal(a, b) for a, b in zip(params, params2)),
+            "nondeterministic_warnings": _nondeterministic(caught)}
+        del params, params2
+    torch.cuda.empty_cache()
+    log(f"[train] one bf16 smoke step of each other family: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _train_trace(dev, cfg, B, T):
+    """A profiler trace of 2 of the launcher's bf16 steps (after 2
+    warm-up steps) at full width: device ms and busy share a step and the
+    kernels that took most."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.training import data, optim
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = lm.init_params(cfg, gen, device=dev, dtype=torch.float32)
+    opt = optim.Adam(lr=optim.cosine_schedule(3e-4, 20, TRAIN_STEPS),
+                     weight_decay=0.01, clip_norm=1.0)
+    state = opt.init(dict(model.named_parameters()))
+    batch = data.device_batch(data.SyntheticLM(data.DataConfig(
+        seq_len=T, global_batch=B, vocab_size=cfg.vocab_size)).batch(0),
+        dev)
+
+    def step():
+        nonlocal model, state
+        model, state, loss = lm.train_step(model, state, batch, cfg, opt)
+        return float(loss)
+
+    for _ in range(2):
+        step()
+    trace = _device_busy(step, 2, top=10)
+    check(trace is not None, "the trace of the training step shows no "
+          "device time")
+    log(f"[train] trace of 2 steps: {json.dumps(trace)}")
+    del model, state
+    torch.cuda.empty_cache()
+    return trace
+
+
+def phase_train(dev):
+    """Phase 10: the launcher's training of qwen1.5-0.5b at full width,
+    its resume from step 20, a --micro 2 step, and one smoke-size step of
+    each other family."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.training import checkpoint
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    argv = ["--arch", TRAIN_ARCH, *TRAIN_ARGS, "--device", dev.type,
+            "--ckpt-dir", ckdir, "--ckpt-every", str(TRAIN_RESUME_AT)]
+
+    def keep_only(step):
+        for d in os.listdir(ckdir):
+            if d != f"step_{step:010d}":
+                shutil.rmtree(os.path.join(ckdir, d))
+        check(checkpoint.latest_step(ckdir) == step,
+              f"checkpoint of step {step} missing")
+
+    mem0 = torch.cuda.memory_allocated(dev)     # earlier phases' leftovers
+    try:
+        with _deterministic() as caught:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            full = train.run(argv + ["--steps", str(TRAIN_STEPS)])
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated(dev) - mem0) / 1e9
+            keep_only(TRAIN_RESUME_AT)
+            micro = train.run(argv + ["--steps", str(TRAIN_RESUME_AT + 1),
+                                      "--resume", "--micro", "2"])
+            keep_only(TRAIN_RESUME_AT)
+            resumed = train.run(argv + ["--steps", str(TRAIN_STEPS),
+                                        "--resume"])
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    nondeterministic = _nondeterministic(caught)
+    losses = full["losses"]
+    check(full["steps_run"] == TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), f"training ran "
+          f"{full['steps_run']} steps, losses {losses}")
+    check(full["final_loss"] < full["first_loss"], f"the loss did not "
+          f"fall: first {full['first_loss']}, final {full['final_loss']}")
+    tail = losses[TRAIN_RESUME_AT:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], tail))
+    bit_equal = resumed["losses"] == tail
+    check(resumed["steps_run"] == len(tail) and rel <= TRAIN_RESUME_RTOL,
+          f"the resumed run's losses {resumed['losses']} differ from the "
+          f"uninterrupted run's {tail} by {rel} relative")
+    micro_rel = abs(micro["losses"][0] - tail[0]) / abs(tail[0])
+    check(micro["steps_run"] == 1 and micro_rel <= TRAIN_MICRO_RTOL,
+          f"the --micro 2 step's loss {micro['losses']} differs from the "
+          f"full batch's {tail[0]} by {micro_rel} relative")
+    cfg = configs.get(TRAIN_ARCH)
+    B, T = int(TRAIN_ARGS[1]), int(TRAIN_ARGS[3])
+    step_ms = 1e3 * statistics.median(full["step_s"][5:])
+    flops = _train_flops(cfg, B, T)
+    rec = {
+        "arch": TRAIN_ARCH, "batch": B, "seq": T, "steps": TRAIN_STEPS,
+        "params": sum(p.numel() for p in lm.LM(cfg, "meta").parameters()),
+        "ms_per_step_median": step_ms,
+        "first_step_ms": 1e3 * full["step_s"][0],
+        "tokens_per_s": B * T / (1e-3 * step_ms), "peak_gb": peak,
+        "base_gb": mem0 / 1e9,
+        "wall_s": wall, "first_loss_mean": full["first_loss"],
+        "final_loss_mean": full["final_loss"], "model_flops": flops,
+        "share_of_bf16_peak": flops / (1e-3 * step_ms) / BF16_FLOP_PER_S,
+        "resume_bit_equal": bit_equal, "resume_max_rel_diff": rel,
+        "micro2_rel_diff": micro_rel, "micro2_step_ms":
+            1e3 * micro["step_s"][0],
+        "nondeterministic_warnings": nondeterministic,
+        "losses": losses, "resumed_losses": resumed["losses"]}
+    log(f"[train] {TRAIN_ARCH} B = {B}, T = {T}, bf16: {step_ms:.2f} ms a "
+        f"step (median of steps 6-{TRAIN_STEPS}), "
+        f"{rec['tokens_per_s']:,.0f} tokens/s, peak {peak:.2f} GB, "
+        f"{100 * rec['share_of_bf16_peak']:.1f}% of the bf16 dense peak "
+        f"({flops:.3g} model FLOPs a step); loss {full['first_loss']:.4f} "
+        f"-> {full['final_loss']:.4f}; resume from step {TRAIN_RESUME_AT}: "
+        f"bit-equal {bit_equal}, max rel diff {rel:.3g}; --micro 2 rel diff "
+        f"{micro_rel:.3g}; nondeterministic ops {nondeterministic}")
+    rec["trace"] = _train_trace(dev, cfg, B, T)
+    rec["families"] = _family_train_steps(dev)
+    return rec
+
+
 def _flash_entry(dev, counts_by_path, flash_err):
     """The flash-decode kernel's line: ms, plain and library ms and the
     bound at each timed shape, cycling through enough input copies that
@@ -4031,6 +4546,8 @@ def main(argv=None):
         lm_counts, lm = timed("lm", phase_lm, dev)
         family_counts, families = timed("lm_families", phase_lm_families,
                                         dev)
+        prefill = timed("prefill", phase_prefill, dev)
+        training = timed("train", phase_train, dev)
         kernels = timed("timings", phase_timings, dev, counts, cost_err,
                         lstm_err, service_counts, multi_err,
                         {f"{phase}_{k}": v
@@ -4063,7 +4580,9 @@ def main(argv=None):
              "http_path": http, "http_launches": http_counts,
              "lm_path": lm, "lm_launches": lm_counts,
              "lm_families_path": families,
-             "lm_families_launches": family_counts, "phase_s": phase_s,
+             "lm_families_launches": family_counts,
+             "prefill_path": prefill, "train_path": training,
+             "phase_s": phase_s,
              "kernels": kernels, **result}, indent=1))
     log(json.dumps(result))
     return 0

@@ -1,20 +1,22 @@
-"""Shared model primitives of the PyTorch port: what one decode step needs.
+"""Shared model primitives of the PyTorch port.
 
-The counterpart of the JAX package's ``models/common.py`` for the decode
-path: norms, RoPE, the attention and MLP parameters and their one-token
-steps, the cross-attention decode pieces (the reference's
-``lm.precompute_cross_kv`` per layer and ``lm._cross_step_cached``),
-embedding and unembedding.  The layout is the JAX
-package's: weights are ``(in, out)`` and applied as ``x @ W``, and a KV
-cache is ``(B, Tmax, Kv, hd)``, so weights carry across without a
-transpose.
+The counterpart of the JAX package's ``models/common.py``: norms, RoPE,
+the attention and MLP parameters, full-sequence (training / prefill)
+self- and cross-attention, the one-token decode steps, the
+cross-attention decode pieces (the reference's ``lm.precompute_cross_kv``
+per layer and ``lm._cross_step_cached``), embedding and unembedding.  The
+layout is the JAX package's: weights are ``(in, out)`` and applied as
+``x @ W``, and a KV cache is ``(B, Tmax, Kv, hd)``, so weights carry
+across without a transpose.
 
 Differences from the reference, all of them value-preserving:
 
 * Weight matrices, biases and the token embedding are stored in the
-  config's ``compute_dtype`` (cast once, at load), where the reference
-  keeps float32 parameters and casts them at each use; norm gains stay
-  float32, as the reference's norms read them.
+  config's ``compute_dtype`` (cast once, at load) for serving, where the
+  reference keeps float32 parameters and casts them at each use; norm
+  gains stay float32, as the reference's norms read them.  A model built
+  with float32 storage (:func:`stored`, training's master weights) is
+  the reference's layout: every use goes through :func:`cast`.
 * :func:`decode_attention_step` writes this step's key and value into the
   cache in place, where the reference returns updated copies.
 * Its attention goes through :func:`repro_torch.kernels.ops.decode_attention`
@@ -28,11 +30,17 @@ Differences from the reference, all of them value-preserving:
   throughout: a float32 model agrees up to the order of the sums, a
   bfloat16 one up to that rounding (as in the self-attention step).
 
-The forward (training / prefill) paths -- ``attention``,
-``blockwise_attention``, ``cross_attention`` -- are not ported yet.
+The full-sequence paths (:func:`attention`, :func:`cross_attention`) are
+plain tensor operations in the reference's order and precision: scores
+in float32 and softmax weights cast to ``x``'s dtype before P.V up to
+``FLASH_THRESHOLD`` queries, and past it :func:`blockwise_attention`,
+the online softmax over KV chunks with float32 accumulators and the
+ragged tail masked.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -51,6 +59,24 @@ def dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def stored(cfg, dt=None):
+    """The config the parameter constructors read: ``cfg`` itself (matrices
+    stored in ``compute_dtype``), or with matrices stored in ``dt``, such
+    as float32 master weights for training, which the forward casts to
+    ``compute_dtype`` at each use (:func:`cast`)."""
+    if dt is None:
+        return cfg
+    return dataclasses.replace(cfg, compute_dtype=str(dt).rsplit(".", 1)[-1])
+
+
+def cast(w, cfg):
+    """``w`` in ``cfg.compute_dtype``: ``w`` itself when it is stored so
+    (serving), a copy when it is a float32 master weight (training), as
+    the reference casts its float32 parameters at each use."""
+    dt = dtype(cfg.compute_dtype)
+    return w if w.dtype == dt else w.to(dt)
 
 
 def param(shape, dt, device) -> nn.Parameter:
@@ -123,13 +149,121 @@ def _project_qkv(p: Attention, cfg, x, cos_sin):
     the (cos, sin) tables of :func:`rope_tables`."""
     B, T, _ = x.shape
     hd, H, Kv = cfg.hd(), cfg.num_heads, cfg.num_kv_heads
-    q = _dense(x, p.wq, p.bq if cfg.qkv_bias else None).reshape(B, T, H, hd)
-    k = _dense(x, p.wk, p.bk if cfg.qkv_bias else None).reshape(B, T, Kv, hd)
-    v = _dense(x, p.wv, p.bv if cfg.qkv_bias else None).reshape(B, T, Kv, hd)
+    bias = cfg.qkv_bias
+    q = _dense(x, cast(p.wq, cfg), cast(p.bq, cfg) if bias else None)
+    k = _dense(x, cast(p.wk, cfg), cast(p.bk, cfg) if bias else None)
+    v = _dense(x, cast(p.wv, cfg), cast(p.bv, cfg) if bias else None)
+    q, k, v = (q.reshape(B, T, H, hd), k.reshape(B, T, Kv, hd),
+               v.reshape(B, T, Kv, hd))
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     return apply_rope(q, *cos_sin), apply_rope(k, *cos_sin), v
+
+
+def _gqa_scores(q, k, scale):
+    """q (B, T, H, hd), k (B, S, Kv, hd) -> scores (B, Kv, G, T, S) in q's
+    dtype, scaled after the product as the reference scales them."""
+    B, T, H, hd = q.shape
+    Kv = k.shape[2]
+    qg = q.reshape(B, T, Kv, H // Kv, hd)
+    return torch.einsum("btkgd,bskd->bkgts", qg, k) * scale
+
+
+# Query lengths past FLASH_THRESHOLD take the blockwise path, an online
+# softmax over KV chunks of KV_CHUNK keys that never holds (T, S) scores
+# (the reference's constants).
+FLASH_THRESHOLD = 1024
+KV_CHUNK = 1024
+
+
+def blockwise_attention(q, k, v, *, causal=True, kv_chunk=KV_CHUNK):
+    """Memory-bounded attention: q (B, T, H, hd), k / v (B, S, Kv, hd) ->
+    (B, T, H * hd) in q's dtype.
+
+    The reference's recurrence: every query row advances together over
+    chunks of ``kv_chunk`` keys, with the running max, sum and output in
+    float32; a ragged last chunk (1,500 audio frames, 1,601 vision
+    patches) is zero-padded and its padding masked with -1e30.  Live
+    memory is one (B, Kv, G, T, ck) score tile.
+    """
+    B, T, H, hd = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    ck = min(kv_chunk, S)
+    pad = (-S) % ck
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nk = (S + pad) // ck
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    qg = q.reshape(B, T, Kv, G, hd).to(f32)
+    q_pos = torch.arange(T, device=q.device)
+    m = torch.full((B, Kv, G, T), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((B, Kv, G, T), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Kv, G, T, hd), dtype=f32, device=q.device)
+    for ki in range(nk):
+        kc = k[:, ki * ck:(ki + 1) * ck].to(f32)
+        vc = v[:, ki * ck:(ki + 1) * ck].to(f32)
+        s = torch.einsum("btkgd,bskd->bkgts", qg, kc) * scale
+        k_pos = ki * ck + torch.arange(ck, device=q.device)
+        if causal:
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, -1e30)
+        if pad:
+            s = torch.where(k_pos[None, :] < S, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = (acc * corr[..., None]
+               + torch.einsum("bkgts,bskd->bkgtd", p, vc))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]      # (B,Kv,G,T,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd).to(q.dtype)
+
+
+def _direct_attention(q, k, v, x_dtype, causal):
+    """Attention with the whole (T, S) score matrix: scores in float32,
+    softmax weights cast to ``x_dtype`` before the product with V, as the
+    reference computes it.  Returns (B, T, H * hd)."""
+    B, T, H, hd = q.shape
+    s = _gqa_scores(q, k, 1.0 / math.sqrt(hd)).to(torch.float32)
+    if causal:
+        mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1).to(x_dtype)
+    return torch.einsum("bkgts,bskd->btkgd", w, v).reshape(B, T, H * hd)
+
+
+def _attend(q, k, v, x_dtype, causal):
+    """The direct path up to FLASH_THRESHOLD queries, blockwise past it."""
+    if q.shape[1] > FLASH_THRESHOLD:
+        return blockwise_attention(q, k, v, causal=causal)
+    return _direct_attention(q, k, v, x_dtype, causal)
+
+
+def attention(p: Attention, cfg, x, positions, *, causal=True,
+              cos_sin=None):
+    """Full (training / prefill) self-attention.  x: (B, T, D), positions
+    (B, T); ``cos_sin`` may carry their RoPE tables (:func:`rope_tables`),
+    computed once for a forward.  Returns (B, T, D)."""
+    if cos_sin is None:
+        cos_sin = rope_tables(positions, cfg.hd(), cfg.rope_theta)
+    q, k, v = _project_qkv(p, cfg, x, cos_sin)
+    return _attend(q, k, v, x.dtype, causal) @ cast(p.wo, cfg)
+
+
+def cross_attention(p: Attention, cfg, x, kv_feats):
+    """x: (B, T, D) queries over kv_feats (B, S, D): no RoPE, no mask,
+    q_norm / k_norm under ``qk_norm``.  Returns (B, T, D)."""
+    B, T, _ = x.shape
+    hd, H = cfg.hd(), cfg.num_heads
+    q = (x @ cast(p.wq, cfg)).reshape(B, T, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    k, v = cross_kv(p, cfg, kv_feats)
+    return _attend(q, k, v, x.dtype, False) @ cast(p.wo, cfg)
 
 
 def decode_attention_step(p: Attention, cfg, x, cache_k, cache_v, pos: int,
@@ -152,7 +286,7 @@ def decode_attention_step(p: Attention, cfg, x, cache_k, cache_v, pos: int,
     o = ops.decode_attention(q[:, 0], cache_k[:, :pos + 1],
                              cache_v[:, :pos + 1])          # (B, H, hd) f32
     o = o.to(x.dtype).reshape(B, 1, H * hd)
-    return o @ p.wo
+    return o @ cast(p.wo, cfg)
 
 
 def cross_kv(p: Attention, cfg, feats):
@@ -162,9 +296,9 @@ def cross_kv(p: Attention, cfg, feats):
     ``compute_dtype`` (the features are cast to it first)."""
     B, S, _ = feats.shape
     hd, Kv = cfg.hd(), cfg.num_kv_heads
-    feats = feats.to(p.wk.dtype)
-    k = (feats @ p.wk).reshape(B, S, Kv, hd)
-    v = (feats @ p.wv).reshape(B, S, Kv, hd)
+    feats = feats.to(dtype(cfg.compute_dtype))
+    k = (feats @ cast(p.wk, cfg)).reshape(B, S, Kv, hd)
+    v = (feats @ cast(p.wv, cfg)).reshape(B, S, Kv, hd)
     if cfg.qk_norm:
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     return k, v
@@ -176,11 +310,11 @@ def cross_attention_step(p: Attention, cfg, x, k, v):
     mask.  x: (B, 1, D) -> (B, 1, D)."""
     B = x.shape[0]
     hd, H = cfg.hd(), cfg.num_heads
-    q = (x[:, 0] @ p.wq).reshape(B, H, hd)
+    q = (x[:, 0] @ cast(p.wq, cfg)).reshape(B, H, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
     o = ops.decode_attention(q, k, v)                      # (B, H, hd) f32
-    return o.to(x.dtype).reshape(B, 1, H * hd) @ p.wo
+    return o.to(x.dtype).reshape(B, 1, H * hd) @ cast(p.wo, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -201,10 +335,11 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, cfg, x):
     if cfg.mlp_act == "swiglu":
-        h = F.silu(x @ p.w_gate) * (x @ p.w_up)
+        h = F.silu(x @ cast(p.w_gate, cfg)) * (x @ cast(p.w_up, cfg))
     else:
-        h = F.gelu(x @ p.w_up, approximate="tanh")    # jax.nn.gelu's default
-    return h @ p.w_down
+        h = F.gelu(x @ cast(p.w_up, cfg),
+                   approximate="tanh")                # jax.nn.gelu's default
+    return h @ cast(p.w_down, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -223,9 +358,9 @@ class Embed(nn.Module):
 
 
 def embed(p: Embed, cfg, tokens):
-    return F.embedding(tokens, p.tok)
+    return F.embedding(tokens, cast(p.tok, cfg))
 
 
 def unembed(p: Embed, cfg, x):
     x = rms_norm(x, p.norm_f, cfg.norm_eps)
-    return x @ (p.tok.T if cfg.tie_embeddings else p.unembed)
+    return x @ cast(p.tok.T if cfg.tie_embeddings else p.unembed, cfg)

@@ -1,8 +1,9 @@
-"""The LM families in PyTorch: parameters, decode caches, decode and serve
-steps.
+"""The LM families in PyTorch: parameters, the full-sequence forward,
+prefill, the chunked loss and train steps, decode caches, decode and
+serve steps.
 
-The counterpart of the JAX package's ``models/lm.py`` for decoding, in all
-six families of its configs:
+The counterpart of the JAX package's ``models/lm.py``, in all six
+families of its configs:
 
   dense   -- GQA transformer blocks with RoPE, optional QKV bias and
              qk-norm, a SwiGLU or GELU MLP (qwen1.5-0.5b, qwen2.5-3b,
@@ -13,17 +14,23 @@ six families of its configs:
   hybrid  -- groups of Mamba2 blocks, each followed by one *shared*
              attention block with a KV cache of its own per site, then a
              tail of Mamba2 blocks (zamba2-1.2b)
-  audio   -- self-attention blocks, each followed by a cross-attention
-             block over precomputed encoder K/V (whisper-small; the
-             encoder's weights are held, as the reference's tree has them,
-             but decode does not run the encoder)
+  audio   -- a bidirectional encoder over frame embeddings (the
+             frontend is a stub, as in the reference), then self-attention
+             blocks, each followed by a cross-attention block over the
+             encoder's output (whisper-small; decode reads precomputed
+             cross K/V and does not run the encoder)
   vlm     -- groups of self-attention blocks, each group followed by one
              cross-attention block over precomputed vision K/V
              (llama-3.2-vision)
 
 Every self- and cross-attention of a decode step runs through the
 flash-decode kernel on the card (:func:`common.decode_attention_step`,
-:func:`common.cross_attention_step`).
+:func:`common.cross_attention_step`).  The forward (:func:`forward_hidden`,
+:func:`forward`, :func:`prefill`) and the training steps are plain tensor
+operations, as the reference's are: no Pallas kernel lies on that path.
+Stacks run layer by layer, each layer under
+``torch.utils.checkpoint`` with ``remat`` (:func:`_run_stack`, the
+counterpart of ``_scan_stack``'s ``jax.checkpoint``).
 
 The model is an ``nn.Module`` (:class:`LM`) whose stacks are
 ``nn.ModuleList`` s, where the reference stacks each parameter on leading
@@ -33,15 +40,23 @@ axes and scans over them.  Parameter names follow the reference's tree:
 3]``, and ``shared_attn.attn.wq`` is unstacked (:func:`jax_name`);
 :func:`params_from_jax` carries a reference tree across.
 
-The forward, prefill, loss and train steps are not ported yet.
+Training holds float32 master weights, as the reference's ``init_params``
+makes every leaf float32 whatever the config: build the model with
+``init_params(..., dtype=torch.float32)``; the forward casts each weight
+to ``compute_dtype`` at its use (:func:`common.cast`).  The steps keep the
+reference's functional signature, ``(params, opt_state, batch, cfg,
+optimizer) -> (params, opt_state, loss)``, and update the model's tensors
+and the moments in place (the counterpart of JAX's buffer donation), so a
+step holds one copy of the weights.
 """
 from __future__ import annotations
 
-from typing import Any, List, Mapping, NamedTuple, Optional
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common, moe, ssm
 
@@ -107,13 +122,15 @@ def _check_family(cfg):
 class LM(nn.Module):
     """A decoder LM of any family with uninitialized parameters (use
     :func:`init_params` or :func:`params_from_jax`).  ``device="meta"``
-    builds it without memory, for shapes.  An unknown family raises
-    ``ValueError``."""
+    builds it without memory, for shapes.  Matrices and embeddings are
+    stored in ``dtype``, by default the config's ``compute_dtype``
+    (:func:`common.stored`).  An unknown family raises ``ValueError``."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
+        cfg = common.stored(cfg, dtype)
         self.embed = common.Embed(cfg, device)
         fam, L = cfg.family, cfg.num_layers
         if fam in ("dense", "moe"):
@@ -142,7 +159,8 @@ class LM(nn.Module):
             self.cross = _stack(n_cross, CrossBlock, cfg, device)
 
 
-def init_params(cfg, generator: torch.Generator, device="cpu") -> LM:
+def init_params(cfg, generator: torch.Generator, device="cpu",
+                dtype=None) -> LM:
     """A freshly initialized model, as the reference initializes one:
     normal(0, 0.02) matrices and embeddings, normal(0, 0.5) Mamba conv
     weights, zero biases, unit norm gains, and the Mamba leaves the
@@ -150,9 +168,10 @@ def init_params(cfg, generator: torch.Generator, device="cpu") -> LM:
 
     ``generator`` must live on ``device``.  The draws are made in float32
     and cast to the parameter's type, so a bfloat16 model is its float32
-    twin (same seed) rounded.
+    twin (same seed) rounded.  ``dtype=torch.float32`` stores the matrices
+    in float32 (training's master weights; see :class:`LM`).
     """
-    model = LM(cfg, device)
+    model = LM(cfg, device, dtype)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -177,14 +196,15 @@ def jax_name(name: str):
             tuple(int(i) for i in parts[1:1 + n]))
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg, device="cpu") -> LM:
+def params_from_jax(tree: Mapping[str, Any], cfg, device="cpu",
+                    dtype=None) -> LM:
     """A model holding the reference's params: the tree of
     ``repro.models.lm.init_params`` as numpy arrays (``{"embed": {tok,
     norm_f, unembed?}, "blocks": {ln1, attn: {...}, ...}, ...}``, each
     stacked leaf with its layer axes in front).  Values are cast to each
     parameter's type (``compute_dtype`` for matrices, float32 for norm
-    gains and the Mamba scalars)."""
-    model = LM(cfg, device)
+    gains and the Mamba scalars; ``dtype`` as for :class:`LM`)."""
+    model = LM(cfg, device, dtype)
     where = {n: jax_name(n) for n, _ in model.named_parameters()}
     names = {path for path, _ in where.values()}
     stacks = {}                  # path -> the leading shape its leaf needs
@@ -223,6 +243,139 @@ def params_from_jax(tree: Mapping[str, Any], cfg, device="cpu") -> LM:
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(val, np.float32)))  # writable
     return model
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / prefill).
+# ---------------------------------------------------------------------------
+def _attn_block(p, cfg, x, cos_sin, *, causal=True, moe_groups=None):
+    """A dense or MoE block over the whole sequence."""
+    x = x + common.attention(p.attn, cfg,
+                             common.rms_norm(x, p.ln1, cfg.norm_eps), None,
+                             causal=causal, cos_sin=cos_sin)
+    z = common.rms_norm(x, p.ln2, cfg.norm_eps)
+    if isinstance(p, MoEBlock):
+        return x + moe.moe_ffn(p.moe, cfg, z, n_groups=moe_groups)
+    return x + common.mlp(p.mlp, cfg, z)
+
+
+def _mamba_block(p, cfg, x):
+    return x + ssm.mamba_forward(p.mamba, cfg,
+                                 common.rms_norm(x, p.ln1, cfg.norm_eps))
+
+
+def _cross_block(p, cfg, x, feats):
+    x = x + common.cross_attention(
+        p.xattn, cfg, common.rms_norm(x, p.ln1, cfg.norm_eps), feats)
+    return x + common.mlp(p.mlp, cfg, common.rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+def _run_stack(layers, body, x, remat=True):
+    """x through ``body(layer, x)`` for each layer in turn.
+
+    remat: True / "full" recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant: only each layer's input is
+    kept); False / "none" keeps every activation.  Without autograd there
+    is nothing to keep and the layers simply run.  "dots" (the reference's
+    policy that saves the matmul outputs) is not ported: its one caller is
+    the dry run, which comes with the sharding slice.
+    """
+    if remat == "dots":
+        raise ValueError('remat="dots" is not ported: it comes with the '
+                         "dry run of the sharding slice")
+    if remat not in (True, False, "full", "none"):
+        raise ValueError(f"unknown remat {remat!r}")
+    keep = remat in (True, "full") and torch.is_grad_enabled()
+    for layer in layers:
+        x = (checkpoint(body, layer, x, use_reentrant=False) if keep
+             else body(layer, x))
+    return x
+
+
+def _positions(B, T, device):
+    return torch.arange(T, device=device).expand(B, T)
+
+
+def _encode_audio(params: LM, cfg, frames, *, remat=True):
+    """The whisper encoder over frame embeddings (B, S, D) (the frontend
+    stub): bidirectional attention blocks with RoPE, then ``enc_norm``."""
+    B, S, _ = frames.shape
+    x = frames.to(common.dtype(cfg.compute_dtype))
+    cos_sin = common.rope_tables(_positions(B, S, x.device), cfg.hd(),
+                                 cfg.rope_theta)
+    x = _run_stack(params.encoder, lambda lp, h: _attn_block(
+        lp, cfg, h, cos_sin, causal=False), x, remat)
+    return common.rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def forward_hidden(params: LM, cfg, tokens,
+                   aux: Optional[Dict[str, torch.Tensor]] = None, *,
+                   remat=True, moe_groups=None):
+    """The causal LM trunk: tokens (B, T) -> final hidden states (B, T, D)
+    in ``compute_dtype``.
+
+    ``aux`` carries the frontend stubs: {"frames": (B, S, D)} for audio,
+    {"patches": (B, S, D)} for vlm.  Hybrid's and vlm's outer group
+    stacks are not rematerialized, as in the reference; the layers inside
+    them are.
+    """
+    _check_family(cfg)
+    B, T = tokens.shape
+    x = common.embed(params.embed, cfg, tokens)
+    cos_sin = (common.rope_tables(_positions(B, T, x.device), cfg.hd(),
+                                  cfg.rope_theta)
+               if attention_sites(cfg) else None)
+    fam = cfg.family
+    attn = lambda lp, h: _attn_block(lp, cfg, h, cos_sin,
+                                     moe_groups=moe_groups)
+    mam = lambda lp, h: _mamba_block(lp, cfg, h)
+    if fam in ("dense", "moe"):
+        x = _run_stack(params.blocks, attn, x, remat)
+    elif fam == "ssm":
+        x = _run_stack(params.blocks, mam, x, remat)
+    elif fam == "hybrid":
+        def group(gp, h):
+            return attn(params.shared_attn, _run_stack(gp, mam, h, remat))
+
+        x = _run_stack(params.groups, group, x, remat=False)
+        x = _run_stack(params.tail, mam, x, remat)
+    elif fam == "audio":
+        feats = _encode_audio(params, cfg, aux["frames"], remat=remat)
+
+        def dec(lp, h):
+            blk, xblk = lp
+            return _cross_block(xblk, cfg, attn(blk, h), feats)
+
+        x = _run_stack(list(zip(params.blocks, params.cross)), dec, x,
+                       remat)
+    else:                                                   # vlm
+        feats = aux["patches"].to(common.dtype(cfg.compute_dtype))
+
+        def group(lp, h):
+            gp, xblk = lp
+            return _cross_block(xblk, cfg, _run_stack(gp, attn, h, remat),
+                                feats)
+
+        x = _run_stack(list(zip(params.groups, params.cross)), group, x,
+                       remat=False)
+    return x
+
+
+def forward(params: LM, cfg, tokens, aux=None, *, remat=True,
+            moe_groups=None):
+    """Full-logits forward (small shapes, tests): (B, T) -> (B, T, V)."""
+    x = forward_hidden(params, cfg, tokens, aux, remat=remat,
+                       moe_groups=moe_groups)
+    return common.unembed(params.embed, cfg, x)
+
+
+@torch.no_grad()
+def prefill(params: LM, cfg, tokens, aux=None, *, moe_groups=None):
+    """Prefill: the whole prompt, and the logits of its LAST position only
+    (B, V); the (B, T, V) tensor is never made."""
+    x = forward_hidden(params, cfg, tokens, aux, remat=False,
+                       moe_groups=moe_groups)
+    return common.unembed(params.embed, cfg, x[:, -1:, :])[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -381,3 +534,104 @@ def serve_step(params: LM, cache: Cache, token, cfg):
     """One batched greedy decode step: (B,) token ids -> (B,) next ids."""
     logits, cache = decode_step(params, cfg, cache, token)
     return torch.argmax(logits, dim=-1), cache
+
+
+# ---------------------------------------------------------------------------
+# Loss and train steps.
+# ---------------------------------------------------------------------------
+CE_CHUNK = 512  # sequence positions per chunked-cross-entropy step
+
+
+def _chunk_nll(embed, cfg, xchunk, lchunk):
+    """Summed next-token NLL of one chunk: float32 logits, log-softmax."""
+    logits = common.unembed(embed, cfg, xchunk).to(torch.float32)
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), lchunk.reshape(-1).long(),
+        reduction="sum")
+
+
+def lm_loss(params: LM, cfg, tokens, labels, aux=None, *, moe_groups=None,
+            remat=True):
+    """Mean next-token cross-entropy with a *chunked* unembedding: logits
+    are made and consumed CE_CHUNK positions at a time (the chunk lowered
+    until it divides T), each chunk under ``checkpoint`` so its logits
+    are recomputed in the backward and the (B, T, V) tensor never exists.
+    The chunks' sums add up in float32 in order, over B * T."""
+    x = forward_hidden(params, cfg, tokens, aux, moe_groups=moe_groups,
+                       remat=remat)
+    B, T, _ = x.shape
+    ck = min(CE_CHUNK, T)
+    while T % ck:
+        ck -= 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, T, ck):
+        xc, lc = x[:, i:i + ck], labels[:, i:i + ck]
+        total = total + (
+            checkpoint(_chunk_nll, params.embed, cfg, xc, lc,
+                       use_reentrant=False) if torch.is_grad_enabled()
+            else _chunk_nll(params.embed, cfg, xc, lc))
+    return total / (B * T)
+
+
+def _trainable(params: LM) -> Dict[str, torch.Tensor]:
+    """The model's parameters by name, set to require gradients."""
+    named = dict(params.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    return named
+
+
+def _loss_and_grads(params, named, cfg, batch, moe_groups, remat):
+    aux = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    with torch.enable_grad():
+        loss = lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                       aux or None, moe_groups=moe_groups, remat=remat)
+        # An expert no token reached is outside the graph: its gradient is
+        # 0, as the reference's dense dispatch gives it.
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), dict(zip(named, grads))
+
+
+def train_step(params: LM, opt_state, batch, cfg, optimizer, *,
+               moe_groups=None, remat=True):
+    """One optimizer step.  batch: {"tokens": (B, T), "labels": (B, T)}
+    plus the frontend stub for audio / vlm.  The model and
+    ``opt_state`` are updated in place and returned with the loss."""
+    named = _trainable(params)
+    loss, grads = _loss_and_grads(params, named, cfg, batch, moe_groups,
+                                  remat)
+    opt_state = optimizer.update_(grads, opt_state, named)
+    return params, opt_state, loss
+
+
+def train_step_accum(params: LM, opt_state, batch, cfg, optimizer, *,
+                     n_micro: int = 1, moe_groups=None):
+    """One optimizer step with gradient accumulation over ``n_micro``
+    slices of the batch along axis 0, into float32 accumulators; the
+    gradient is their sum over ``n_micro`` and the loss the mean of the
+    slices'.  ``n_micro == 1`` is :func:`train_step`."""
+    if n_micro == 1:
+        return train_step(params, opt_state, batch, cfg, optimizer,
+                          moe_groups=moe_groups)
+    B = batch["tokens"].shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} is not a multiple of n_micro "
+                         f"{n_micro}")
+    b = B // n_micro
+    named = _trainable(params)
+    loss_acc = torch.zeros((), dtype=torch.float32,
+                           device=batch["tokens"].device)
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in named.items()}
+    for i in range(n_micro):
+        mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        loss, grads = _loss_and_grads(params, named, cfg, mb, moe_groups,
+                                      True)
+        loss_acc = loss_acc + loss
+        for k, g in grads.items():
+            acc[k].add_(g)
+    grads = {k: g / n_micro for k, g in acc.items()}
+    opt_state = optimizer.update_(grads, opt_state, named)
+    return params, opt_state, loss_acc / n_micro

@@ -22,7 +22,12 @@ reference's semantics are kept where a port could silently differ:
 * The weight is cast to ``x``'s dtype before either product; the combine
   sums in float32 and casts to ``x``'s dtype.
 
-The auxiliary load-balance loss belongs to training and is not ported yet.
+The same function serves decode (``n_groups=1``) and the full-sequence
+forward at (B, T) under autograd: the routing weights of the kept rows
+carry the router's gradient, as the reference's dispatch matrix does.
+Each call reads the per-expert row counts back to the host once (one
+sync a layer).  :func:`aux_load_balance_loss` is the reference's
+Switch-style auxiliary loss.
 """
 from __future__ import annotations
 
@@ -75,6 +80,20 @@ class Routing(NamedTuple):
     keep: torch.Tensor      # bool: the choice found a slot
 
 
+def _router_probs(p: MoE, cfg, x):
+    """Softmax of the router's float32 logits: x (..., D) -> (..., E)."""
+    logits = (x @ common.cast(p.router, cfg)).to(torch.float32)
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return probs / probs.sum(dim=-1, keepdim=True)       # jax.nn.softmax
+
+
+def _top_k(probs, k: int):
+    """The k largest probabilities and their experts, best first; ties
+    keep the lower expert first, as ``jax.lax.top_k`` does."""
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return top_p[..., :k], top_e[..., :k]
+
+
 def route(p: MoE, cfg, x, n_groups: Optional[int] = None) -> Routing:
     """Top-k routing with per-group capacity.  x: (B, T, D)."""
     B, T, D = x.shape
@@ -82,11 +101,8 @@ def route(p: MoE, cfg, x, n_groups: Optional[int] = None) -> Routing:
     N = B * T
     n = group_count(N, n_groups)
     g = N // n
-    logits = (x.reshape(N, D) @ p.router).to(torch.float32)
-    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)      # jax.nn.softmax
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    probs = _router_probs(p, cfg, x.reshape(N, D))
+    top_p, top_e = _top_k(probs, k)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     # A choice's slot: how many earlier (token, choice) pairs of its group
     # picked the same expert.
@@ -118,12 +134,28 @@ def moe_ffn(p: MoE, cfg, x, n_groups: Optional[int] = None):
         if c:
             tok, w = rows[start:start + c], wts[start:start + c]
             xe = xf[tok] * w
+            up = common.cast(p.w_up[e], cfg)
             if cfg.mlp_act == "swiglu":
-                h = F.silu(xe @ p.w_gate[e]) * (xe @ p.w_up[e])
+                h = F.silu(xe @ common.cast(p.w_gate[e], cfg)) * (xe @ up)
             else:
-                h = F.gelu(xe @ p.w_up[e], approximate="tanh")
-            ye = h @ p.w_down[e]
+                h = F.gelu(xe @ up, approximate="tanh")
+            ye = h @ common.cast(p.w_down[e], cfg)
             out.index_put_((tok,), ye.to(torch.float32)
                            * w.to(torch.float32), accumulate=True)
         start += c
     return out.to(x.dtype).reshape(B, T, D)
+
+
+def aux_load_balance_loss(p: MoE, cfg, x):
+    """Switch-style load-balance auxiliary loss over x (B, T, D): E times
+    the sum over experts of (fraction of the top-k choices routed to the
+    expert) x (its mean router probability), each averaged over the
+    batch.  The fractions carry no gradient; the probabilities do."""
+    probs = _router_probs(p, cfg, x)                      # (B, T, E)
+    E, k = cfg.num_experts, cfg.experts_per_token
+    top_e = _top_k(probs, k)[1]
+    frac = F.one_hot(top_e, E).sum(dim=(-3, -2)).to(torch.float32) / (
+        probs.shape[-2] * k)
+    mean_p = probs.mean(dim=-2)
+    return E * torch.sum(frac.reshape(-1, E).mean(0)
+                         * mean_p.reshape(-1, E).mean(0))

@@ -1,6 +1,7 @@
-"""Mamba2 decode of the PyTorch port: parameters, cache and one-token step.
+"""Mamba2 blocks of the PyTorch port: parameters, the chunked SSD forward,
+the cache and the one-token step.
 
-The decode half of the JAX package's ``models/ssm.py``.  Per head h the
+The counterpart of the JAX package's ``models/ssm.py``.  Per head h the
 recurrence is
 
     S_t = a_t * S_{t-1} + dt_t * (B_t (x) x_t),   a_t = exp(dt_t * A_h)
@@ -19,8 +20,12 @@ last ``CONV_WIDTH`` inputs.  As in the reference:
   ``gate_norm`` are read as float32.
 * One B/C group is shared by all heads.
 
-The chunked forward (``ssd_chunked`` / ``mamba_forward``) belongs to
-training and prefill and is not ported yet.
+Training and prefill run the chunked algorithm (:func:`ssd_chunked`, the
+SSD paper's "quadratic within a chunk, linear across chunks"): within a
+chunk of Q tokens a masked decay-weighted product, across chunks a short
+recurrence over the boundary states, all in float32, then the ``D``
+skip.  Q is ``cfg.ssm_chunk``, lowered until it divides T, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -83,6 +88,81 @@ def init_fixed(name: str, p: torch.Tensor) -> bool:
     return True
 
 
+def _causal_conv(x, w, b):
+    """Depth-wise causal conv.  x: (B, T, C); w: (W, C); b: (C,)."""
+    W, T = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = sum(xp[:, i:i + T, :] * w[i][None, None, :] for i in range(W))
+    return out + b[None, None, :]
+
+
+def _split_proj(cfg, zxbcdt):
+    """in_proj's output -> z (d_inner), xBC (d_inner + 2S), dt (H)."""
+    d_inner, H, P, S = dims(cfg)
+    return torch.split(zxbcdt, [d_inner, d_inner + 2 * S, H], dim=-1)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
+    """x: (B, T, H, P), dt: (B, T, H), A: (H,), Bm / Cm: (B, T, S) ->
+    (B, T, H, P), the reference's chunked scan in its order of operations
+    (the chunk lowered until it divides T)."""
+    B_, T, H, P = x.shape
+    S = Bm.shape[-1]
+    Q = min(chunk, T)
+    while T % Q:
+        Q -= 1
+    nc = T // Q
+    xc = x.reshape(B_, nc, Q, H, P)
+    dtc = dt.reshape(B_, nc, Q, H)
+    Bc = Bm.reshape(B_, nc, Q, S)
+    Cc = Cm.reshape(B_, nc, Q, S)
+
+    a = dtc * A[None, None, None, :]                  # (B,nc,Q,H) log decay
+    cum = torch.cumsum(a, dim=2)
+
+    # Within a chunk: masked decay-weighted scores.
+    CB = torch.einsum("bnqs,bnks->bnqk", Cc, Bc)      # (B,nc,Q,Q)
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    Wt = CB[..., None] * decay * dtc[:, :, None, :, :]  # (B,nc,t,s,H)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    Wt = torch.where(mask[None, None, :, :, None], Wt, 0.0)
+    y_intra = torch.einsum("bnqkh,bnkhp->bnqhp", Wt, xc)
+
+    # Across chunks: the boundary states.
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
+    Sc = torch.einsum("bnqh,bnqs,bnqhp->bnhps", decay_to_end * dtc, Bc, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])         # (B,nc,H)
+    state = torch.zeros((B_, H, P, S), dtype=x.dtype, device=x.device)
+    entering = []                                     # state entering chunk
+    for n in range(nc):
+        entering.append(state)
+        state = state * chunk_decay[:, n, :, None, None] + Sc[:, n]
+    Sprev = torch.stack(entering, dim=1)              # (B,nc,H,P,S)
+    y_inter = torch.einsum("bnqs,bnhps,bnqh->bnqhp", Cc, Sprev,
+                           torch.exp(cum))
+    return (y_intra + y_inter).reshape(B_, T, H, P)
+
+
+def mamba_forward(p: Mamba, cfg, x):
+    """Full-sequence Mamba2 block.  x: (B, T, D) -> (B, T, D)."""
+    B, T, D = x.shape
+    d_inner, H, P, S = dims(cfg)
+    z, xbc, dt = _split_proj(cfg, x @ common.cast(p.in_proj, cfg))
+    xbc = F.silu(_causal_conv(xbc, common.cast(p.conv_w, cfg),
+                              common.cast(p.conv_b, cfg)))
+    xs, Bm, Cm = torch.split(xbc, [d_inner, S, S], dim=-1)
+    f32 = torch.float32
+    dt = F.softplus(dt.to(f32) + p.dt_bias[None, None, :])
+    A = -torch.exp(p.A_log)
+    xh = xs.reshape(B, T, H, P)
+    y = ssd_chunked(xh.to(f32), dt, A, Bm.to(f32), Cm.to(f32),
+                    cfg.ssm_chunk)
+    y = y + p.D[None, None, :, None] * xh.to(f32)
+    y = y.reshape(B, T, d_inner).to(x.dtype)
+    y = common.rms_norm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
+    return y @ common.cast(p.out_proj, cfg)
+
+
 class MambaCache(NamedTuple):
     conv: torch.Tensor   # (B, CONV_WIDTH - 1, conv_ch) trailing conv inputs
     ssm: torch.Tensor    # (B, H, P, S) recurrent state
@@ -107,12 +187,12 @@ def mamba_step(p: Mamba, cfg, x, cache: MambaCache):
     whose tensors are updated in place."""
     B = x.shape[0]
     d_inner, H, P, S = dims(cfg)
-    z, xbc, dt = torch.split(x[:, 0] @ p.in_proj,
-                             [d_inner, d_inner + 2 * S, H], dim=-1)
+    z, xbc, dt = _split_proj(cfg, x[:, 0] @ common.cast(p.in_proj, cfg))
     # Causal conv over (stored tail + current input); the float32 tail
     # promotes the rest of the step.
     hist = torch.cat([cache.conv, xbc[:, None, :]], dim=1)
-    xbc_c = F.silu((hist * p.conv_w).sum(dim=1) + p.conv_b)
+    xbc_c = F.silu((hist * common.cast(p.conv_w, cfg)).sum(dim=1)
+                   + common.cast(p.conv_b, cfg))
     xs, Bm, Cm = torch.split(xbc_c, [d_inner, S, S], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)
     a = torch.exp(dt * -torch.exp(p.A_log))                   # (B, H)
@@ -126,4 +206,4 @@ def mamba_step(p: Mamba, cfg, x, cache: MambaCache):
     y = common.rms_norm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
     cache.conv.copy_(hist[:, 1:])
     cache.ssm.copy_(ssm)
-    return (y @ p.out_proj)[:, None, :], cache
+    return (y @ common.cast(p.out_proj, cfg))[:, None, :], cache

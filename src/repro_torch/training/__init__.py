@@ -1,1 +1,2 @@
-"""Training utilities of the port: the Adam optimizer."""
+"""Training utilities of the port: optimizers (``optim``), the data
+pipeline (``data``) and checkpoints (``checkpoint``)."""
