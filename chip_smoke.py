@@ -135,9 +135,9 @@ and no result line:
    extras byte for byte, the launches exact and equal to serial's
    (replays counted), no plain version on the card, at least one shard
    feasible.  (b) Wall seconds of ``serial``, ``threads`` and ``device``
-   at 4 and 10 shards for reinforce (eps 200, iot; cut from 1000 to make
-   room for phases 8c and 10) and ga (population
-   100, 500 generations, cloud), each held to serial's bytes and
+   at 4 and 10 shards for reinforce (eps 100, iot; cut from 1000 to make
+   room for phases 8c, 10 and 10b) and ga (population 100, 250
+   generations, cloud; cut from 500 for 10b), each held to serial's bytes and
    launches; then the device backend's reinforce fleet alone at 1, 4
    and 10 shards: ms a fleet epoch over 50 unprofiled epochs (and its
    rate against one shard's), the host ms one replay call takes with the
@@ -248,8 +248,9 @@ and no result line:
    kernel reads every byte whatever the cache holds): host ms per step
    against the step's bound, and flash decode's device ms per step.
 8b. The other families at full width, one model at a time (``LM_FAMILIES``,
-   random weights from a seed): phi3.5-MoE (16 of 32 layers: 32 are
-   ~84 GB of bf16 weights), qwen3-MoE (4 of 94 layers; 128 experts, top-8,
+   random weights from a seed): phi3.5-MoE (8 of 32 layers: 32 are
+   ~84 GB of bf16 weights; 16 until PR 25), qwen3-MoE (2 of 94 layers, 4
+   until PR 25; 128 experts, top-8,
    GQA group 16), mamba2-130m, zamba2-1.2b and whisper-small whole, and
    llama-3.2-vision (10 of 100 layers: two groups of four self layers and
    a cross layer).  Audio and vlm attend to seeded random frontend
@@ -281,7 +282,8 @@ and no result line:
    ``BLOCKWISE_SHAPES``.
 10. Training: ``repro_torch.launch.train`` in process on qwen1.5-0.5b at
    full width, bfloat16 compute with float32 master weights, B = 8, T =
-   1,024, 40 steps of Adam with the launcher's cosine warm-up and a
+   1,024, 30 steps (cut from 40 for phase 10b) of Adam with the
+   launcher's cosine warm-up and a
    checkpoint at step 20, under ``torch.use_deterministic_algorithms(True,
    warn_only=True)``: the loss must fall (the launcher's exit rule).  A
    resume from the step-20 checkpoint must give the uninterrupted run's
@@ -295,6 +297,21 @@ and no result line:
    and the audio encoder backward on the card): loss and parameters
    finite; each step twice from one seed (bit-equal or not is recorded)
    and once under deterministic algorithms (warnings recorded).
+10b. Sharded training (``distributed/sharding.py``, ``pipeline.py``,
+   ``remat="dots"``): phase 10's model, batch and optimizer, one step a
+   case against the unsharded step from the same numbers (loss within
+   1e-3 relative, first moments within 1e-2 of the unsharded ones'
+   norm; the largest parameter difference and bit equality recorded),
+   then timed steps (ms a step, peak GB above what was allocated before
+   the case): remat dots and none against full; on an NCCL world of one
+   rank (``HashStore``, no network) a (1, 1) ``DeviceMesh``, the
+   ``tp``, ``fsdp`` and ``dp`` steps on DTensor parameters and the
+   GPipe pipeline at S = 1, M = 2 (held to the unsharded step over the
+   same two microbatches, ``train_step_accum``: the halves round alike in
+   bfloat16); then two NCCL ranks on the one card:
+   whether the world comes up (NCCL may refuse two ranks on one device;
+   the outcome is printed), and if it does, the (1, 2) tp step against
+   the unsharded one.  This path launches no kernel of the port.
 9. Kernel timings at the paths' shapes: CUDA-event ms per call, and
    device µs per launch from a profiler trace of back-to-back calls
    (``search_kernel_times`` for the search path's calls: the cost kernel
@@ -377,10 +394,10 @@ SERVICE_NSGA2_EPS, SERVICE_GA_EPS = 640, 2000
 # Phase 6d: fanout on mobilenet_v2 at full width (latency / area / dla,
 # LP, seed 0).  (a) Each backend against serial at 4 shards: inner ->
 # (eps, inner options, platform, backends held to serial).  (b) Walls of
-# serial, threads and device at 4 and 10 shards: reinforce at eps 200
-# (iot; cut from 1000 for phases 8c and 10: the backends stay bit-equal to
-# serial at any eps) and ga at population 100 and 500 generations
-# (cloud); shards ->
+# serial, threads and device at 4 and 10 shards: reinforce at eps 100
+# (iot; cut from 1000 for phases 8c, 10 and 10b: the backends stay
+# bit-equal to serial at any eps) and ga at population 100 and 250
+# generations (cloud; cut from 500 for phase 10b); shards ->
 # epochs of the device backend's traced fleet runs, and the unprofiled
 # fleet epochs timed before each trace.  (c) The search-quality
 # check: ten shards (seeds 0-9) of each config of the JAX package's
@@ -394,8 +411,8 @@ FANOUT_CHECK_RUNS = {
     "sa": (200, {}, "cloud", ("threads",)),
 }
 FANOUT_WALL_SHARDS = (4, 10)
-FANOUT_WALL_RUNS = {"reinforce": (200, {}, "iot"),
-                    "ga": (50_000, {"population": 100}, "cloud")}
+FANOUT_WALL_RUNS = {"reinforce": (100, {}, "iot"),
+                    "ga": (25_000, {"population": 100}, "cloud")}
 FANOUT_TRACE_EPOCHS = {1: 3, 4: 2, 10: 1}
 FANOUT_TIMED_EPOCHS = 50
 QUALITY_REF = ROOT / "results" / "search_quality_ref.json"
@@ -482,8 +499,11 @@ LM_LONG_CACHE = 32768        # phase 8 (d): one step with the cache full
 # Depth is cut only where bfloat16 weights do not fit one 80 GB card
 # (phi3.5-MoE: 32 layers are ~83.7 GB; qwen3-MoE: 94 layers ~470 GB;
 # llama-3.2-vision: 100 layers ~177 GB), and for the float32 check to what
-# fits beside its caches (one or two layers, one vlm group).
-LM_FAMILIES = (("phi3p5_moe_42b", 16, 2), ("qwen3_moe_235b", 4, 1),
+# fits beside its caches (one or two layers, one vlm group).  The two MoE
+# models were cut further (phi3.5 from 16 to 8 layers, qwen3 from 4 to
+# 2) to make room for phase 10b: their decode is host-bound, a layer's
+# time a layer.
+LM_FAMILIES = (("phi3p5_moe_42b", 8, 2), ("qwen3_moe_235b", 2, 1),
                ("mamba2_130m", None, None), ("zamba2_1p2b", None, None),
                ("whisper_small", None, None),
                ("llama3p2_vision_90b", 10, 5))
@@ -509,19 +529,27 @@ BLOCKWISE_SHAPES = (("qwen2p5_self", 2, 2048, 2048, 16, 2, 128, True),
                     ("whisper_encoder", 2, 1500, 1500, 12, 12, 64, False),
                     ("llama_vision_cross", 2, 2048, 1601, 64, 8, 128, False))
 # Phase 10: ``repro_torch.launch.train`` in process on qwen1.5-0.5b at full
-# width in bfloat16 (float32 master weights), B = 8, T = 1,024, 40 steps of
+# width in bfloat16 (float32 master weights), B = 8, T = 1,024, 30 steps of
 # Adam with the launcher's cosine warm-up over 20, a checkpoint at step 20;
 # then a resume from it (losses held to the uninterrupted run's, rtol
 # TRAIN_RESUME_RTOL, and their bit equality recorded), one --micro 2 step
 # from it (loss within TRAIN_MICRO_RTOL of the full batch's: the halves
 # round differently in bfloat16), and one smoke-size bfloat16 step of each
 # other family at B = 2, T = 64.
-TRAIN_ARCH, TRAIN_STEPS, TRAIN_RESUME_AT = "qwen1p5_0p5b", 40, 20
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_RESUME_AT = "qwen1p5_0p5b", 30, 20
 TRAIN_ARGS = ("--batch", "8", "--seq", "1024", "--warmup", "20")
 TRAIN_RESUME_RTOL, TRAIN_MICRO_RTOL = 1e-3, 1e-2
 TRAIN_FAMILIES = ("phi3p5_moe_42b", "qwen3_moe_235b", "mamba2_130m",
                   "zamba2_1p2b", "whisper_small", "llama3p2_vision_90b")
 TRAIN_SMOKE_BATCH, TRAIN_SMOKE_T = 2, 64
+# Phase 10b: phase 10's model, batch and optimizer, one step a case against
+# the unsharded step from the same numbers (loss within TRAIN_RESUME_RTOL;
+# first moments, 0.1 x the clipped gradient, within SHARDED_REL_TOL of the
+# unsharded ones' norm), then SHARDED_TIMED timed steps; the pipeline at
+# S = 1 with PP_MICRO microbatches; two NCCL ranks on the one card, given
+# TWO_RANK_TIMEOUT_S.
+SHARDED_MODES, SHARDED_TIMED, SHARDED_REL_TOL = ("tp", "fsdp", "dp"), 2, 1e-2
+PP_MICRO, TWO_RANK_TIMEOUT_S = 2, 120
 # The service path: (method, workload, eps, seed, options), all at
 # latency / area / iot / dla, LP.  Requests 1 and 2 are the same query
 # from two users.
@@ -3633,11 +3661,11 @@ def _moe_rows(step):
 
     seen, ffn = [], moe.moe_ffn
 
-    def spy(p, cfg, x, n_groups=None):
+    def spy(p, cfg, x, n_groups=None, **kw):
         r = moe.route(p, cfg, x, n_groups)
         seen.append((int(r.experts[r.keep].unique().numel()),
                      int(r.keep.sum())))
-        return ffn(p, cfg, x, n_groups)
+        return ffn(p, cfg, x, n_groups, **kw)
 
     moe.moe_ffn = spy
     try:
@@ -4195,6 +4223,341 @@ def phase_train(dev):
     return rec
 
 
+def _state_copy(tensors):
+    """Whole copies of a dict of (possibly DTensor) tensors."""
+    from torch.distributed.tensor import DTensor
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v).detach()
+            .clone() for k, v in tensors.items()}
+
+
+def _rel_norm(a, b):
+    """||a - b|| / ||b|| over all the tensors of two dicts, in float64."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return math.sqrt(num / den)
+
+
+def _sharded_case(make, step, timed=SHARDED_TIMED):
+    """One case of phase 10b: ``make()`` gives (model, opt state, batch);
+    the first ``step`` is the compared one (its loss, parameters and
+    first moments kept whole), then ``timed`` more steps give the ms a
+    step (each ends in the loss's read-back).  Peak GB above what was
+    allocated before the case."""
+    import statistics
+
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, state, batch = make()
+    ms, kept = [], None
+    for i in range(1 + timed):
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, batch)
+        loss = float(loss)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() - base
+            kept = (loss, _state_copy(dict(model.named_parameters())),
+                    _state_copy(_moments(state)))
+            copies = _nbytes(kept[1]) + _nbytes(kept[2])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    # The kept copies are not the case's own: the timed steps' peak
+    # without them.
+    peak = max(peak, torch.cuda.max_memory_allocated() - base - copies) / 1e9
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return {"loss": kept[0], "first_step_ms": ms[0],
+            "ms_per_step": statistics.median(ms[1:]),
+            "peak_gb": peak}, kept[1], kept[2]
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def _moments(state):
+    """First moments by parameter name: an ``OptState``'s, or a
+    pipeline's pair (blocks, embedding) merged."""
+    if isinstance(state, tuple) and not hasattr(state, "_fields"):
+        return {k: v for o in state for k, v in o.mu.items()}
+    return state.mu
+
+
+def _compare_case(name, rec, params, mu, ref):
+    """Holds a case's step to the unsharded one: loss within
+    TRAIN_RESUME_RTOL, first moments (0.1 x the clipped gradient) within
+    SHARDED_REL_TOL of the unsharded ones' norm; records the largest
+    parameter difference and whether parameters and moments are bit-equal."""
+    import torch
+
+    ref_loss, ref_params, ref_mu = ref
+    rec["loss_rel_diff"] = abs(rec["loss"] - ref_loss) / abs(ref_loss)
+    rec["mu_rel_diff"] = _rel_norm(mu, ref_mu)
+    rec["param_max_abs_diff"] = max(
+        float((params[k] - ref_params[k]).abs().max()) for k in ref_params)
+    rec["bit_equal"] = all(torch.equal(params[k], ref_params[k])
+                           and torch.equal(mu[k], ref_mu[k])
+                           for k in ref_params)
+    check(set(params) == set(ref_params),
+          f"{name}: parameters {sorted(set(params) ^ set(ref_params))[:4]} "
+          "differ from the unsharded model's")
+    check(rec["loss_rel_diff"] <= TRAIN_RESUME_RTOL
+          and rec["mu_rel_diff"] <= SHARDED_REL_TOL,
+          f"{name}: the step's loss {rec['loss']} / first moments differ "
+          f"from the unsharded step's ({ref_loss}): loss rel "
+          f"{rec['loss_rel_diff']:.3g}, moments rel {rec['mu_rel_diff']:.3g}")
+    return rec
+
+
+TWO_RANK_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[3])
+import chip_smoke
+chip_smoke._two_rank_worker(int(sys.argv[1]), sys.argv[2])
+"""
+
+
+def _two_rank_worker(rank, store):
+    """A rank of phase 10b's two-rank world on card 0: the (1, 2) tp step
+    of the phase's model, then (rank 0) the unsharded step from the same
+    numbers; prints one JSON line."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(store, 2),
+                                rank=rank, world_size=2, device_id=dev)
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        up = float(probe) == 2.0
+    except Exception as e:                     # NCCL refused the world
+        print(json.dumps({"rank": rank, "up": False,
+                          "error": f"{type(e).__name__}: {e}"[:600]}),
+              flush=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return
+    try:
+        from repro_torch.distributed import sharding
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.models import lm
+        cfg, opt, init, batch = _sharded_setup(dev)
+        mesh = mesh_lib.make_debug_mesh(1, 2, device_type="cuda")
+
+        def make():
+            model = lm.LM(cfg, device=dev, dtype=torch.float32)
+            model.load_state_dict(init)
+            state = opt.init(dict(model.named_parameters()))
+            sharding.distribute_model(model, mesh, "tp")
+            state = sharding.distribute_opt_state(state, model)
+            return model, state, sharding.place_batch(batch, mesh)
+
+        pol = sharding.make_policy(mesh, batch=batch["tokens"].shape[0])
+        rec, params, mu = _sharded_case(
+            make, lambda m, s, b: lm.train_step(m, s, b, cfg, opt, pol=pol),
+            timed=1)
+        out = {"rank": rank, "up": up, **rec}
+        if rank == 0:
+            ref = _unsharded_ref(cfg, opt, init, batch, dev)
+            out = _compare_case("tp on (1, 2)", out, params, mu, ref)
+    except Exception as e:           # a failure after the world came up
+        out = {"rank": rank, "up": True,
+               "failed": f"{type(e).__name__}: {e}"[:600]}
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def _sharded_setup(dev):
+    """Phase 10b's model (qwen1.5-0.5b whole, bf16 compute), optimizer
+    (the launcher's), float32 initial weights from seed 0 and batch."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.training import data, optim
+
+    cfg = configs.get(TRAIN_ARCH)
+    B, T = int(TRAIN_ARGS[1]), int(TRAIN_ARGS[3])
+    opt = optim.Adam(lr=optim.cosine_schedule(3e-4, 20, TRAIN_STEPS),
+                     weight_decay=0.01, clip_norm=1.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    init = {k: v.detach().clone() for k, v in lm.init_params(
+        cfg, gen, device=dev, dtype=torch.float32).state_dict().items()}
+    batch = data.device_batch(data.SyntheticLM(data.DataConfig(
+        seq_len=T, global_batch=B, vocab_size=cfg.vocab_size)).batch(0),
+        dev)
+    return cfg, opt, init, batch
+
+
+def _unsharded_ref(cfg, opt, init, batch, dev, remat=True):
+    """The unsharded step from ``init``: (loss, params, first moments)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    model = lm.LM(cfg, device=dev, dtype=torch.float32)
+    model.load_state_dict(init)
+    state = opt.init(dict(model.named_parameters()))
+    model, state, loss = lm.train_step(model, state, batch, cfg, opt,
+                                       remat=remat)
+    return (float(loss), _state_copy(dict(model.named_parameters())),
+            _state_copy(state.mu))
+
+
+def _two_ranks_on_one_card():
+    """Two NCCL ranks on card 0: whether the world comes up, and if it
+    does, the (1, 2) tp step against the unsharded one."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_2r_") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TWO_RANK_WORKER, str(r),
+             str(Path(tmp) / "store"), str(ROOT)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        outs, timed_out = [], False
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=TWO_RANK_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                p.kill()
+                outs.append(p.communicate())
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for so, se in outs:
+        js = [ln for ln in so.splitlines() if ln.startswith("{")]
+        lines.append(json.loads(js[-1]) if js else
+                     {"up": False, "error": se.strip()[-600:]})
+    out = {"timed_out": timed_out, "ranks": lines,
+           "returncodes": [p.returncode for p in procs]}
+    if any(r.get("up") for r in lines):
+        check(all(r.get("up") and "failed" not in r for r in lines)
+              and all(p.returncode == 0 for p in procs) and not timed_out
+              and "mu_rel_diff" in lines[0],
+              f"two ranks on one card came up but failed: {out}")
+        out["outcome"] = "up: the (1, 2) tp step ran and agrees"
+    else:
+        out["outcome"] = "refused: " + "; ".join(
+            str(r.get("error", "")) for r in lines if not r.get("up"))[:600]
+    log(f"[train_sharded] two ranks on one card: {json.dumps(out)}")
+    return out
+
+
+def phase_train_sharded(dev):
+    """Phase 10b: sharded training of qwen1.5-0.5b at full width (B = 8, T
+    = 1,024, bf16 compute on f32 master weights) on a one-rank NCCL world
+    (``HashStore``, no network): one step under tp, fsdp and dp and the
+    pipeline at S = 1, M = ``PP_MICRO``, each against the unsharded step
+    from the same numbers; remat none / full / dots; ms a step and peak
+    GB of every case; then two ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import pipeline, sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+
+    cfg, opt, init, batch = _sharded_setup(dev)
+
+    def plain(remat=True, n_micro=1):
+        def make():
+            model = lm.LM(cfg, device=dev, dtype=torch.float32)
+            model.load_state_dict(init)
+            return model, opt.init(dict(model.named_parameters())), batch
+        if n_micro > 1:
+            return make, (lambda m, s, b: lm.train_step_accum(
+                m, s, b, cfg, opt, n_micro=n_micro))
+        return make, (lambda m, s, b: lm.train_step(m, s, b, cfg, opt,
+                                                    remat=remat))
+
+    out = {"arch": TRAIN_ARCH, "batch": int(TRAIN_ARGS[1]),
+           "seq": int(TRAIN_ARGS[3]), "cases": {}}
+    rec, params, mu = _sharded_case(*plain())
+    ref = (rec["loss"], params, mu)
+    out["cases"]["unsharded"] = rec
+    log(f"[train_sharded] unsharded (remat full): {json.dumps(rec)}")
+    for remat in ("dots", "none"):
+        rec, params, mu = _sharded_case(*plain(remat))
+        rec = _compare_case(f"remat {remat}", rec, params, mu, ref)
+        out["cases"][f"remat_{remat}"] = rec
+        log(f"[train_sharded] remat {remat}: {json.dumps(rec)}")
+        del params, mu
+    # The pipeline's M microbatches round as train_step_accum's do in
+    # bfloat16: it is held to the unsharded step over the same microbatches
+    # (whose own distance from the full batch's step is recorded).
+    rec, params, mu = _sharded_case(*plain(n_micro=PP_MICRO))
+    rec["loss_rel_diff"] = abs(rec["loss"] - ref[0]) / abs(ref[0])
+    rec["mu_rel_diff"] = _rel_norm(mu, ref[2])
+    ref_micro = (rec["loss"], params, mu)
+    out["cases"][f"unsharded_micro{PP_MICRO}"] = rec
+    log(f"[train_sharded] unsharded, {PP_MICRO} microbatches: "
+        f"{json.dumps(rec)}")
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = mesh_lib.make_debug_mesh(1, 1, device_type="cuda")
+        B = batch["tokens"].shape[0]
+        for mode in SHARDED_MODES:
+            def make(mode=mode):
+                model = lm.LM(cfg, device=dev, dtype=torch.float32)
+                model.load_state_dict(init)
+                state = opt.init(dict(model.named_parameters()))
+                sharding.distribute_model(model, mesh, mode)
+                state = sharding.distribute_opt_state(state, model)
+                return model, state, sharding.place_batch(batch, mesh,
+                                                          mode=mode)
+            pol = sharding.make_policy(mesh, batch=B, mode=mode)
+            rec, params, mu = _sharded_case(
+                make, lambda m, s, b, pol=pol: lm.train_step(
+                    m, s, b, cfg, opt, pol=pol))
+            rec = _compare_case(mode, rec, params, mu, ref)
+            out["cases"][mode] = rec
+            log(f"[train_sharded] {mode} on a (1, 1) NCCL mesh: "
+                f"{json.dumps(rec)}")
+            del params, mu
+
+        def make_pp():
+            model = lm.LM(cfg, device=dev, dtype=torch.float32)
+            model.load_state_dict(init)
+            pp = pipeline._from_full(model, cfg, mesh)
+            return pp, pipeline.opt_init(pp, opt), batch
+        pp_step = pipeline.make_pp_train_step(cfg, opt, mesh,
+                                              n_micro=PP_MICRO)
+        rec, params, mu = _sharded_case(make_pp, pp_step)
+        rec = _compare_case(f"pipeline S = 1, M = {PP_MICRO}", rec, params,
+                            mu, ref_micro)
+        rec["mu_rel_diff_full_batch"] = _rel_norm(mu, ref[2])
+        rec["pipeline_overhead"] = pp_step.pipeline_overhead
+        out["cases"]["pipeline"] = rec
+        log(f"[train_sharded] pipeline S = 1, M = {PP_MICRO}: "
+            f"{json.dumps(rec)}")
+        del params, mu
+    finally:
+        dist.destroy_process_group()
+    del ref, ref_micro, init
+    torch.cuda.empty_cache()
+    out["two_ranks_one_card"] = _two_ranks_on_one_card()
+    log(f"[train_sharded] ms a step / peak GB: " + json.dumps(
+        {k: [round(v["ms_per_step"], 2), round(v["peak_gb"], 2)]
+         for k, v in out["cases"].items()}))
+    return out
+
+
 def _flash_entry(dev, counts_by_path, flash_err):
     """The flash-decode kernel's line: ms, plain and library ms and the
     bound at each timed shape, cycling through enough input copies that
@@ -4548,6 +4911,7 @@ def main(argv=None):
                                         dev)
         prefill = timed("prefill", phase_prefill, dev)
         training = timed("train", phase_train, dev)
+        training_sharded = timed("train_sharded", phase_train_sharded, dev)
         kernels = timed("timings", phase_timings, dev, counts, cost_err,
                         lstm_err, service_counts, multi_err,
                         {f"{phase}_{k}": v
@@ -4582,6 +4946,7 @@ def main(argv=None):
              "lm_families_path": families,
              "lm_families_launches": family_counts,
              "prefill_path": prefill, "train_path": training,
+             "train_sharded_path": training_sharded,
              "phase_s": phase_s,
              "kernels": kernels, **result}, indent=1))
     log(json.dumps(result))

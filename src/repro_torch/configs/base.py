@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +103,31 @@ class ArchConfig:
             n += self.encoder_layers * (qkv + mlp)
         return int(n)
 
+
+
+# Input shape grid (the reference's per-architecture shape set).
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4096, 256, "train"),
+    InputShape("prefill_32k", 32768, 32, "prefill"),
+    InputShape("decode_32k", 32768, 128, "decode"),
+    InputShape("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> InputShape:
+    """The shape called ``name``; an unknown name raises ``KeyError``."""
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
 
 ARCH_IDS: List[str] = [
     "zamba2_1p2b",

@@ -16,8 +16,10 @@ The flags and the last line (the stats JSON) are those of
 it fails, and nothing falls back to the CPU).  Every family is served; audio
 and vlm models attend to zero frontend features of the config's
 ``encoder_seq`` / ``vision_seq`` rows, as the reference's launcher gives
-them.  ``--mesh`` (sharded decode) is not ported yet and is rejected.  The
-weights are a random init from ``--seed``; nothing is downloaded.
+them.  ``--mesh`` (sharded decode) is not ported yet and is rejected: it
+comes with sharded serving (``cache_shardings``, the decode-kind policy),
+the slice after sharded training.  The weights are a random init from
+``--seed``; nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--prompt-lens", default="8,16")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet: sharded decode comes with the "
-                    "distributed slice")
+                    help="not ported yet: sharded decode comes with "
+                    "sharded serving, the slice after sharded training")
     ap.add_argument("--f32", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -54,8 +56,9 @@ def main(argv=None):
 
     if args.mesh is not None:
         ap.error("--mesh is not ported yet in the PyTorch port: sharded "
-                 "decode comes with the distributed slice; drop --mesh to "
-                 "serve on one device")
+                 "decode comes with sharded serving (cache_shardings, the "
+                 "decode-kind policy), the slice after sharded training; "
+                 "drop --mesh to serve on one device")
     try:
         cfg = (configs.get_smoke(args.arch) if args.smoke
                else configs.get(args.arch))

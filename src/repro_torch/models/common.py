@@ -36,21 +36,59 @@ in float32 and softmax weights cast to ``x``'s dtype before P.V up to
 ``FLASH_THRESHOLD`` queries, and past it :func:`blockwise_attention`,
 the online softmax over KV chunks with float32 accumulators and the
 ragged tail masked.
+
+Sharding: model code never builds a mesh.  A :class:`ShardingPolicy`
+carries the reference's hooks for the residual stream, the attention and
+ffn internals, the MoE dispatch and the Mamba heads, at the reference's
+sites, plus ``weight``, a parameter's placement at its use (:func:`cast`;
+the FSDP gather, which XLA inserts on its own).  The default policy is a
+no-op; ``repro_torch.distributed.sharding.make_policy`` builds the real
+ones, whose hooks redistribute DTensors.  A product with a DTensor weight
+is weight-stationary over the mesh (:func:`_dense`): the activation moves
+to the weight's layout, never the weight to the activation's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Tuple
+import threading
+from typing import Any, Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 
 NORM_PARAMS = ("ln1", "ln2", "norm_f", "q_norm", "k_norm")
 BIAS_PARAMS = ("bq", "bk", "bv")
+
+
+def _same(x):
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """Constraint hooks applied inside model code (no-ops by default)."""
+
+    resid: Callable = _same         # (B, T, D)
+    heads: Callable = _same         # (B, T, H, hd)
+    kv_full: Callable = _same       # (B, S, Kv, hd)
+    ffn: Callable = _same           # (B, T, F)
+    experts: Callable = _same       # (..., E, C, D/F)
+    dispatch: Callable = _same      # (n, g, E*C)
+    experts_flat: Callable = _same  # (n, E*C, D/F)
+    ssm_x: Callable = _same         # (B, T, H, P)
+    logits: Callable = _same        # (B, T, V)
+    cache: Callable = _same         # (B, T, Kv, hd)
+    weight: Callable = _same        # a parameter, at its use
+    mesh: Any = None                # the DeviceMesh of the hooks
+
+
+NO_SHARDING = ShardingPolicy()
 
 
 def dtype(name: str) -> torch.dtype:
@@ -71,10 +109,13 @@ def stored(cfg, dt=None):
     return dataclasses.replace(cfg, compute_dtype=str(dt).rsplit(".", 1)[-1])
 
 
-def cast(w, cfg):
+def cast(w, cfg, pol=NO_SHARDING):
     """``w`` in ``cfg.compute_dtype``: ``w`` itself when it is stored so
     (serving), a copy when it is a float32 master weight (training), as
-    the reference casts its float32 parameters at each use."""
+    the reference casts its float32 parameters at each use.  A sharded
+    ``w`` first takes the placement of its use (``pol.weight``: gathered
+    in float32, so gradients are reduced in float32)."""
+    w = pol.weight(w)
     dt = dtype(cfg.compute_dtype)
     return w if w.dtype == dt else w.to(dt)
 
@@ -111,11 +152,55 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
+def _stationary(x, w):
+    """``x`` placed so that ``x @ w`` runs where ``w`` lies: a mesh dim
+    that shards w's output dim (column-parallel) needs all of x's
+    features and rows there (replicated), one that shards w's input dim
+    (row-parallel, a Partial sum out) needs x's features split alike; a
+    dim that replicates w leaves x as it is.  So no weight moves for a
+    product; a plain ``x`` or ``w`` is left alone."""
+    if not isinstance(w, DTensor) or not isinstance(x, DTensor):
+        return x
+    want = []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(wp, Shard):
+            want.append(Replicate() if wp.dim == w.dim() - 1
+                        else Shard(x.dim() - 1))
+        else:
+            want.append(xp)
+    want = tuple(want)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+_PROJ = threading.local()
+
+
+@contextlib.contextmanager
+def projection():
+    """Marks the products run inside it as weight projections, products
+    with no batch dims (``remat="dots"`` keeps their outputs)."""
+    _PROJ.depth = getattr(_PROJ, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _PROJ.depth -= 1
+
+
+def in_projection() -> bool:
+    return getattr(_PROJ, "depth", 0) > 0
+
+
 def _dense(x, w, b=None):
-    """x @ w (+ b) over the last axis."""
-    if b is None:
-        return x @ w
-    flat = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+    """x @ w (+ b) over the last axis: a weight projection
+    (:func:`projection`)."""
+    if isinstance(w, DTensor):
+        x = _stationary(x, w)
+    with projection():
+        if b is None:
+            return x @ w
+        flat = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
     return flat.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -144,21 +229,37 @@ class Attention(nn.Module):
             self.k_norm = param((hd,), torch.float32, device)
 
 
-def _project_qkv(p: Attention, cfg, x, cos_sin):
+def _project_qkv(p: Attention, cfg, x, cos_sin, pol=NO_SHARDING):
     """q (B, T, H, hd), k and v (B, T, Kv, hd) from x (B, T, d), rotated by
     the (cos, sin) tables of :func:`rope_tables`."""
     B, T, _ = x.shape
     hd, H, Kv = cfg.hd(), cfg.num_heads, cfg.num_kv_heads
     bias = cfg.qkv_bias
-    q = _dense(x, cast(p.wq, cfg), cast(p.bq, cfg) if bias else None)
-    k = _dense(x, cast(p.wk, cfg), cast(p.bk, cfg) if bias else None)
-    v = _dense(x, cast(p.wv, cfg), cast(p.bv, cfg) if bias else None)
-    q, k, v = (q.reshape(B, T, H, hd), k.reshape(B, T, Kv, hd),
-               v.reshape(B, T, Kv, hd))
+    c = lambda w: cast(w, cfg, pol)
+    q = _dense(x, c(p.wq), c(p.bq) if bias else None)
+    k = _dense(x, c(p.wk), c(p.bk) if bias else None)
+    v = _dense(x, c(p.wv), c(p.bv) if bias else None)
+    q = pol.heads(_heads(q, (B, T, H, hd)))
+    k, v = _heads(k, (B, T, Kv, hd)), _heads(v, (B, T, Kv, hd))
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, pol.weight(p.q_norm), cfg.norm_eps)
+        k = rms_norm(k, pol.weight(p.k_norm), cfg.norm_eps)
     return apply_rope(q, *cos_sin), apply_rope(k, *cos_sin), v
+
+
+def _heads(x, shape):
+    """x (B, T, n * hd) -> (B, T, n, hd).  A DTensor whose last dim is
+    split where n is not (a GQA ``wk`` of Kv * hd columns on a mesh that
+    Kv does not divide) is first gathered on that dim, so no rank reads a
+    wrong view of a head."""
+    if isinstance(x, DTensor):
+        want = tuple(
+            Replicate() if (isinstance(pl, Shard) and pl.dim == x.dim() - 1
+                            and shape[2] % x.device_mesh.size(i)) else pl
+            for i, pl in enumerate(x.placements))
+        if want != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, want)
+    return x.reshape(shape)
 
 
 def _gqa_scores(q, k, scale):
@@ -244,26 +345,31 @@ def _attend(q, k, v, x_dtype, causal):
 
 
 def attention(p: Attention, cfg, x, positions, *, causal=True,
-              cos_sin=None):
+              cos_sin=None, pol=NO_SHARDING):
     """Full (training / prefill) self-attention.  x: (B, T, D), positions
     (B, T); ``cos_sin`` may carry their RoPE tables (:func:`rope_tables`),
     computed once for a forward.  Returns (B, T, D)."""
     if cos_sin is None:
         cos_sin = rope_tables(positions, cfg.hd(), cfg.rope_theta)
-    q, k, v = _project_qkv(p, cfg, x, cos_sin)
-    return _attend(q, k, v, x.dtype, causal) @ cast(p.wo, cfg)
+    q, k, v = _project_qkv(p, cfg, x, cos_sin, pol)
+    k, v = pol.kv_full(k), pol.kv_full(v)
+    return pol.resid(_dense(_attend(q, k, v, x.dtype, causal),
+                            cast(p.wo, cfg, pol)))
 
 
-def cross_attention(p: Attention, cfg, x, kv_feats):
+def cross_attention(p: Attention, cfg, x, kv_feats, *, pol=NO_SHARDING):
     """x: (B, T, D) queries over kv_feats (B, S, D): no RoPE, no mask,
     q_norm / k_norm under ``qk_norm``.  Returns (B, T, D)."""
     B, T, _ = x.shape
     hd, H = cfg.hd(), cfg.num_heads
-    q = (x @ cast(p.wq, cfg)).reshape(B, T, H, hd)
+    q = _heads(_dense(x, cast(p.wq, cfg, pol)), (B, T, H, hd))
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-    k, v = cross_kv(p, cfg, kv_feats)
-    return _attend(q, k, v, x.dtype, False) @ cast(p.wo, cfg)
+        q = rms_norm(q, pol.weight(p.q_norm), cfg.norm_eps)
+    k, v = cross_kv(p, cfg, kv_feats, pol)
+    q = pol.heads(q)
+    k, v = pol.kv_full(k), pol.kv_full(v)
+    return pol.resid(_dense(_attend(q, k, v, x.dtype, False),
+                            cast(p.wo, cfg, pol)))
 
 
 def decode_attention_step(p: Attention, cfg, x, cache_k, cache_v, pos: int,
@@ -289,7 +395,7 @@ def decode_attention_step(p: Attention, cfg, x, cache_k, cache_v, pos: int,
     return o @ cast(p.wo, cfg)
 
 
-def cross_kv(p: Attention, cfg, feats):
+def cross_kv(p: Attention, cfg, feats, pol=NO_SHARDING):
     """Cross-attention keys and values of one layer from frontend features
     (B, S, d): ``feats @ wk`` and ``feats @ wv`` without bias or RoPE,
     ``k_norm`` under ``qk_norm``.  Returns k, v (B, S, Kv, hd) in
@@ -297,10 +403,10 @@ def cross_kv(p: Attention, cfg, feats):
     B, S, _ = feats.shape
     hd, Kv = cfg.hd(), cfg.num_kv_heads
     feats = feats.to(dtype(cfg.compute_dtype))
-    k = (feats @ cast(p.wk, cfg)).reshape(B, S, Kv, hd)
-    v = (feats @ cast(p.wv, cfg)).reshape(B, S, Kv, hd)
+    k = _heads(_dense(feats, cast(p.wk, cfg, pol)), (B, S, Kv, hd))
+    v = _heads(_dense(feats, cast(p.wv, cfg, pol)), (B, S, Kv, hd))
     if cfg.qk_norm:
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        k = rms_norm(k, pol.weight(p.k_norm), cfg.norm_eps)
     return k, v
 
 
@@ -333,13 +439,15 @@ class MLP(nn.Module):
         self.w_down = param((f, d), dt, device)
 
 
-def mlp(p: MLP, cfg, x):
+def mlp(p: MLP, cfg, x, *, pol=NO_SHARDING):
+    c = lambda w: cast(w, cfg, pol)
     if cfg.mlp_act == "swiglu":
-        h = F.silu(x @ cast(p.w_gate, cfg)) * (x @ cast(p.w_up, cfg))
+        h = F.silu(_dense(x, c(p.w_gate))) * _dense(x, c(p.w_up))
     else:
-        h = F.gelu(x @ cast(p.w_up, cfg),
+        h = F.gelu(_dense(x, c(p.w_up)),
                    approximate="tanh")                # jax.nn.gelu's default
-    return h @ cast(p.w_down, cfg)
+    h = pol.ffn(h)
+    return pol.resid(_dense(h, c(p.w_down)))
 
 
 # ---------------------------------------------------------------------------
@@ -357,10 +465,12 @@ class Embed(nn.Module):
             self.unembed = param((cfg.d_model, cfg.vocab_size), dt, device)
 
 
-def embed(p: Embed, cfg, tokens):
-    return F.embedding(tokens, cast(p.tok, cfg))
+def embed(p: Embed, cfg, tokens, *, pol=NO_SHARDING):
+    return pol.resid(F.embedding(tokens, cast(p.tok, cfg, pol)))
 
 
-def unembed(p: Embed, cfg, x):
-    x = rms_norm(x, p.norm_f, cfg.norm_eps)
-    return x @ cast(p.tok.T if cfg.tie_embeddings else p.unembed, cfg)
+def unembed(p: Embed, cfg, x, *, pol=NO_SHARDING):
+    x = rms_norm(x, pol.weight(p.norm_f), cfg.norm_eps)
+    w = cast(p.tok, cfg, pol).T if cfg.tie_embeddings else cast(
+        p.unembed, cfg, pol)
+    return pol.logits(_dense(x, w))

@@ -30,7 +30,14 @@ flash-decode kernel on the card (:func:`common.decode_attention_step`,
 operations, as the reference's are: no Pallas kernel lies on that path.
 Stacks run layer by layer, each layer under
 ``torch.utils.checkpoint`` with ``remat`` (:func:`_run_stack`, the
-counterpart of ``_scan_stack``'s ``jax.checkpoint``).
+counterpart of ``_scan_stack``'s ``jax.checkpoint``; ``"dots"`` keeps the
+weight projections' outputs through selective checkpointing).
+
+Sharded training threads a :class:`common.ShardingPolicy` (``pol=``)
+through the forward, the loss and the train steps, as the reference
+does: the parameters, moments and batch are DTensors placed by
+``repro_torch.distributed.sharding`` and DTensor's sharding propagation
+stands where XLA's partitioner stands in the reference.
 
 The model is an ``nn.Module`` (:class:`LM`) whose stacks are
 ``nn.ModuleList`` s, where the reference stacks each parameter on leading
@@ -51,14 +58,21 @@ step holds one copy of the weights.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import common, moe, ssm
+from repro_torch.models.common import NO_SHARDING, ShardingPolicy
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # Leading stack axes of each top-level list, as the reference stacks them.
@@ -248,26 +262,50 @@ def params_from_jax(tree: Mapping[str, Any], cfg, device="cpu",
 # ---------------------------------------------------------------------------
 # Forward (training / prefill).
 # ---------------------------------------------------------------------------
-def _attn_block(p, cfg, x, cos_sin, *, causal=True, moe_groups=None):
+def _norm(x, g, cfg, pol):
+    return common.rms_norm(x, pol.weight(g), cfg.norm_eps)
+
+
+def _attn_block(p, cfg, x, cos_sin, *, causal=True, moe_groups=None,
+                pol=NO_SHARDING):
     """A dense or MoE block over the whole sequence."""
-    x = x + common.attention(p.attn, cfg,
-                             common.rms_norm(x, p.ln1, cfg.norm_eps), None,
-                             causal=causal, cos_sin=cos_sin)
-    z = common.rms_norm(x, p.ln2, cfg.norm_eps)
+    x = x + common.attention(p.attn, cfg, _norm(x, p.ln1, cfg, pol), None,
+                             causal=causal, cos_sin=cos_sin, pol=pol)
+    z = _norm(x, p.ln2, cfg, pol)
     if isinstance(p, MoEBlock):
-        return x + moe.moe_ffn(p.moe, cfg, z, n_groups=moe_groups)
-    return x + common.mlp(p.mlp, cfg, z)
+        return x + moe.moe_ffn(p.moe, cfg, z, n_groups=moe_groups, pol=pol)
+    return x + common.mlp(p.mlp, cfg, z, pol=pol)
 
 
-def _mamba_block(p, cfg, x):
-    return x + ssm.mamba_forward(p.mamba, cfg,
-                                 common.rms_norm(x, p.ln1, cfg.norm_eps))
+def _mamba_block(p, cfg, x, pol=NO_SHARDING):
+    return x + ssm.mamba_forward(p.mamba, cfg, _norm(x, p.ln1, cfg, pol),
+                                 pol=pol)
 
 
-def _cross_block(p, cfg, x, feats):
-    x = x + common.cross_attention(
-        p.xattn, cfg, common.rms_norm(x, p.ln1, cfg.norm_eps), feats)
-    return x + common.mlp(p.mlp, cfg, common.rms_norm(x, p.ln2, cfg.norm_eps))
+def _cross_block(p, cfg, x, feats, pol=NO_SHARDING):
+    x = x + common.cross_attention(p.xattn, cfg, _norm(x, p.ln1, cfg, pol),
+                                   feats, pol=pol)
+    return x + common.mlp(p.mlp, cfg, _norm(x, p.ln2, cfg, pol), pol=pol)
+
+
+REMATS = (True, False, "full", "none", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: save the
+    output of a product with no batch dims -- a weight projection ``x @
+    W`` (:func:`common._dense`, the router's), which marks itself
+    (``common.projection``) -- and recompute the rest, the products with
+    batch dims among them: attention's scores and P.V, the SSD
+    einsums, and the MoE experts' products, which carry E as a batch dim
+    in the reference even though the port runs them as one ``mm`` a
+    routed expert (so the policy reads the mark, not the op's name)."""
+    if common.in_projection() and op in _PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _run_stack(layers, body, x, remat=True):
@@ -275,20 +313,25 @@ def _run_stack(layers, body, x, remat=True):
 
     remat: True / "full" recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant: only each layer's input is
-    kept); False / "none" keeps every activation.  Without autograd there
-    is nothing to keep and the layers simply run.  "dots" (the reference's
-    policy that saves the matmul outputs) is not ported: its one caller is
-    the dry run, which comes with the sharding slice.
+    kept); "dots" keeps the outputs of the weight projections and
+    recomputes the rest (selective checkpointing under
+    :func:`_dots_policy`, the reference's
+    ``dots_with_no_batch_dims_saveable``); False / "none" keeps every
+    activation.  Without autograd there is nothing to keep and the layers
+    simply run.
     """
-    if remat == "dots":
-        raise ValueError('remat="dots" is not ported: it comes with the '
-                         "dry run of the sharding slice")
-    if remat not in (True, False, "full", "none"):
+    if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r}")
-    keep = remat in (True, "full") and torch.is_grad_enabled()
+    if not torch.is_grad_enabled() or remat in (False, "none"):
+        for layer in layers:
+            x = body(layer, x)
+        return x
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     for layer in layers:
-        x = (checkpoint(body, layer, x, use_reentrant=False) if keep
-             else body(layer, x))
+        x = checkpoint(body, layer, x, use_reentrant=False, **kw)
     return x
 
 
@@ -296,7 +339,7 @@ def _positions(B, T, device):
     return torch.arange(T, device=device).expand(B, T)
 
 
-def _encode_audio(params: LM, cfg, frames, *, remat=True):
+def _encode_audio(params: LM, cfg, frames, *, remat=True, pol=NO_SHARDING):
     """The whisper encoder over frame embeddings (B, S, D) (the frontend
     stub): bidirectional attention blocks with RoPE, then ``enc_norm``."""
     B, S, _ = frames.shape
@@ -304,13 +347,13 @@ def _encode_audio(params: LM, cfg, frames, *, remat=True):
     cos_sin = common.rope_tables(_positions(B, S, x.device), cfg.hd(),
                                  cfg.rope_theta)
     x = _run_stack(params.encoder, lambda lp, h: _attn_block(
-        lp, cfg, h, cos_sin, causal=False), x, remat)
-    return common.rms_norm(x, params.enc_norm, cfg.norm_eps)
+        lp, cfg, h, cos_sin, causal=False, pol=pol), x, remat)
+    return _norm(x, params.enc_norm, cfg, pol)
 
 
 def forward_hidden(params: LM, cfg, tokens,
                    aux: Optional[Dict[str, torch.Tensor]] = None, *,
-                   remat=True, moe_groups=None):
+                   remat=True, moe_groups=None, pol=NO_SHARDING):
     """The causal LM trunk: tokens (B, T) -> final hidden states (B, T, D)
     in ``compute_dtype``.
 
@@ -321,14 +364,14 @@ def forward_hidden(params: LM, cfg, tokens,
     """
     _check_family(cfg)
     B, T = tokens.shape
-    x = common.embed(params.embed, cfg, tokens)
+    x = common.embed(params.embed, cfg, tokens, pol=pol)
     cos_sin = (common.rope_tables(_positions(B, T, x.device), cfg.hd(),
                                   cfg.rope_theta)
                if attention_sites(cfg) else None)
     fam = cfg.family
     attn = lambda lp, h: _attn_block(lp, cfg, h, cos_sin,
-                                     moe_groups=moe_groups)
-    mam = lambda lp, h: _mamba_block(lp, cfg, h)
+                                     moe_groups=moe_groups, pol=pol)
+    mam = lambda lp, h: _mamba_block(lp, cfg, h, pol)
     if fam in ("dense", "moe"):
         x = _run_stack(params.blocks, attn, x, remat)
     elif fam == "ssm":
@@ -340,11 +383,12 @@ def forward_hidden(params: LM, cfg, tokens,
         x = _run_stack(params.groups, group, x, remat=False)
         x = _run_stack(params.tail, mam, x, remat)
     elif fam == "audio":
-        feats = _encode_audio(params, cfg, aux["frames"], remat=remat)
+        feats = _encode_audio(params, cfg, aux["frames"], remat=remat,
+                              pol=pol)
 
         def dec(lp, h):
             blk, xblk = lp
-            return _cross_block(xblk, cfg, attn(blk, h), feats)
+            return _cross_block(xblk, cfg, attn(blk, h), feats, pol)
 
         x = _run_stack(list(zip(params.blocks, params.cross)), dec, x,
                        remat)
@@ -354,7 +398,7 @@ def forward_hidden(params: LM, cfg, tokens,
         def group(lp, h):
             gp, xblk = lp
             return _cross_block(xblk, cfg, _run_stack(gp, attn, h, remat),
-                                feats)
+                                feats, pol)
 
         x = _run_stack(list(zip(params.groups, params.cross)), group, x,
                        remat=False)
@@ -362,11 +406,11 @@ def forward_hidden(params: LM, cfg, tokens,
 
 
 def forward(params: LM, cfg, tokens, aux=None, *, remat=True,
-            moe_groups=None):
+            moe_groups=None, pol=NO_SHARDING):
     """Full-logits forward (small shapes, tests): (B, T) -> (B, T, V)."""
     x = forward_hidden(params, cfg, tokens, aux, remat=remat,
-                       moe_groups=moe_groups)
-    return common.unembed(params.embed, cfg, x)
+                       moe_groups=moe_groups, pol=pol)
+    return common.unembed(params.embed, cfg, x, pol=pol)
 
 
 @torch.no_grad()
@@ -542,35 +586,58 @@ def serve_step(params: LM, cache: Cache, token, cfg):
 CE_CHUNK = 512  # sequence positions per chunked-cross-entropy step
 
 
-def _chunk_nll(embed, cfg, xchunk, lchunk):
+def _chunk_nll(embed, cfg, xchunk, lchunk, pol=NO_SHARDING):
     """Summed next-token NLL of one chunk: float32 logits, log-softmax."""
-    logits = common.unembed(embed, cfg, xchunk).to(torch.float32)
+    logits = common.unembed(embed, cfg, xchunk, pol=pol).to(torch.float32)
     return torch.nn.functional.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), lchunk.reshape(-1).long(),
         reduction="sum")
 
 
 def lm_loss(params: LM, cfg, tokens, labels, aux=None, *, moe_groups=None,
-            remat=True):
+            remat=True, pol=NO_SHARDING):
     """Mean next-token cross-entropy with a *chunked* unembedding: logits
     are made and consumed CE_CHUNK positions at a time (the chunk lowered
     until it divides T), each chunk under ``checkpoint`` so its logits
     are recomputed in the backward and the (B, T, V) tensor never exists.
     The chunks' sums add up in float32 in order, over B * T."""
-    x = forward_hidden(params, cfg, tokens, aux, moe_groups=moe_groups,
-                       remat=remat)
-    B, T, _ = x.shape
-    ck = min(CE_CHUNK, T)
-    while T % ck:
-        ck -= 1
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(0, T, ck):
-        xc, lc = x[:, i:i + ck], labels[:, i:i + ck]
-        total = total + (
-            checkpoint(_chunk_nll, params.embed, cfg, xc, lc,
-                       use_reentrant=False) if torch.is_grad_enabled()
-            else _chunk_nll(params.embed, cfg, xc, lc))
-    return total / (B * T)
+    with sharded(pol):
+        x = forward_hidden(params, cfg, tokens, aux, moe_groups=moe_groups,
+                           remat=remat, pol=pol)
+        B, T, _ = x.shape
+        ck = min(CE_CHUNK, T)
+        while T % ck:
+            ck -= 1
+        total = None
+        for i in range(0, T, ck):
+            xc, lc = x[:, i:i + ck], labels[:, i:i + ck]
+            nll = (checkpoint(_chunk_nll, params.embed, cfg, xc, lc, pol,
+                              use_reentrant=False)
+                   if torch.is_grad_enabled()
+                   else _chunk_nll(params.embed, cfg, xc, lc, pol))
+            total = nll if total is None else total + nll
+        return total / (B * T)
+
+
+_SHARDED = threading.local()
+
+
+@contextlib.contextmanager
+def sharded(pol: ShardingPolicy):
+    """The context of a sharded computation: plain tensors met beside
+    DTensors (RoPE tables, masks, positions) count as replicated.  A
+    no-op for the default policy; nested, only the outermost one acts
+    (``implicit_replication`` does not restore an outer one's state)."""
+    depth = getattr(_SHARDED, "depth", 0)
+    if pol.mesh is None or depth:
+        yield
+        return
+    _SHARDED.depth = 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _SHARDED.depth = 0
 
 
 def _trainable(params: LM) -> Dict[str, torch.Tensor]:
@@ -581,40 +648,75 @@ def _trainable(params: LM) -> Dict[str, torch.Tensor]:
     return named
 
 
-def _loss_and_grads(params, named, cfg, batch, moe_groups, remat):
+def _loss_and_grads(params, named, cfg, batch, moe_groups, remat,
+                    pol=NO_SHARDING):
+    """The loss (a plain tensor, the same on every rank when sharded)
+    and each parameter's gradient in its parameter's placement (the
+    data-parallel sums reduced: all-reduced where the parameter is
+    replicated, reduce-scattered where it is sharded)."""
     aux = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
-    with torch.enable_grad():
+    with torch.enable_grad(), sharded(pol):
         loss = lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                       aux or None, moe_groups=moe_groups, remat=remat)
+                       aux or None, moe_groups=moe_groups, remat=remat,
+                       pol=pol)
         # An expert no token reached is outside the graph: its gradient is
         # 0, as the reference's dense dispatch gives it.
         grads = torch.autograd.grad(loss, list(named.values()),
                                     allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), dict(zip(named, grads))
+    grads = dict(zip(named, grads))
+    if isinstance(loss, DTensor):
+        loss = loss.full_tensor()
+        for k, p in named.items():
+            g = grads[k]
+            if tuple(g.placements) != tuple(p.placements):
+                grads[k] = g.redistribute(p.device_mesh, p.placements)
+    return loss.detach(), grads
 
 
 def train_step(params: LM, opt_state, batch, cfg, optimizer, *,
-               moe_groups=None, remat=True):
+               moe_groups=None, remat=True, pol=NO_SHARDING):
     """One optimizer step.  batch: {"tokens": (B, T), "labels": (B, T)}
     plus the frontend stub for audio / vlm.  The model and
-    ``opt_state`` are updated in place and returned with the loss."""
+    ``opt_state`` are updated in place and returned with the loss.
+
+    Sharded: the parameters and moments are DTensors placed by
+    ``sharding.distribute_model`` / ``distribute_opt_state``, the batch
+    by ``sharding.place_batch`` and ``pol`` is ``sharding.make_policy``'s;
+    the loss comes back as a plain tensor, the same on every rank, and
+    the clipping norm is over the whole gradient."""
     named = _trainable(params)
     loss, grads = _loss_and_grads(params, named, cfg, batch, moe_groups,
-                                  remat)
-    opt_state = optimizer.update_(grads, opt_state, named)
+                                  remat, pol)
+    with sharded(pol):
+        opt_state = optimizer.update_(grads, opt_state, named)
     return params, opt_state, loss
 
 
+def _micro(v, i, b):
+    """Rows [i * b, (i + 1) * b) of a batch tensor; a DTensor's slice is
+    placed as the batch was when its rows divide evenly (else as DTensor
+    leaves the slice)."""
+    mb = v[i * b:(i + 1) * b]
+    if not isinstance(v, DTensor) or mb.placements == v.placements:
+        return mb
+    mesh = v.device_mesh
+    n = 1
+    for d, pl in enumerate(v.placements):
+        if pl.is_shard(0):
+            n *= mesh.size(d)
+    return mb.redistribute(mesh, v.placements) if b % n == 0 else mb
+
+
 def train_step_accum(params: LM, opt_state, batch, cfg, optimizer, *,
-                     n_micro: int = 1, moe_groups=None):
+                     n_micro: int = 1, moe_groups=None, pol=NO_SHARDING):
     """One optimizer step with gradient accumulation over ``n_micro``
     slices of the batch along axis 0, into float32 accumulators; the
     gradient is their sum over ``n_micro`` and the loss the mean of the
     slices'.  ``n_micro == 1`` is :func:`train_step`."""
     if n_micro == 1:
         return train_step(params, opt_state, batch, cfg, optimizer,
-                          moe_groups=moe_groups)
+                          moe_groups=moe_groups, pol=pol)
     B = batch["tokens"].shape[0]
     if B % n_micro:
         raise ValueError(f"batch {B} is not a multiple of n_micro "
@@ -623,15 +725,16 @@ def train_step_accum(params: LM, opt_state, batch, cfg, optimizer, *,
     named = _trainable(params)
     loss_acc = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
-    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    acc = {k: torch.zeros_like(p, dtype=torch.float32)
            for k, p in named.items()}
     for i in range(n_micro):
-        mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        mb = {k: _micro(v, i, b) for k, v in batch.items()}
         loss, grads = _loss_and_grads(params, named, cfg, mb, moe_groups,
-                                      True)
+                                      True, pol)
         loss_acc = loss_acc + loss
         for k, g in grads.items():
             acc[k].add_(g)
-    grads = {k: g / n_micro for k, g in acc.items()}
-    opt_state = optimizer.update_(grads, opt_state, named)
+    with sharded(pol):
+        grads = {k: g / n_micro for k, g in acc.items()}
+        opt_state = optimizer.update_(grads, opt_state, named)
     return params, opt_state, loss_acc / n_micro

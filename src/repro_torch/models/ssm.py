@@ -29,11 +29,14 @@ reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models import common
 
@@ -143,24 +146,78 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     return (y_intra + y_inter).reshape(B_, T, H, P)
 
 
-def mamba_forward(p: Mamba, cfg, x):
-    """Full-sequence Mamba2 block.  x: (B, T, D) -> (B, T, D)."""
+def mamba_forward(p: Mamba, cfg, x, *, pol=common.NO_SHARDING):
+    """Full-sequence Mamba2 block.  x: (B, T, D) -> (B, T, D).
+
+    Sharded (DTensor activations), the in-projection's output is made
+    whole on every rank before it is split (its three parts are not
+    multiples of a shard), the conv runs on the batch shards, and the
+    SSD scan (:func:`ssd_chunked`, sequential in T) runs in ``local_map``
+    on each rank's batch rows and heads (``pol.ssm_x``: heads on
+    ``model`` when they divide)."""
     B, T, D = x.shape
     d_inner, H, P, S = dims(cfg)
-    z, xbc, dt = _split_proj(cfg, x @ common.cast(p.in_proj, cfg))
-    xbc = F.silu(_causal_conv(xbc, common.cast(p.conv_w, cfg),
-                              common.cast(p.conv_b, cfg)))
+    c = lambda w: common.cast(w, cfg, pol)
+    zxbcdt = common._dense(x, c(p.in_proj))
+    if isinstance(zxbcdt, DTensor):
+        zxbcdt = _batch_only(zxbcdt)
+    z, xbc, dt = _split_proj(cfg, zxbcdt)
+    xbc = F.silu(_causal_conv(xbc, c(p.conv_w), c(p.conv_b)))
     xs, Bm, Cm = torch.split(xbc, [d_inner, S, S], dim=-1)
     f32 = torch.float32
-    dt = F.softplus(dt.to(f32) + p.dt_bias[None, None, :])
-    A = -torch.exp(p.A_log)
-    xh = xs.reshape(B, T, H, P)
-    y = ssd_chunked(xh.to(f32), dt, A, Bm.to(f32), Cm.to(f32),
-                    cfg.ssm_chunk)
-    y = y + p.D[None, None, :, None] * xh.to(f32)
+    dt = F.softplus(dt.to(f32) + pol.weight(p.dt_bias)[None, None, :])
+    A = -torch.exp(pol.weight(p.A_log))
+    # The SSD chunk scan is sequential in T: the sequence must be complete
+    # per device (heads shard over 'model' instead, when divisible).
+    xh = pol.ssm_x(xs.reshape(B, T, H, P))
+    y = _ssd(xh.to(f32), dt, A, Bm.to(f32), Cm.to(f32), cfg.ssm_chunk)
+    y = y + pol.weight(p.D)[None, None, :, None] * xh.to(f32)
     y = y.reshape(B, T, d_inner).to(x.dtype)
-    y = common.rms_norm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
-    return y @ common.cast(p.out_proj, cfg)
+    y = common.rms_norm(y * F.silu(z), pol.weight(p.gate_norm),
+                        cfg.norm_eps)
+    return pol.resid(common._dense(y, c(p.out_proj)))
+
+
+def _batch_only(x):
+    """A DTensor with every mesh dim that does not split its batch dim
+    made whole (a Partial sum reduced)."""
+    want = tuple(pl if isinstance(pl, Shard) and pl.dim == 0
+                 else Replicate() for pl in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _ssd(x, dt, A, Bm, Cm, chunk):
+    """:func:`ssd_chunked`, in ``local_map`` on DTensors: x (B, T, H, P)
+    and dt (B, T, H) split on B and H alike, A on H as x's heads, Bm / Cm
+    on B; the output as x."""
+    if not isinstance(x, DTensor):
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    mesh = x.device_mesh
+    px = tuple(x.placements)
+    if any(isinstance(pl, Shard) and pl.dim not in (0, 2) for pl in px):
+        x = _batch_only(x)
+        px = tuple(x.placements)
+    pdt = px                       # (B, T, H): B on 0, H on 2 as x's
+    pA = tuple(Shard(0) if isinstance(pl, Shard) and pl.dim == 2
+               else Replicate() for pl in px)
+    pB = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+               for pl in px)
+    # A's gradient on each rank covers its batch rows only, and Bm's and
+    # Cm's its heads only: Partial sums over the mesh dims that split
+    # those.
+    gA = tuple(a if isinstance(a, Shard) else
+               Partial() if isinstance(pl, Shard) else Replicate()
+               for a, pl in zip(pA, px))
+    gB = tuple(Partial() if isinstance(pl, Shard) and pl.dim == 2 else b
+               for b, pl in zip(pB, px))
+    fn = local_map(functools.partial(ssd_chunked, chunk=chunk),
+                   out_placements=list(px),
+                   in_placements=(px, pdt, pA, pB, pB),
+                   in_grad_placements=(px, pdt, gA, gB, gB),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, dt, A, Bm, Cm)
 
 
 class MambaCache(NamedTuple):

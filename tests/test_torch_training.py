@@ -157,5 +157,7 @@ def test_train_launcher_and_resume(tmp_path):
 
 
 def test_train_launcher_rejects_a_mesh():
-    with pytest.raises(ValueError, match="sharding slice"):
+    """A mesh of more than one device needs a torchrun-style world of its
+    size; without one the launcher raises, and never trains unsharded."""
+    with pytest.raises(ValueError, match="torchrun-style world of 4 ranks"):
         train.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
