@@ -3,6 +3,13 @@
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --out results/chip_smoke.json   # also a JSON
+    python3 chip_smoke.py --phases serve_sharded,shard_timings
+
+``--phases`` runs only the named phases (the keys of the ``[phases]
+seconds`` line, ``PHASES``), ``build``, and the earlier phases whose
+results a named one reads (``PHASE_NEEDS``; the script names each one it
+adds); without it every phase runs.  The last line is the same either
+way.
 
 Phases, in order; the first failure stops the script with a non-zero exit
 and no result line:
@@ -129,15 +136,16 @@ and no result line:
    full width (latency / area / dla, LP, seed 0), every run through
    ``api.run_search`` with the launch counters set to 0 just before and
    read just after.  (a) At 4 shards (``FANOUT_CHECK_RUNS``, cloud):
-   ``device`` against ``serial`` for reinforce (eps 200) and ga
-   (population 20, eps 400), ``threads`` against ``serial`` for
-   reinforce and sa (eps 200): best value, history, pe, kt, df and the
-   extras byte for byte, the launches exact and equal to serial's
-   (replays counted), no plain version on the card, at least one shard
-   feasible.  (b) Wall seconds of ``serial``, ``threads`` and ``device``
-   at 4 and 10 shards for reinforce (eps 100, iot; cut from 1000 to make
-   room for phases 8c, 10 and 10b) and ga (population 100, 250
-   generations, cloud; cut from 500 for 10b), each held to serial's bytes and
+   ``device`` against ``serial`` for reinforce (eps 100; 200 until the
+   room for 8d (c) was made) and ga (population 20, eps 400), ``threads``
+   against ``serial`` for reinforce (eps 100) and sa (eps 200): best
+   value, history, pe, kt, df and the extras byte for byte, the
+   launches exact and equal to serial's (replays counted), no plain
+   version on the card, at least one shard feasible.  (b) Wall seconds
+   of ``serial``, ``threads`` and ``device`` at 4 and 10 shards for
+   reinforce (eps 25, iot; cut from 1000 to make room for phases 8c, 10,
+   10b and 8d (c)) and ga (population 100, 250 generations, cloud; cut
+   from 500 for 10b), each held to serial's bytes and
    launches; then the device backend's reinforce fleet alone at 1, 4
    and 10 shards: ms a fleet epoch over 50 unprofiled epochs (and its
    rate against one shard's), the host ms one replay call takes with the
@@ -280,6 +288,31 @@ and no result line:
    drops a token), qwen2.5 at 2 layers and T = 1,100 (the blockwise
    prefill), and the blockwise path against the direct one at
    ``BLOCKWISE_SHAPES``.
+8d. Sharded serving on an NCCL world of one rank (``HashStore``, no
+   network), which runs the whole sharded decode path on the card:
+   DTensor placements by ``cache_shardings`` and the rules, ``local_map``
+   at the attention, the Mamba step and the MoE dispatch, the partials
+   kernel on the rank's cache shard, a one-member all-gather and the
+   combine kernel.  (a) qwen2.5-3b whole in float32 through ``serve
+   --mesh 1x1`` in process (8 requests, prompt lengths 16 and 64, 16 new
+   tokens, max_len 1,024) against the unsharded launcher run on the same
+   weights (the same seed): equal tokens, logits within 1e-4 at every
+   step; counters set to 0 just before the sharded run and read just
+   after: the partials and the combine kernel launched once per
+   attention site per step, flash_decode not at all, no plain version on
+   the card.  (b) The same in bfloat16 at the prompt-16 bucket only
+   (cut to make room for (c)): ms a step of each, the share of equal
+   tokens.  (c) phi3.5-MoE (phase 8b's 8 layers) and zamba2-1.2b in
+   float32 through ``Engine`` at (a)'s requests, prompt lengths and new
+   tokens (``SERVE_SHARDED_FAMILY_RUN``), sharded in place after the
+   unsharded run: the check of (a).  (d) Virtual shards
+   of one bf16 cache (8, 1,024, 2, 128), 16 query heads: m in {2, 4, 8}
+   contiguous shards at positions 0, 100, 511 and 1,023, each shard's
+   partials (the neutral one where it holds no valid row) side by side
+   and combined, within 1e-5 of ``flash_decode`` and of the plain
+   version on the valid rows, two calls bit-equal; each kernel against
+   its plain version.  The only combine across several shards on the
+   card: two NCCL ranks on one card are refused.
 10. Training: ``repro_torch.launch.train`` in process on qwen1.5-0.5b at
    full width, bfloat16 compute with float32 master weights, B = 8, T =
    1,024, 30 steps (cut from 40 for phase 10b) of Adam with the
@@ -325,7 +358,13 @@ and no result line:
    (phase 7's for the per-row kernel) and ``launches_by_path`` each
    counted run's (phases 6b, 6c, 6d, 6e and 7b included).
    ``tools/profile_search_kernels.py`` runs the same search-path
-   measurements on another tree, such as a parent commit.
+   measurements on another tree, such as a parent commit.  The line ends
+   with the flash-decode kernel's entry (phases 8 and 8b's launches) and
+   the partials and combine entries (phase 8d (a)'s launches; timed at
+   (a)'s shapes, one rank at the longest request's last step, and on one
+   of two shards of phase 8d's bf16 cache at its last position; the
+   library call for the partials is the memory-efficient SDPA with its
+   log-sum-exp, none for the combine).
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the JAX package.
@@ -394,10 +433,11 @@ SERVICE_NSGA2_EPS, SERVICE_GA_EPS = 640, 2000
 # Phase 6d: fanout on mobilenet_v2 at full width (latency / area / dla,
 # LP, seed 0).  (a) Each backend against serial at 4 shards: inner ->
 # (eps, inner options, platform, backends held to serial).  (b) Walls of
-# serial, threads and device at 4 and 10 shards: reinforce at eps 100
-# (iot; cut from 1000 for phases 8c, 10 and 10b: the backends stay
-# bit-equal to serial at any eps) and ga at population 100 and 250
-# generations (cloud; cut from 500 for phase 10b); shards ->
+# serial, threads and device at 4 and 10 shards: reinforce at eps 25
+# (iot; cut from 1000 for phases 8c, 10 and 10b, and from 100 for 8d
+# (c): the backends stay bit-equal to serial at any eps) and ga at
+# population 100 and 250 generations (cloud; cut from 500 for phase 10b);
+# shards ->
 # epochs of the device backend's traced fleet runs, and the unprofiled
 # fleet epochs timed before each trace.  (c) The search-quality
 # check: ten shards (seeds 0-9) of each config of the JAX package's
@@ -406,12 +446,12 @@ FANOUT_ENV = {"objective": "latency", "constraint": "area",
               "scenario": "LP", "dataflow": 0, "levels": 12}
 FANOUT_CHECK_SHARDS = 4
 FANOUT_CHECK_RUNS = {
-    "reinforce": (200, {}, "cloud", ("device", "threads")),
+    "reinforce": (100, {}, "cloud", ("device", "threads")),
     "ga": (400, {"population": 20}, "cloud", ("device",)),
     "sa": (200, {}, "cloud", ("threads",)),
 }
 FANOUT_WALL_SHARDS = (4, 10)
-FANOUT_WALL_RUNS = {"reinforce": (100, {}, "iot"),
+FANOUT_WALL_RUNS = {"reinforce": (25, {}, "iot"),
                     "ga": (25_000, {"population": 100}, "cloud")}
 FANOUT_TRACE_EPOCHS = {1: 3, 4: 2, 10: 1}
 FANOUT_TIMED_EPOCHS = 50
@@ -507,6 +547,30 @@ LM_FAMILIES = (("phi3p5_moe_42b", 8, 2), ("qwen3_moe_235b", 2, 1),
                ("mamba2_130m", None, None), ("zamba2_1p2b", None, None),
                ("whisper_small", None, None),
                ("llama3p2_vision_90b", 10, 5))
+# Phase 8d: sharded serving on an NCCL world of one rank.  (a) the serve
+# launcher's flags for qwen2.5-3b whole in float32, with and without
+# ``--mesh 1x1``; (b) the same in bfloat16 with the prompt-16 bucket only
+# (cut to make room for (c)'s 64-token prompts: (b) prints, it checks
+# nothing); (c) the families whose MoE and Mamba decode sites run
+# sharded, in float32, as (arch, layers; None keeps the published depth:
+# phi3.5-MoE at phase 8b's cut), with (a)'s request count, prompt lengths
+# and new tokens; (d) virtual shards of one bf16 cache (B, Hq, Hkv, D,
+# Tmax): each shard count at each position.
+SERVE_SHARDED_ARGS = ("--arch", LM_ARCH, "--device", "cuda", "--requests",
+                      "8", "--prompt-lens", "16,64", "--max-new", "16",
+                      "--max-len", "1024", "--max-batch", "8")
+SERVE_SHARDED_BF16_ARGS = tuple(
+    "16" if a == "16,64" else a for a in SERVE_SHARDED_ARGS)
+SERVE_SHARDED_FAMILIES = (("phi3p5_moe_42b", 8), ("zamba2_1p2b", None))
+SERVE_SHARDED_FAMILY_RUN = (8, (16, 64), 16)
+SHARD_CACHE = (8, 16, 2, 128, 1024)
+SHARD_COUNTS, SHARD_POSITIONS = (2, 4, 8), (0, 100, 511, 1023)
+# The partials and combine kernel lines, timed at ((B, Hq, Hkv, D, Tmax),
+# shards m, a rank's valid rows, dtype): first (a)'s, one rank whose shard
+# is the whole float32 cache at the longest request's last step (64 + 16
+# rows), then one of two shards of (d)'s bf16 cache at its last row.
+SHARD_TIMED = (((8, 16, 2, 128, 1024), 1, 80, "float32"),
+               (SHARD_CACHE, 2, 512, "bfloat16"))
 # Phase 8b's engine runs take phase 8's request count, new tokens and
 # batch, with these prompt lengths and cache; (c) times a step here.
 FAMILY_PROMPT_LENS, FAMILY_MAX_LEN, FAMILY_STEP_POS = (16, 64), 256, 64
@@ -3773,6 +3837,387 @@ def phase_lm_families(dev):
     return dict(total), out
 
 
+def _recorded(fn):
+    """``fn()`` with every ``lm.decode_step`` call's logits (whole, float32)
+    and host seconds recorded: (result, logits, seconds)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import lm
+
+    logits, secs, real = [], [], lm.decode_step
+
+    def rec(*a, **kw):
+        t0 = time.perf_counter()
+        out, cache = real(*a, **kw)
+        full = out.full_tensor() if isinstance(out, DTensor) else out
+        logits.append(full.to(torch.float32))
+        secs.append(time.perf_counter() - t0)
+        return out, cache
+
+    lm.decode_step = rec
+    try:
+        out = fn()
+    finally:
+        lm.decode_step = real
+    return out, logits, secs
+
+
+def _serve_pair(what, plain, sharded, exact=True):
+    """The unsharded and the sharded run of the same requests on the same
+    weights: each a (requests, logits, seconds) of :func:`_recorded`.
+    With ``exact`` the tokens must be equal and the logits within 1e-4 at
+    every step; otherwise the share of equal tokens is recorded."""
+    import statistics
+
+    (r0, l0, s0), (r1, l1, s1) = plain, sharded
+    check(len(l0) == len(l1) > 0, f"{what}: {len(l0)} unsharded steps, "
+          f"{len(l1)} sharded")
+    err = max(float((a - b).abs().max()) for a, b in zip(l0, l1))
+    t0 = [t for r in r0 for t in r.output]
+    t1 = [t for r in r1 for t in r.output]
+    agree = sum(a == b for a, b in zip(t0, t1)) / max(1, len(t0))
+    check(all(bool(x.isfinite().all()) for x in l1),
+          f"{what}: sharded logits not finite")
+    if exact:
+        check(t0 == t1, f"{what}: the sharded tokens differ from the "
+              "unsharded engine's")
+        check(err <= 1e-4, f"{what}: sharded logits differ from the "
+              f"unsharded engine's by {err} (atol 1e-4)")
+    ms0, ms1 = (1e3 * statistics.median(s) for s in (s0, s1))
+    return {"steps": len(l0), "tokens": len(t0), "max_abs_diff": err,
+            "token_agreement": agree, "ms_per_step_unsharded": ms0,
+            "ms_per_step_sharded": ms1, "sharded_over_unsharded": ms1 / ms0}
+
+
+def _serve_cli(argv):
+    """``repro_torch.launch.serve.run(argv)`` in process, its printed lines
+    logged with a prefix, recorded: (requests, logits, seconds, stats)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, logits, secs = _recorded(lambda: serve.run(list(argv)))
+    for line in buf.getvalue().splitlines():
+        log(f"[serve_sharded]   serve: {line}")
+    stats = {k: v for k, v in out.items() if k != "reqs"}
+    return out["reqs"], logits, secs, stats
+
+
+def _shard_combine(q, k, v, pos, m):
+    """Attention of q over rows [0, pos] of k / v (B, Tmax, Hkv, D) cut into
+    m contiguous virtual shards: each shard's partials (the neutral ones
+    where it holds no valid row), padded to one width, side by side in
+    shard order, then the combine kernel."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    Tl = k.shape[1] // m
+    parts = []
+    for r in range(m):
+        n = min(Tl, max(0, pos + 1 - r * Tl))
+        parts.append(ops.decode_attention_partials(
+            q, k[:, r * Tl:r * Tl + n], v[:, r * Tl:r * Tl + n], m, Tl))
+    return ops.decode_attention_combine(torch.cat(parts, dim=2))
+
+
+def _virtual_shards(dev):
+    """Phase 8d (d): the virtual-shard combine against ``flash_decode`` and
+    the plain version on the valid rows (within 1e-5), two calls
+    bit-equal; the partials and the combine each against their plain
+    versions.  Returns the worst errors."""
+    import torch
+
+    from repro_torch.kernels import flash_decode, ref
+
+    B, Hq, Hkv, D, T = SHARD_CACHE
+    q, k, v = _attn_inputs(SHARD_CACHE, torch.bfloat16, dev, 77)
+    worst = {"vs_flash_decode": 0.0, "vs_plain": 0.0, "partials": 0.0,
+             "combine": 0.0, "cases": 0}
+    for m in SHARD_COUNTS:
+        for pos in SHARD_POSITIONS:
+            got = _shard_combine(q, k, v, pos, m)
+            again = _shard_combine(q, k, v, pos, m)
+            rows = (k[:, :pos + 1], v[:, :pos + 1])
+            e1 = float((got - flash_decode.flash_decode(q, *rows)).abs()
+                       .max())
+            e2 = float((got - ref.flash_decode_ref(q, *rows)).abs().max())
+            check(bool(got.isfinite().all()) and e1 <= 1e-5 and e2 <= 1e-5,
+                  f"virtual shards m = {m}, pos = {pos}: {e1} against "
+                  f"flash_decode, {e2} against the plain version (1e-5)")
+            check(torch.equal(got, again), f"virtual shards m = {m}, pos = "
+                  f"{pos}: two calls differ")
+            worst["vs_flash_decode"] = max(worst["vs_flash_decode"], e1)
+            worst["vs_plain"] = max(worst["vs_plain"], e2)
+            worst["cases"] += 1
+    # Each kernel against its plain version on one shard's rows.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, pos in ((2, 1023), (4, 600), (8, 100)):
+        Tl = T // m
+        width = flash_decode.shard_width(m, Tl)
+        kk, vv = k[:, :Tl], v[:, :Tl]
+        parts = flash_decode.flash_decode_partials(q, kk, vv, width)
+        per = flash_decode.plan_splits(B, Hkv, Tl, sms, width)[1]
+        want = ref.flash_decode_partials_ref(q, kk, vv,
+                                             per * flash_decode.TILE)
+        e = float((parts - want).abs().max())
+        check(e <= 1e-4, f"partials at m = {m}: {e} against the plain "
+              "version (1e-4)")
+        worst["partials"] = max(worst["partials"], e)
+        full = torch.cat([parts, parts], dim=2)
+        e = float((flash_decode.flash_decode_combine(full)
+                   - ref.flash_decode_combine_ref(full)).abs().max())
+        check(e <= 1e-5, f"combine at m = {m}: {e} against the plain "
+              "version (1e-5)")
+        worst["combine"] = max(worst["combine"], e)
+    return worst
+
+
+def phase_serve_sharded(dev):
+    """Phase 8d: sharded serving on an NCCL world of one rank (``HashStore``,
+    no network): DTensor placements, ``local_map``, the partials kernel,
+    a one-member all-gather and the combine kernel.  (a) qwen2.5-3b whole
+    in float32 through ``serve --mesh 1x1`` in process against the
+    unsharded launcher run (same seed, same weights): tokens equal, logits
+    within 1e-4 at every step; its kernel launches counted (the phase's
+    main path); (b) the same in bfloat16: ms a step of each, the share of
+    equal tokens; (c) phi3.5-MoE and zamba2-1.2b in float32 through
+    ``Engine`` (the MoE and Mamba sites sharded), the same check as (a);
+    (d) virtual shards of one cache."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine, ServeConfig, synthetic_requests
+
+    out = {}
+    f32 = SERVE_SHARDED_ARGS + ("--f32",)
+    # The unsharded launcher runs first: inside a world, --mesh 1x1 is the
+    # world's mesh.
+    plain, plain_bf16 = _serve_cli(f32), _serve_cli(SERVE_SHARDED_BF16_ARGS)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        sharded = _serve_cli(f32 + ("--mesh", "1x1"))
+        torch.cuda.synchronize()
+        counts, plain_on_card = ops.launch_counts(), dict(ref.cuda_calls)
+        cfg = configs.get(LM_ARCH)
+        steps = len(sharded[1])
+        sites = lm.attention_sites(cfg)
+        check(counts["flash_decode_partials"] == sites * steps
+              and counts["flash_decode_combine"] == sites * steps
+              and counts["flash_decode"] == 0,
+              f"sharded serving launched {counts} in {steps} steps of "
+              f"{sites} attention sites")
+        check(all(v == 0 for v in plain_on_card.values()),
+              f"sharded serving: a plain version ran on the card: "
+              f"{plain_on_card}")
+        rec = _serve_pair("qwen2.5-3b f32 sharded", plain[:3], sharded[:3])
+        rec["stats"] = sharded[3]
+        out["qwen_f32"] = rec
+        log(f"[serve_sharded] (a) {LM_ARCH} f32, serve --mesh 1x1: tokens "
+            f"equal, logits max abs diff {rec['max_abs_diff']:.3g} over "
+            f"{steps} steps; launches {json.dumps(counts)}; "
+            f"{json.dumps(rec)}")
+        del plain, sharded
+        torch.cuda.empty_cache()
+
+        sharded = _serve_cli(SERVE_SHARDED_BF16_ARGS + ("--mesh", "1x1"))
+        rec = _serve_pair("qwen2.5-3b bf16 sharded", plain_bf16[:3],
+                          sharded[:3], exact=False)
+        out["qwen_bf16"] = rec
+        log(f"[serve_sharded] (b) {LM_ARCH} bf16: ms a step sharded "
+            f"{rec['ms_per_step_sharded']:.2f} against unsharded "
+            f"{rec['ms_per_step_unsharded']:.2f}; tokens equal "
+            f"{rec['token_agreement']:.4f}; {json.dumps(rec)}")
+        del plain_bf16, sharded
+        torch.cuda.empty_cache()
+
+        mesh = mesh_lib.make_debug_mesh(1, 1, device_type="cuda")
+        n_req, plens, new = SERVE_SHARDED_FAMILY_RUN
+        for arch, layers in SERVE_SHARDED_FAMILIES:
+            base = configs.get(arch)
+            cfg = dataclasses.replace(
+                base, num_layers=layers or base.num_layers,
+                param_dtype="float32", compute_dtype="float32")
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            model = lm.init_params(cfg, gen, device=dev)
+            scfg = ServeConfig(max_len=1024, max_batch=8)
+
+            def run(pol=None):
+                reqs = synthetic_requests(n_req, cfg.vocab_size,
+                                          prompt_lens=plens, max_new=new,
+                                          seed=0)
+                eng = Engine(cfg, model, scfg, pol=pol)
+                _, logits, secs = _recorded(lambda: eng.serve(reqs))
+                return reqs, logits, secs
+
+            first = run()
+            sharding.distribute_model(model, mesh, "tp")
+            pol = sharding.make_policy(mesh, batch=8, kind="decode")
+            rec = _serve_pair(f"{arch} f32 sharded", first, run(pol))
+            rec["layers"] = cfg.num_layers
+            out[arch] = rec
+            log(f"[serve_sharded] (c) {arch} ({cfg.family}, "
+                f"{cfg.num_layers} layers) f32: tokens equal, logits max "
+                f"abs diff {rec['max_abs_diff']:.3g}; {json.dumps(rec)}")
+            del model, first
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["virtual_shards"] = _virtual_shards(dev)
+    log(f"[serve_sharded] (d) virtual shards of {SHARD_CACHE} bf16, m in "
+        f"{SHARD_COUNTS}, pos in {SHARD_POSITIONS}: "
+        f"{json.dumps(out['virtual_shards'])} (1e-5; two calls bit-equal)")
+    return counts, out
+
+
+def _sdpa_partial(q, k, v):
+    """One PyTorch call that computes the partial of a cache slice: the
+    memory-efficient SDPA kernel with its log-sum-exp, q viewed as (B,
+    Hkv, G, D).  Returns (out (B, Hq, D), lse (B, Hq)) float32, the
+    partial (acc = out, m = lse, l = 1)."""
+    import torch
+
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q.view(B, Hkv, Hq // Hkv, D), k.transpose(1, 2), v.transpose(1, 2),
+        None, True)[:2]
+    return (out.reshape(B, Hq, D).float(),
+            lse[..., :Hq // Hkv].reshape(B, Hq))
+
+
+def _shard_entries(dev, counts, errs):
+    """The kernel lines of the partials and combine entries: ms, plain
+    and library ms, device µs a launch from a trace, and the bound at
+    each shape of ``SHARD_TIMED`` (the first, phase 8d (a)'s, gives the
+    line's numbers); launches from phase 8d's sharded serve run.  The
+    partials' bound reads q and the slice's valid rows and writes one
+    partial a query row (the split count is the plan's choice); the
+    combine's reads the rank-padded partials it is given."""
+    import torch
+
+    from repro_torch.kernels import flash_decode, ref
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_shape = {"partials": {}, "combine": {}}
+    worst = {"partials": 0.0, "combine": 0.0, "library": 0.0}
+    for i, ((B, Hq, Hkv, D, T), m, n, dt_name) in enumerate(SHARD_TIMED):
+        dt = getattr(torch, dt_name)
+        el = torch.finfo(dt).bits // 8
+        width = flash_decode.shard_width(m, T // m)
+        S, per = flash_decode.plan_splits(B, Hkv, n, sms, width)
+        p_bytes = el * (B * Hq * D + 2 * B * n * Hkv * D) + 4 * B * Hq * (
+            D + 2)
+        copies = max(1, -(-120_000_000 // p_bytes))
+        sets = [_attn_inputs((B, Hq, Hkv, D, n), dt, dev, 500 + 1000 * i + c)
+                for c in range(copies)]
+        partials = lambda q, k, v: flash_decode.flash_decode_partials(
+            q, k, v, width)
+        plain = lambda q, k, v: ref.flash_decode_partials_ref(
+            q, k, v, per * flash_decode.TILE)
+        # Each rank's partials padded to the shared width, m ranks' side
+        # by side: what the combine gets on the main path.
+        padded = lambda q, k, v: torch.cat([
+            partials(q, k, v), ref.neutral_partials(
+                B, Hq, width - S, D, dev)] * m, dim=2)
+        q, k, v = sets[0]
+        got, want = partials(q, k, v), plain(q, k, v)
+        check(got.shape[2] == S, f"partials at {(B, Hq, Hkv, D, n)}: "
+              f"{got.shape[2]} splits, the plan says {S}")
+        e_p = float((got - want).abs().max())
+        parts = padded(q, k, v)
+        c_sets = [(padded(*a),) for a in sets]
+        combined = flash_decode.flash_decode_combine(parts)
+        e_c = float((combined - ref.flash_decode_combine_ref(parts))
+                    .abs().max())
+        lib_out, lib_lse = _sdpa_partial(q, k, v)
+        M = got[..., D].amax(dim=-1)
+        lse = M + torch.log((got[..., D + 1] * torch.exp(
+            got[..., D] - M[..., None])).sum(dim=-1))
+        e_lib = max(float((lib_out - flash_decode.flash_decode_combine(got))
+                          .abs().max()),
+                    float((lib_lse - lse).abs().max()))
+        check(e_p <= 1e-4 and e_c <= 1e-5 and e_lib <= 1e-2,
+              f"shard kernels at {(B, Hq, Hkv, D, n)} {dt_name}: partials "
+              f"{e_p} (1e-4), combine {e_c} (1e-5) against their plain "
+              f"versions; the efficient SDPA's partial {e_lib} (1e-2)")
+        worst["partials"] = max(worst["partials"], e_p)
+        worst["combine"] = max(worst["combine"], e_c)
+        worst["library"] = max(worst["library"], e_lib)
+        p_bound, p_by = _bound(p_bytes, 4 * B * Hq * n * D + 5 * B * Hq * n)
+        Sc = parts.shape[2]
+        c_bound, c_by = _bound(4 * (B * Hq * Sc * (D + 2) + B * Hq * D),
+                               B * Hq * Sc * (2 * D + 3))
+        # Device µs a launch from a profiler trace of back-to-back calls:
+        # the CUDA-event ms of a wrapper this short may read the host's
+        # enqueue.
+        dev_us = {}
+        for name, fn, kernel in (
+                ("partials", lambda: partials(q, k, v), "split_kernel"),
+                ("combine", lambda: flash_decode.flash_decode_combine(parts),
+                 "combine_kernel")):
+            trace = _kernel_trace(fn, SEARCH_TRACE_CALLS)
+            check(trace is not None, f"the profiler trace of the {name} "
+                  "kernel shows no device time")
+            dev_us[name] = sum(r[1] for r in trace["kernels"]
+                               if kernel in r[0])
+        key = f"{[B, Hq, Hkv, D, T]} m={m} rows={n} {dt_name}"
+        by_shape["partials"][key] = {
+            "shape": [B, Hq, Hkv, D, n], "dtype": dt_name, "splits": S,
+            "width": width, "max_abs_err": e_p,
+            "ms": time_ms_cycle(partials, sets, 500),
+            "device_us_per_launch": dev_us["partials"],
+            "plain_ms": time_ms_cycle(plain, sets, 100),
+            "library_ms": time_ms_cycle(_sdpa_partial, sets, 500),
+            "library_max_abs_diff": e_lib,
+            "bound_ms": p_bound, "bound_by": p_by}
+        by_shape["combine"][key] = {
+            "shape": list(parts.shape), "dtype": "float32",
+            "max_abs_err": e_c,
+            "ms": time_ms_cycle(flash_decode.flash_decode_combine, c_sets,
+                                500),
+            "device_us_per_launch": dev_us["combine"],
+            "plain_ms": time_ms_cycle(ref.flash_decode_combine_ref, c_sets,
+                                      100),
+            "library_ms": None, "bound_ms": c_bound, "bound_by": c_by}
+        del sets, c_sets
+        torch.cuda.empty_cache()
+    errs = errs or {}
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+              "replaces": "src/repro/kernels/flash_decode.py:66",
+              "tpu_kernel": "repro/kernels/flash_decode.py::"
+                            "flash_decode_padded"}
+    entries = []
+    for name, library in (
+            ("partials", "torch.ops.aten._scaled_dot_product_efficient_"
+                         "attention(compute_log_sumexp=True)"),
+            ("combine", None)):
+        rows = by_shape[name]
+        main = next(iter(rows.values()))
+        entries.append({
+            "name": f"flash_decode_{name}", **common, **main,
+            "launches": counts[f"flash_decode_{name}"],
+            "max_abs_err": max(worst[name], errs.get(name, 0.0)),
+            "library": library, "by_shape": rows})
+    return entries
+
+
 def _aux_feats(cfg, B, dev, seed):
     """Seeded random frontend stubs of an audio / vlm config in its compute
     dtype, as ``forward_hidden`` takes them ({"frames"} / {"patches"}, B
@@ -4854,6 +5299,51 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err,
     return [cost_entry, lstm_entry, bwd_entry, multi_entry]
 
 
+# Phases in the order they run (the keys of ``[phases] seconds``), and
+# the earlier phases whose results each one reads.  ``--phases`` runs the
+# named ones, those they read from, and ``build``.
+PHASES = ("build", "cost", "cost_multi", "lstm", "flash", "main", "engines",
+          "frontier", "fanout", "dist", "service", "http", "lm",
+          "lm_families", "prefill", "serve_sharded", "train",
+          "train_sharded", "timings", "flash_timings", "shard_timings")
+PHASE_NEEDS = {
+    "http": ("service",),
+    "timings": ("cost", "cost_multi", "lstm", "main", "engines", "frontier",
+                "fanout", "dist", "service", "http"),
+    "flash_timings": ("flash", "lm", "lm_families"),
+    "shard_timings": ("serve_sharded",),
+}
+
+
+def _selected(arg, quality_out):
+    """The phases to run for ``--phases arg`` (all without it); says which
+    ones run because a selected one reads their results."""
+    if not arg:
+        return set(PHASES)
+    want = [p.strip() for p in arg.split(",") if p.strip()]
+    unknown = sorted(set(want) - set(PHASES))
+    if unknown:
+        raise SmokeFailure(f"unknown phases {unknown}; the phases are "
+                           f"{','.join(PHASES)}")
+    run = set(want) | {"build"}
+    if quality_out:
+        run |= {"fanout", "dist"}
+    todo = list(run)
+    while todo:
+        for dep in PHASE_NEEDS.get(todo.pop(), ()):
+            if dep not in run:
+                run.add(dep)
+                todo.append(dep)
+    for p in PHASES:
+        if p in run and p not in want:
+            why = [w for w in PHASES if w in run and p in PHASE_NEEDS.get(
+                w, ())] or (["--quality-out"] if p in ("fanout", "dist")
+                            and quality_out else ["every kernel phase"])
+            log(f"[phases] {p} runs too: {', '.join(why)} reads its "
+                "results")
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="",
@@ -4861,6 +5351,10 @@ def main(argv=None):
     ap.add_argument("--quality-out", default="",
                     help="also write phases 6d and 6e's search-quality "
                     "table (the card's arm) to this JSON file")
+    ap.add_argument("--phases", default="",
+                    help="run only these phases (comma-separated names of "
+                    f"{', '.join(PHASES)}), those whose results they read, "
+                    "and build")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4872,28 +5366,35 @@ def main(argv=None):
         import torch
 
         card = phase_device()
+        run = _selected(args.phases, args.quality_out)
         dev = torch.device("cuda", 0)
         from repro_torch.core import env as env_lib
         env_lib.resolve_device(dev)     # float32 products, TF32 off
         phase_s = {}
 
         def timed(name, fn, *a):
+            if name not in run:
+                return None
             t0 = time.perf_counter()
             out = fn(*a)
             phase_s[name] = time.perf_counter() - t0
             return out
+
+        def pair(out):
+            return (None, None) if out is None else out
 
         build_s = timed("build", phase_build)
         cost_err = timed("cost", phase_cost_kernel, dev)
         multi_err = timed("cost_multi", phase_multi_kernel, dev)
         lstm_err = timed("lstm", phase_lstm_kernel, dev)
         flash_err = timed("flash", phase_flash_kernel, dev)
-        counts, timing = timed("main", phase_main_path, EPOCHS,
-                               GA_GENERATIONS)
-        engine_counts, engines = timed("engines", phase_engines, dev)
-        frontier_counts, frontier = timed("frontier", phase_frontier, dev)
-        fanout_counts, fanout = timed("fanout", phase_fanout)
-        dist_counts, dist_out = timed("dist", phase_dist, dev)
+        counts, timing = pair(timed("main", phase_main_path, EPOCHS,
+                                    GA_GENERATIONS))
+        engine_counts, engines = pair(timed("engines", phase_engines, dev))
+        frontier_counts, frontier = pair(timed("frontier", phase_frontier,
+                                               dev))
+        fanout_counts, fanout = pair(timed("fanout", phase_fanout))
+        dist_counts, dist_out = pair(timed("dist", phase_dist, dev))
         if args.quality_out:
             quality = fanout["quality"]
             Path(args.quality_out).parent.mkdir(parents=True, exist_ok=True)
@@ -4903,13 +5404,16 @@ def main(argv=None):
                  "configs": {**quality["configs"],
                              DIST_QUALITY: dist_out["quality"]}},
                 indent=1) + "\n")
-        service_counts, service, serial = timed("service", phase_service,
-                                                dev)
-        http_counts, http = timed("http", phase_http, dev, serial, service)
-        lm_counts, lm = timed("lm", phase_lm, dev)
-        family_counts, families = timed("lm_families", phase_lm_families,
-                                        dev)
+        service_counts, service, serial = (timed(
+            "service", phase_service, dev) or (None, None, None))
+        http_counts, http = pair(timed("http", phase_http, dev, serial,
+                                       service))
+        lm_counts, lm = pair(timed("lm", phase_lm, dev))
+        family_counts, families = pair(timed("lm_families",
+                                             phase_lm_families, dev))
         prefill = timed("prefill", phase_prefill, dev)
+        serve_counts, serve_sharded = pair(timed(
+            "serve_sharded", phase_serve_sharded, dev))
         training = timed("train", phase_train, dev)
         training_sharded = timed("train_sharded", phase_train_sharded, dev)
         kernels = timed("timings", phase_timings, dev, counts, cost_err,
@@ -4920,10 +5424,13 @@ def main(argv=None):
                                                ("fanout", fanout_counts),
                                                ("dist", dist_counts),
                                                ("http", http_counts))
-                         for k, v in by_run.items()})
-        kernels.append(timed("flash_timings", _flash_entry, dev,
-                             {"lm": lm_counts, "lm_families": family_counts},
-                             flash_err))
+                         for k, v in (by_run or {}).items()}) or []
+        flash = timed("flash_timings", _flash_entry, dev,
+                      {"lm": lm_counts, "lm_families": family_counts},
+                      flash_err)
+        kernels += [flash] if flash else []
+        kernels += timed("shard_timings", _shard_entries, dev, serve_counts,
+                         (serve_sharded or {}).get("virtual_shards")) or []
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4945,9 +5452,11 @@ def main(argv=None):
              "lm_path": lm, "lm_launches": lm_counts,
              "lm_families_path": families,
              "lm_families_launches": family_counts,
-             "prefill_path": prefill, "train_path": training,
+             "prefill_path": prefill, "serve_sharded_path": serve_sharded,
+             "serve_sharded_launches": serve_counts,
+             "train_path": training,
              "train_sharded_path": training_sharded,
-             "phase_s": phase_s,
+             "phase_s": phase_s, "phases": sorted(run),
              "kernels": kernels, **result}, indent=1))
     log(json.dumps(result))
     return 0

@@ -23,20 +23,27 @@ trailing part of the spec) and :func:`distribute_opt_state` gives each
 moment its parameter's placement (the step count is replicated).
 
 :func:`make_policy` builds the :class:`~repro_torch.models.common.
-ShardingPolicy` of the ``train`` and ``prefill`` kinds: each hook
-redistributes a DTensor to the placement the reference's constraint
+ShardingPolicy` of the ``train``, ``prefill`` and ``decode`` kinds: each
+hook redistributes a DTensor to the placement the reference's constraint
 names, and leaves a plain tensor alone; its ``weight`` hook gives a
 parameter the placement of its use (the FSDP gather, which XLA inserts on
-its own).  The ``decode`` kind and :func:`cache_shardings` come with
-sharded serving, the next slice, and raise ``ValueError`` until then.
+its own).  Decode puts the KV cache's sequence on ``model`` (the
+``cache`` hook, :func:`cache_shardings`): each rank attends over its
+slice of the cache and the slices' partials are combined across
+``model`` (``models/common.py``).  :func:`place_cache` places a fresh
+decode cache, :func:`tree_shardings` gives a tree of tensors (the
+reference's parameter tree) its layouts by the reference's paths
+(:func:`norm_path`).  A layout is a :class:`Sharding`: the reference's
+spec and the DTensor placements it makes.
 """
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
@@ -62,6 +69,23 @@ def _axis_size(mesh, axis) -> int:
     if isinstance(axis, tuple):
         return math.prod(sizes[a] for a in axis)
     return sizes[axis]
+
+
+def norm_path(kp) -> str:
+    """A tree key path -> the 'blocks/attn/wq' style string the rules
+    match on: the reference's ``norm_path`` over ``torch.utils._pytree``'s
+    keys (dict keys, NamedTuple fields, list indices)."""
+    parts = []
+    for k in kp:
+        if hasattr(k, "key"):
+            parts.append(str(k.key))
+        elif hasattr(k, "name"):
+            parts.append(str(k.name))
+        elif hasattr(k, "idx"):
+            parts.append(str(k.idx))
+        else:
+            parts.append(str(k))
+    return "/".join(parts)
 
 
 def param_path(name: str) -> str:
@@ -199,6 +223,49 @@ def model_spec(mesh, model, name: str, mode: str = "tp") -> Spec:
     return spec[n_lead:]
 
 
+class Sharding(NamedTuple):
+    """A tensor's layout on a mesh: the reference's ``PartitionSpec`` as a
+    tuple (``spec``) and the DTensor placements it makes."""
+
+    spec: Spec
+    placements: tuple
+
+
+def _shape(leaf):
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _canonical(spec) -> Spec:
+    """``spec`` with 1-tuples as bare names, as ``PartitionSpec``
+    normalizes them."""
+    return tuple(a[0] if isinstance(a, tuple) and len(a) == 1 else a
+                 for a in spec)
+
+
+def _sharding(mesh, spec, leaf) -> Sharding:
+    return Sharding(_canonical(spec),
+                    placements(mesh, spec, len(_shape(leaf))))
+
+
+def _map_with_path(fn, tree):
+    """``tree`` with each leaf replaced by ``fn(path string, leaf)`` (an
+    absent part, None, stays None)."""
+    flat, treedef = pytree.tree_flatten_with_path(tree)
+    return pytree.tree_unflatten(
+        [None if leaf is None else fn(norm_path(kp), leaf)
+         for kp, leaf in flat], treedef)
+
+
+def tree_shardings(mesh, tree, mode: str = "tp"):
+    """The :class:`Sharding` of every leaf of ``tree`` (nested dicts,
+    NamedTuples and lists of tensors or of anything with a ``shape``, such
+    as the reference's parameter tree), by :func:`param_spec` on its path
+    (:func:`norm_path`), in the tree's structure."""
+    return _map_with_path(
+        lambda path, leaf: _sharding(
+            mesh, param_spec(mesh, path, _shape(leaf), mode), leaf), tree)
+
+
 def placements(mesh, spec: Spec, ndim: int):
     """DTensor placements of ``spec`` on ``mesh``: one a mesh dim,
     ``Shard(d)`` where the spec puts that axis on tensor dim ``d``, else
@@ -225,8 +292,11 @@ def placements(mesh, spec: Spec, ndim: int):
 
 def distribute_model(model, mesh, mode: str = "tp"):
     """Replace every parameter of ``model`` (full tensors, the same on
-    every rank) by a DTensor parameter placed by :func:`model_spec`."""
-    for name, p in list(model.named_parameters()):
+    every rank) by a DTensor parameter placed by :func:`model_spec`, one
+    at a time, so that each whole tensor is freed once its shards are
+    made."""
+    for name in [n for n, _ in model.named_parameters()]:
+        p = model.get_parameter(name)
         spec = model_spec(mesh, model, name, mode)
         dt = distribute_tensor(p.detach(), mesh,
                                placements(mesh, spec, p.dim()))
@@ -304,6 +374,16 @@ def _redistribute(x, mesh, spec):
     want = placements(mesh, spec, x.dim())
     if tuple(x.placements) == want:
         return x
+    if any(type(pl).__name__.endswith("MaskPartial")
+           for pl in x.placements):
+        # An embedding's masked partial sum (a replicated token batch, as
+        # decode feeds it) is reduced first: DTensor cannot reduce it and
+        # split the batch in one redistribution (its mask keeps the
+        # unsplit shape).
+        x = x.redistribute(mesh, tuple(
+            Replicate() if pl.is_partial() else pl for pl in x.placements))
+        if tuple(x.placements) == want:
+            return x
     return x.redistribute(mesh, want)
 
 
@@ -327,22 +407,19 @@ def make_policy(mesh, *, batch: int, kind: str = "train",
                 sp: bool = True, mode: str = "tp") -> ShardingPolicy:
     """Activation-sharding hooks for a given input shape.
 
-    mode "tp" (baseline): residual stream is sequence-parallel on
-    ``model`` (when divisible) for train/prefill, heads/ffn TP on
-    ``model``.  mode "fsdp"/"dp": every mesh axis carries batch --
-    activations shard dim 0 only; layer math is fully local (ZeRO-3
-    weight gathers / pure-DP gradient reduction are the only
-    collectives).  The ``decode`` kind comes with sharded serving.
+    mode "tp"/"tp_serve" (baseline): residual stream is
+    sequence-parallel on ``model`` (when divisible) for train/prefill,
+    heads/ffn TP on ``model``; decode uses the KV-cache layout (the
+    ``cache`` hook: sequence on ``model``, batch on the data axes).
+    mode "fsdp"/"dp": every mesh axis carries batch -- activations shard
+    dim 0 only; layer math is fully local (ZeRO-3 weight gathers /
+    pure-DP gradient reduction are the only collectives).
     """
     if mode not in MODES:
         raise ValueError(f"unknown sharding mode {mode!r}; one of {MODES}")
-    if kind == "decode":
-        raise ValueError("kind='decode' (the KV-cache layout) is not "
-                         "ported yet: it comes with sharded serving, the "
-                         "next slice (cache_shardings, the serve "
-                         "launcher's --mesh)")
-    if kind not in ("train", "prefill"):
+    if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown kind {kind!r}")
+    seq = sp and kind != "decode"
     if mode in ("fsdp", "dp"):
         return _batch_only_policy(mesh, batch)
     dp = _batch_axis(mesh, batch)
@@ -352,20 +429,20 @@ def make_policy(mesh, *, batch: int, kind: str = "train",
     def resid(x):
         if x.ndim != 3:
             return x
-        seq_ok = sp and x.shape[1] % msize == 0
+        seq_ok = seq and x.shape[1] % msize == 0
         return cons(x, (dp, "model" if seq_ok else None, None))
 
     def heads(x):  # (B, T, H, hd): q stays sequence-sharded in SP mode
         if x.ndim != 4:
             return x
-        if sp and x.shape[1] % msize == 0:
+        if seq and x.shape[1] % msize == 0:
             return cons(x, (dp, "model", None, None))
         if x.shape[2] % msize == 0:
             return cons(x, (dp, None, "model", None))
         return x
 
     def kv_full(x):  # (B, S, Kv, hd): sequence-complete per device
-        if x.ndim != 4:
+        if x.ndim != 4 or kind == "decode":
             return x
         return cons(x, (dp, None, None, None))
 
@@ -403,11 +480,17 @@ def make_policy(mesh, *, batch: int, kind: str = "train",
             return x
         return cons(x, (dp, None, "model"))
 
+    def cache(x):  # (B, Tmax, Kv, hd): sequence on model (flash-decode)
+        if x.ndim != 4 or x.shape[1] % msize:
+            return x
+        bax = dp if (dp and x.shape[0] % _axis_size(mesh, dp) == 0) else None
+        return cons(x, (bax, "model", None, None))
+
     return ShardingPolicy(resid=resid, heads=heads, kv_full=kv_full,
                           ffn=ffn, experts=experts, dispatch=dispatch,
                           experts_flat=experts_flat, ssm_x=ssm_x,
-                          logits=logits, weight=_gather_weight(True),
-                          mesh=mesh)
+                          logits=logits, cache=cache,
+                          weight=_gather_weight(True), mesh=mesh)
 
 
 def _batch_only_policy(mesh, batch: int) -> ShardingPolicy:
@@ -422,13 +505,60 @@ def _batch_only_policy(mesh, batch: int) -> ShardingPolicy:
 
     return ShardingPolicy(resid=lead, heads=lead, kv_full=lead, ffn=lead,
                           experts=lead, dispatch=lead, experts_flat=lead,
-                          ssm_x=lead, logits=lead,
+                          ssm_x=lead, logits=lead, cache=lead,
                           weight=_gather_weight(False), mesh=mesh)
 
 
+def cache_spec(mesh, path: str, shape, *, batch: int) -> Spec:
+    """The reference's spec of the decode-cache leaf at ``path`` (the
+    flash-decode layout): attention and cross K/V (sites, B, T, Kv, hd)
+    put the sequence on ``model`` and the batch on the data axes where
+    they divide; a Mamba state (..., B, H, P, S) its heads on ``model``,
+    a conv tail (..., B, W - 1, C) its channels; anything else
+    replicates.  The port's per-layer Mamba tensors are the reference's
+    stacked leaves without their leading dims, which the rule never
+    shards, so their spec is the trailing part of the reference's."""
+    shp = tuple(shape)
+    if not shp:
+        return ()
+    dp = _batch_axis(mesh, batch)
+    msize = _axis_size(mesh, "model")
+    if re.search(r"attn_[kv]|cross_[kv]", path) and len(shp) == 5:
+        bax = dp if (dp and shp[1] % _axis_size(mesh, dp) == 0) else None
+        sax = "model" if shp[2] % msize == 0 else None
+        return (None, bax, sax, None, None)
+    if re.search(r"mamba.*ssm", path):
+        prefs = tuple(() for _ in shp[:-4]) + (
+            (("pod", "data"), ("data",)), ("model",), (), ())
+        return assign_spec(mesh, shp, prefs)
+    if re.search(r"mamba.*conv", path):
+        prefs = tuple(() for _ in shp[:-3]) + (
+            (("pod", "data"), ("data",)), (), ("model",))
+        return assign_spec(mesh, shp, prefs)
+    return ()
+
+
 def cache_shardings(mesh, cache, *, batch: int):
-    """Not ported yet: the decode cache's layout comes with sharded
-    serving, the next slice."""
-    raise ValueError("cache_shardings is not ported yet: the decode "
-                     "cache's layout comes with sharded serving, the next "
-                     "slice")
+    """The :class:`Sharding` of every tensor of a decode cache (the
+    port's ``lm.Cache``, or any tree of its paths: ``attn_k`` / ``attn_v``
+    / ``cross_k`` / ``cross_v``, ``mamba/<layer>/conv`` and
+    ``mamba/<layer>/ssm``), in the cache's structure (:func:`cache_spec`;
+    ``pos`` and absent parts replicate)."""
+    return _map_with_path(
+        lambda path, leaf: _sharding(
+            mesh, cache_spec(mesh, path, _shape(leaf), batch=batch), leaf),
+        cache)
+
+
+def place_cache(cache, mesh, *, batch: int):
+    """A fresh decode cache (plain tensors, the same on every rank) with
+    each tensor distributed by :func:`cache_shardings`; ``pos`` stays a
+    host int."""
+    shardings = cache_shardings(mesh, cache, batch=batch)
+    flat, treedef = pytree.tree_flatten(cache)
+    places = pytree.tree_leaves(shardings,
+                                is_leaf=lambda x: isinstance(x, Sharding))
+    return pytree.tree_unflatten(
+        [distribute_tensor(t, mesh, sh.placements)
+         if isinstance(t, torch.Tensor) else t
+         for t, sh in zip(flat, places)], treedef)

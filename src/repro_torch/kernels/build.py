@@ -47,7 +47,7 @@ _raw_stream = None
 _load_lock = threading.Lock()
 
 KERNELS = ("cost_eval", "cost_eval_multi", "lstm_cell", "lstm_cell_bwd",
-           "flash_decode", "flash_decode_combine")
+           "flash_decode", "flash_decode_combine", "flash_decode_partials")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # Raw stream handle -> {kernel: launches} recorded on it.
 recording: Dict[int, Dict[str, int]] = {}

@@ -29,12 +29,13 @@
 // 1. Split T across blocks (flash-decoding).  The grid is (B*Hkv, S).
 //    Block (bh, s) owns keys [s*K, min(T, (s+1)*K)), K a multiple of the
 //    tile, at least one key (the wrapper's plan_splits chooses S and K).
-//    With S > 1 it writes an unnormalised partial (acc[D], m, l) for each
-//    of its G query rows into a float32 workspace (B, Hq, S, D + 2), and
-//    flash_decode_combine_kernel rescales the S partials by exp(m_s - M),
-//    sums them in the order s = 0, 1, ... and divides by the total l: no
-//    atomics, so the same inputs give the same bits on every call.  With
-//    S = 1 the split kernel normalises and writes `out` itself.
+//    Given a workspace (always when S > 1) it writes an unnormalised
+//    partial (acc[D], m, l) for each of its G query rows into it, float32
+//    (B, Hq, S, D + 2), and flash_decode_combine_kernel rescales the S
+//    partials by exp(m_s - M), sums them in the order s = 0, 1, ... and
+//    divides by the total l: no atomics, so the same inputs give the same
+//    bits on every call.  Without one (S = 1 in flash_decode_launch) the
+//    split kernel normalises and writes `out` itself.
 // 2. Keep loads in flight.  Tiles of kTile keys are staged in shared
 //    memory in their stored type (rows padded by 16 bytes, so that the 32
 //    rows one warp reads at one column fall in distinct banks), in a ring
@@ -60,6 +61,19 @@
 // 4. Host work per call.  The dynamic shared memory limit is raised once
 //    per kernel instance and device, not on every launch, and the device
 //    is set only when it is not the current one.
+//
+// 5. A cache sharded on its sequence (sharded decode: each rank holds a
+//    contiguous slice of T).  flash_decode_partials_launch runs the split
+//    kernel alone on one slice and always writes the partials, even with
+//    one split; the caller gathers every slice's partials in sequence
+//    order and flash_decode_combine_launch runs the combine kernel on them
+//    (up to kMaxSplits in all).  A slice with no valid key yet (rows past
+//    the current position are not attended) launches nothing: its caller
+//    writes the neutral partial (acc = 0, m = -inf, l = 0), and the
+//    combine gives it weight exp(-inf - M) = 0, adding exact zeros.  That
+//    relies on M being finite, i.e. on one partial of each row holding a
+//    key: the first slice always holds row 0, which every step attends.
+//    A row whose partials are all neutral would come out NaN.
 //
 // The scale 1/sqrt(D) is folded into q when q is staged.
 #include <cuda_bf16.h>
@@ -368,12 +382,12 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float a = red[g * D + d];
 #pragma unroll
     for (int i = 1; i < C::kGroups; ++i) a += red[(i * GM + g) * D + d];
-    if (S == 1)
+    if (ws == nullptr)
       out[(orow + g) * D + d] = a / ls[g];
     else
       ws[((orow + g) * S + s) * (D + 2) + d] = a;
   }
-  if (S > 1 && tid < G) {
+  if (ws != nullptr && tid < G) {
     float* w = ws + ((orow + tid) * S + s) * (D + 2) + D;
     w[0] = ms[tid];
     w[1] = ls[tid];
@@ -440,7 +454,8 @@ int launch(const Args& a) {
           static_cast<float*>(a.ws), a.T_len, a.Hkv, G, a.keys_per_split,
           a.k_bstride, a.v_bstride);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.S == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || a.out == nullptr || a.S == 1)
+    return static_cast<int>(err);
   flash_decode_combine_kernel<<<a.B * a.Hq, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.ws), static_cast<float*>(a.out), a.S, a.D);
   return static_cast<int>(cudaGetLastError());
@@ -467,6 +482,27 @@ int by_dim(const Args& a) {
   }
 }
 
+bool bad_plan(int T_len, int Hq, int Hkv, int splits, int keys_per_split) {
+  return T_len < 1 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > 16 ||
+         splits < 1 || splits > kMaxSplits || keys_per_split < kTile ||
+         keys_per_split % kTile != 0 ||
+         static_cast<long long>(splits - 1) * keys_per_split >= T_len ||
+         static_cast<long long>(splits) * keys_per_split < T_len;
+}
+
+int use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return static_cast<int>(err);
+}
+
+int by_dtype(const Args& a, int dtype) {
+  if (dtype == 0) return by_dim<float>(a);
+  if (dtype == 1) return by_dim<__nv_bfloat16>(a);
+  return -1;
+}
+
 }  // namespace
 
 // q (B, Hq, D) contiguous; k, v (B, T, Hkv, D) with rows contiguous and
@@ -485,21 +521,51 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    int keys_per_split, int dtype, int device,
                                    void* stream) {
   if (B == 0) return 0;
-  if (T_len < 1 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > 16 ||
-      splits < 1 || splits > kMaxSplits || keys_per_split < kTile ||
-      keys_per_split % kTile != 0 ||
-      static_cast<long long>(splits - 1) * keys_per_split >= T_len ||
-      static_cast<long long>(splits) * keys_per_split < T_len ||
+  if (bad_plan(T_len, Hq, Hkv, splits, keys_per_split) || out == nullptr ||
       (splits > 1 && ws == nullptr))
     return -1;
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{q, k, v, out, ws, B, T_len, Hq, Hkv, D, splits,
+  const int err = use_device(device);
+  if (err != 0) return err;
+  // One split: the split kernel writes `out`, so it gets no workspace.
+  const Args a{q, k, v, out, splits > 1 ? ws : nullptr, B, T_len, Hq, Hkv,
+               D, splits, keys_per_split, k_bstride, v_bstride, device,
+               static_cast<cudaStream_t>(stream)};
+  return by_dtype(a, dtype);
+}
+
+// The split kernel alone, on one slice of a cache: the same arguments as
+// flash_decode_launch without `out`; the partials (acc[D], m, l) of every
+// split go to ws (B, Hq, splits, D + 2) float32, also with one split.
+extern "C" int flash_decode_partials_launch(
+    const void* q, const void* k, const void* v, void* ws, int B, int T_len,
+    int Hq, int Hkv, int D, long long k_bstride, long long v_bstride,
+    int splits, int keys_per_split, int dtype, int device, void* stream) {
+  if (B == 0) return 0;
+  if (bad_plan(T_len, Hq, Hkv, splits, keys_per_split) || ws == nullptr)
+    return -1;
+  const int err = use_device(device);
+  if (err != 0) return err;
+  const Args a{q, k, v, nullptr, ws, B, T_len, Hq, Hkv, D, splits,
                keys_per_split, k_bstride, v_bstride, device,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return by_dim<float>(a);
-  if (dtype == 1) return by_dim<__nv_bfloat16>(a);
-  return -1;
+  return by_dtype(a, dtype);
+}
+
+// The combine kernel alone: ws (rows, splits, D + 2) float32 partials, in
+// the order they are summed, -> out (rows, D) float32; rows = B * Hq.
+// Neutral partials (m = -inf, l = 0, acc = 0) add nothing, as long as one
+// partial of each row is not neutral (note 5).
+extern "C" int flash_decode_combine_launch(const void* ws, void* out,
+                                           long long rows, int splits, int D,
+                                           int device, void* stream) {
+  if (rows == 0) return 0;
+  if (rows < 0 || splits < 1 || splits > kMaxSplits || D < 1 ||
+      rows > 0x7fffffffLL || ws == nullptr || out == nullptr)
+    return -1;
+  const int err = use_device(device);
+  if (err != 0) return err;
+  flash_decode_combine_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ws), static_cast<float*>(out), splits, D);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -137,10 +137,43 @@ def decode_attention(q, k, v):
     return flash_decode.flash_decode(q.contiguous(), k, v)
 
 
+def decode_attention_partials(q, k, v, shards=1, shard_rows=None):
+    """The partials of :func:`decode_attention` over one rank's slice of
+    a KV cache sharded on its sequence over ``shards`` ranks of
+    ``shard_rows`` rows each (``k.shape[1]`` by default): q (B, Hq, D);
+    k/v (B, T, Hkv, D), the slice's valid rows, any T >= 0.  Returns
+    (B, Hq, W, D + 2) float32 partials (acc, m, l) in sequence order,
+    with W the same on every rank.  On CUDA tensors the split kernel's
+    (at most ``flash_decode.shard_width(shards, shard_rows)`` splits, no
+    launch for T = 0) padded with neutral partials to that width; on the
+    CPU the plain version's one partial (the neutral one for T = 0)."""
+    if _device(q, k, v).type == "cpu":
+        return ref.flash_decode_partials_ref(q, k, v)
+    width = flash_decode.shard_width(
+        shards, k.shape[1] if shard_rows is None else shard_rows)
+    parts = flash_decode.flash_decode_partials(q.contiguous(), k, v, width)
+    B, Hq, S, D2 = parts.shape
+    if S < width:
+        parts = torch.cat([parts, ref.neutral_partials(
+            B, Hq, width - S, D2 - 2, parts.device)], dim=2)
+    return parts
+
+
+def decode_attention_combine(parts):
+    """Partials (B, Hq, S, D + 2) float32, in sequence order -> the
+    attention (B, Hq, D) float32: the combine kernel on CUDA tensors, its
+    plain version on the CPU."""
+    if parts.device.type == "cpu":
+        return ref.flash_decode_combine_ref(parts)
+    return flash_decode.flash_decode_combine(parts.contiguous())
+
+
 def launch_counts():
     """Kernel launches so far, by kernel (``lstm_cell_bwd`` counts the
     LSTM step's backward kernel, ``flash_decode`` the attention calls,
-    ``flash_decode_combine`` the combine kernel's launches among them).
+    ``flash_decode_combine`` the combine kernel's launches, among them
+    and by :func:`decode_attention_combine`, ``flash_decode_partials``
+    the split kernel's by :func:`decode_attention_partials`).
     A CUDA graph's replays count the launches its capture recorded; the
     capture and its warm-up count none."""
     return dict(build.launches)

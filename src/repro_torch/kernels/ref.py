@@ -20,7 +20,8 @@ from repro_torch.costmodel.layers import NUM_FIELDS
 cuda_calls = {"cost_eval_ref": 0, "cost_eval_multi_ref": 0,
               "lstm_cell_ref": 0, "lstm_cell_saved_ref": 0,
               "lstm_cell_bwd_ref": 0, "lstm_cell_bwd_saved_ref": 0,
-              "flash_decode_ref": 0}
+              "flash_decode_ref": 0, "flash_decode_partials_ref": 0,
+              "flash_decode_combine_ref": 0}
 
 
 def _count(name, t):
@@ -144,16 +145,31 @@ def flash_decode_ref(q, k, v):
     return torch.einsum("bhgt,bthd->bhgd", w, v).reshape(B, Hq, D)
 
 
-def flash_decode_partials_ref(q, k, v, keys_per_split):
+def neutral_partials(B, Hq, S, D, device):
+    """S neutral partials a query row, (B, Hq, S, D + 2) float32: acc = 0,
+    m = -inf, l = 0, the partial of a cache slice with no valid key.  The
+    combine weighs it by exp(-inf - M) = 0."""
+    out = torch.zeros((B, Hq, S, D + 2), dtype=torch.float32, device=device)
+    out[..., D] = -math.inf
+    return out
+
+
+def flash_decode_partials_ref(q, k, v, keys_per_split=None):
     """Plain version of the split kernel's partials: split s takes keys
-    ``[s * keys_per_split, (s + 1) * keys_per_split)`` cut at T and gives,
-    per query row, its unnormalised ``acc`` (D values), its max logit ``m``
-    and its sum of ``exp(logit - m)``, ``l``.  Returns (B, Hq, S, D + 2)
-    float32, the layout of the kernel's workspace.  For tests and
-    ``chip_smoke.py`` only."""
-    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    ``[s * keys_per_split, (s + 1) * keys_per_split)`` cut at T (one split
+    of all T keys by default) and gives, per query row, its unnormalised
+    ``acc`` (D values), its max logit ``m`` and its sum of
+    ``exp(logit - m)``, ``l``.  Returns (B, Hq, S, D + 2) float32, the
+    layout of the kernel's workspace.  T = 0 (a slice of a sharded cache
+    with no valid key) gives one neutral partial (:func:`neutral_partials`).
+    """
+    _count("flash_decode_partials_ref", q)
     B, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    if T == 0:
+        return neutral_partials(B, Hq, 1, D, q.device)
+    keys_per_split = keys_per_split or T
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
     qg = q.reshape(B, Hkv, Hq // Hkv, D)
     parts = []
     for t0 in range(0, T, keys_per_split):
@@ -170,7 +186,10 @@ def flash_decode_partials_ref(q, k, v, keys_per_split):
 def flash_decode_combine_ref(parts):
     """Plain version of the combine kernel: (B, Hq, S, D + 2) partials ->
     (B, Hq, D), each split rescaled by ``exp(m_s - M)`` and summed in the
-    order s = 0, 1, ..., then divided by the total ``l``."""
+    order s = 0, 1, ..., then divided by the total ``l``.  Neutral
+    partials (m = -inf) get the weight 0 and add exact zeros, as long as
+    each row has one partial that is not neutral (M finite)."""
+    _count("flash_decode_combine_ref", parts)
     D = parts.shape[-1] - 2
     m = parts[..., D]
     w = torch.exp(m - m.amax(dim=-1, keepdim=True))      # (B, Hq, S)

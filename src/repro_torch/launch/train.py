@@ -75,11 +75,13 @@ def parse_mesh(spec: str):
 
 def build_mesh(spec: str, device: str):
     """None for '1x1' outside a process-group launch (the one-device
-    path); else the (data, model) mesh over a ``torchrun``-style world of
-    exactly D * M ranks, which this call joins (NCCL on ``cuda``, the
+    path); else the (data, model) mesh over a world of exactly D * M
+    ranks: the process group already initialised in this process, or a
+    ``torchrun``-style one, which this call joins (NCCL on ``cuda``, the
     rank's card by ``LOCAL_RANK``; gloo on ``cpu``)."""
     d, m = parse_mesh(spec)
-    world = os.environ.get("WORLD_SIZE")
+    world = (str(_world_size()) if _dist_initialized()
+             else os.environ.get("WORLD_SIZE"))
     if world is None:
         if d * m == 1:
             return None
@@ -153,6 +155,11 @@ def run(argv=None) -> dict:
 def _dist_initialized() -> bool:
     import torch.distributed as dist
     return dist.is_available() and dist.is_initialized()
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size()
 
 
 def _train(args, cfg, dev, mesh) -> dict:

@@ -19,6 +19,15 @@ Differences from the reference, all of them value-preserving:
   the reference's layout: every use goes through :func:`cast`.
 * :func:`decode_attention_step` writes this step's key and value into the
   cache in place, where the reference returns updated copies.
+* A decode cache sharded on its sequence (a DTensor placed by the
+  ``cache`` hook's layout, :func:`repro_torch.distributed.sharding.
+  cache_shardings`) is attended in ``local_map``
+  (:func:`_sharded_decode_attention`): each rank writes the new row if it
+  holds it and makes the flash-decode partials of its valid rows, the
+  partials are gathered over the mesh dim that splits the sequence, in
+  sequence order, and combined (the combine kernel on the card), in a
+  fixed order.  XLA partitions the reference's softmax over the sharded
+  sequence on its own; the kernel has no DTensor strategy.
 * Its attention goes through :func:`repro_torch.kernels.ops.decode_attention`
   over the cache's first ``pos + 1`` rows, the flash-decode kernel on the
   card.  The reference masks rows past ``pos`` with -1e30 and takes a
@@ -373,26 +382,108 @@ def cross_attention(p: Attention, cfg, x, kv_feats, *, pol=NO_SHARDING):
 
 
 def decode_attention_step(p: Attention, cfg, x, cache_k, cache_v, pos: int,
-                          *, cos_sin=None):
+                          *, cos_sin=None, pol=NO_SHARDING):
     """One-token attention against a KV cache.
 
     x: (B, 1, D); cache_k/v: (B, Tmax, Kv, hd), written in place at row
     ``pos`` (a host int); ``cos_sin`` may carry this position's RoPE
     tables, computed once per step.  Returns out (B, 1, D); the reference
     also returns the updated caches, which here are the ones passed in.
+    A DTensor cache must be in the layout of ``pol.cache`` (the step
+    writes its shards in place, so it is never redistributed).
     """
     B = x.shape[0]
     hd, H = cfg.hd(), cfg.num_heads
     if cos_sin is None:
         cos_sin = rope_tables(torch.full((B, 1), pos, device=x.device), hd,
                               cfg.rope_theta)
-    q, k, v = _project_qkv(p, cfg, x, cos_sin)
-    cache_k[:, pos].copy_(k[:, 0])
-    cache_v[:, pos].copy_(v[:, 0])
-    o = ops.decode_attention(q[:, 0], cache_k[:, :pos + 1],
-                             cache_v[:, :pos + 1])          # (B, H, hd) f32
+    q, k, v = _project_qkv(p, cfg, x, cos_sin, pol)
+    if isinstance(cache_k, DTensor):
+        for c in (cache_k, cache_v):
+            if pol.cache(c) is not c:
+                raise ValueError("a sharded KV cache must be in the "
+                                 "layout of pol.cache (place it with "
+                                 "sharding.place_cache)")
+        o = _sharded_decode_attention(q[:, 0], cache_k, cache_v, pos + 1,
+                                      new=(k[:, 0], v[:, 0], pos))
+    else:
+        cache_k[:, pos].copy_(k[:, 0])
+        cache_v[:, pos].copy_(v[:, 0])
+        o = ops.decode_attention(q[:, 0], cache_k[:, :pos + 1],
+                                 cache_v[:, :pos + 1])      # (B, H, hd) f32
     o = o.to(x.dtype).reshape(B, 1, H * hd)
-    return o @ cast(p.wo, cfg)
+    return pol.resid(_dense(o, cast(p.wo, cfg, pol)))
+
+
+def all_gather(x, mesh, mesh_dim: int, dim: int):
+    """The local tensors ``x`` of the ranks along mesh dim ``mesh_dim``,
+    concatenated on ``dim`` in the order of their coordinates there (a
+    blocking all-gather, for code inside ``local_map``)."""
+    import torch.distributed as dist
+
+    n = mesh.size(mesh_dim)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=mesh.get_group(mesh_dim))
+    return torch.cat(out.chunk(n), dim=dim) if dim else out
+
+
+def _sharded_decode_attention(q, cache_k, cache_v, rows: int, new=None):
+    """:func:`ops.decode_attention` of q (B, Hq, D) over the first
+    ``rows`` rows of a DTensor cache (B, T, Kv, D), after writing ``new``
+    = (k, v, pos) into row ``pos`` of it, in ``local_map``.  Returns
+    (B, Hq, D) float32, split on B as the cache is and whole on every
+    other mesh dim.
+
+    A mesh dim that splits the sequence (the ``model`` axis under the
+    decode layout; a dim of size 1 too) gives rank r of its m ranks rows
+    [r * Tl, (r + 1) * Tl) of the cache: the rank writes row ``pos`` if
+    it holds it, makes the partials (acc, m, l) of its valid rows
+    ``min(Tl, max(0, rows - r * Tl))`` (the neutral partial where it has
+    none), as many a row as every other rank gives
+    (:func:`ops.decode_attention_partials`), and the partials of the m
+    ranks are gathered in rank order, which is sequence order, and
+    combined.  A cache whose sequence no mesh dim
+    splits is attended whole on each rank."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache_k.device_mesh
+    cpl = tuple(cache_k.placements)
+    seq = [i for i, pl in enumerate(cpl) if pl.is_shard(1)]
+    if len(seq) > 1 or any(pl.is_shard() and pl.dim > 1 for pl in cpl):
+        raise ValueError(f"a decode cache shards its batch and sequence "
+                         f"only, on one mesh dim each; got {cpl}")
+    rep = tuple(Shard(0) if pl.is_shard(0) else Replicate() for pl in cpl)
+    m = mesh.size(seq[0]) if seq else 1
+    r = mesh.get_local_rank(seq[0]) if seq else 0
+    T = cache_k.shape[1]
+    Tl = T // m
+    if Tl * m != T:
+        raise ValueError(f"a cache of {T} rows does not split evenly over "
+                         f"{m} ranks")
+
+    def local(ql, ck, cv, kl=None, vl=None):
+        start = r * Tl
+        if new is not None and start <= new[2] < start + Tl:
+            ck[:, new[2] - start].copy_(kl)
+            cv[:, new[2] - start].copy_(vl)
+        n = min(Tl, max(0, rows - start))
+        if not seq:
+            return ops.decode_attention(ql, ck[:, :n], cv[:, :n])
+        parts = ops.decode_attention_partials(ql, ck[:, :n], cv[:, :n],
+                                              m, Tl)
+        if m > 1:
+            parts = all_gather(parts, mesh, seq[0], dim=2)
+        return ops.decode_attention_combine(parts)
+
+    args = (q, cache_k, cache_v)
+    if new is not None:
+        args += (new[0], new[1])
+    fn = local_map(local, out_placements=list(rep),
+                   in_placements=(rep, cpl, cpl) + (rep,) * (len(args) - 3),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*args)
 
 
 def cross_kv(p: Attention, cfg, feats, pol=NO_SHARDING):
@@ -410,17 +501,22 @@ def cross_kv(p: Attention, cfg, feats, pol=NO_SHARDING):
     return k, v
 
 
-def cross_attention_step(p: Attention, cfg, x, k, v):
+def cross_attention_step(p: Attention, cfg, x, k, v, *, pol=NO_SHARDING):
     """One token's cross-attention over precomputed k, v (B, S, Kv, hd):
     ``q = x @ wq`` without bias or RoPE, ``q_norm`` under ``qk_norm``, no
-    mask.  x: (B, 1, D) -> (B, 1, D)."""
+    mask.  x: (B, 1, D) -> (B, 1, D).  DTensor k, v (the cache's layout,
+    :func:`repro_torch.models.lm.precompute_cross_kv` with ``pol``) are
+    attended shard by shard (:func:`_sharded_decode_attention`)."""
     B = x.shape[0]
     hd, H = cfg.hd(), cfg.num_heads
-    q = (x[:, 0] @ cast(p.wq, cfg)).reshape(B, H, hd)
+    q = _heads(_dense(x, cast(p.wq, cfg, pol)), (B, 1, H, hd))[:, 0]
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-    o = ops.decode_attention(q, k, v)                      # (B, H, hd) f32
-    return o.to(x.dtype).reshape(B, 1, H * hd) @ cast(p.wo, cfg)
+        q = rms_norm(q, pol.weight(p.q_norm), cfg.norm_eps)
+    if isinstance(k, DTensor):
+        o = _sharded_decode_attention(q, k, v, k.shape[1])
+    else:
+        o = ops.decode_attention(q, k, v)                  # (B, H, hd) f32
+    return _dense(o.to(x.dtype).reshape(B, 1, H * hd), cast(p.wo, cfg, pol))
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,11 @@ Sharded training threads a :class:`common.ShardingPolicy` (``pol=``)
 through the forward, the loss and the train steps, as the reference
 does: the parameters, moments and batch are DTensors placed by
 ``repro_torch.distributed.sharding`` and DTensor's sharding propagation
-stands where XLA's partitioner stands in the reference.
+stands where XLA's partitioner stands in the reference.  Sharded serving
+threads the decode-kind policy through :func:`decode_step` /
+:func:`serve_step` the same way, over a cache placed by
+``sharding.place_cache`` (the sequence on ``model``; the attention
+combines the shards' flash-decode partials, ``common.py``).
 
 The model is an ``nn.Module`` (:class:`LM`) whose stacks are
 ``nn.ModuleList`` s, where the reference stacks each parameter on leading
@@ -495,19 +499,37 @@ def init_cache(cfg, batch: int, max_len: int, device="cpu") -> Cache:
 
 
 @torch.no_grad()
-def precompute_cross_kv(params: LM, cfg, feats):
+def precompute_cross_kv(params: LM, cfg, feats, *, pol=NO_SHARDING):
     """Project frontend features (B, S, d) once into every cross layer's
-    K/V: two (cross_sites, B, S, Kv, hd) tensors in ``compute_dtype``."""
-    ks, vs = zip(*(common.cross_kv(xp.xattn, cfg, feats)
-                   for xp in params.cross))
-    return torch.stack(ks), torch.stack(vs)
+    K/V: two (cross_sites, B, S, Kv, hd) tensors in ``compute_dtype``
+    (sharded: DTensors placed as ``sharding.cache_shardings`` places a
+    cache's cross K/V for a batch of B)."""
+    with sharded(pol):
+        ks, vs = zip(*(common.cross_kv(xp.xattn, cfg, feats, pol)
+                       for xp in params.cross))
+        ks, vs = torch.stack(ks), torch.stack(vs)
+    if pol.mesh is None:
+        return ks, vs
+    from repro_torch.distributed import sharding
+    layout = sharding.cache_shardings(
+        pol.mesh, {"cross_k": ks, "cross_v": vs}, batch=feats.shape[0])
+    return tuple(t.redistribute(pol.mesh, layout[k].placements)
+                 for k, t in (("cross_k", ks), ("cross_v", vs)))
 
 
 @torch.no_grad()
-def decode_step(params: LM, cfg, cache: Cache, token):
+def decode_step(params: LM, cfg, cache: Cache, token, *, pol=NO_SHARDING):
     """One decode step.  token: (B,) int -> (logits (B, V), cache with
     pos + 1).  The cache's tensors are updated in place; audio and vlm
-    need its cross K/V."""
+    need its cross K/V.  Sharded (``pol`` of ``sharding.make_policy(...,
+    kind="decode")``, DTensor parameters, a cache placed by
+    ``sharding.place_cache``), the logits are a DTensor; ``token`` may be
+    a plain tensor, the same on every rank."""
+    with sharded(pol):
+        return _decode_step(params, cfg, cache, token, pol)
+
+
+def _decode_step(params: LM, cfg, cache: Cache, token, pol):
     _check_family(cfg)
     pos, fam = cache.pos, cfg.family
     if cache.attn_k is not None and pos >= cache.attn_k.shape[2]:
@@ -518,33 +540,34 @@ def decode_step(params: LM, cfg, cache: Cache, token):
                          "the cache's cross_k / cross_v from "
                          "precompute_cross_kv")
     B = token.shape[0]
-    x = common.embed(params.embed, cfg, token[:, None])
-    cos_sin = (common.rope_tables(torch.full((B, 1), pos, device=x.device),
+    dev = token.device
+    x = common.embed(params.embed, cfg, token[:, None], pol=pol)
+    cos_sin = (common.rope_tables(torch.full((B, 1), pos, device=dev),
                                   cfg.hd(), cfg.rope_theta)
                if cache.attn_k is not None else None)
 
     def attn_site(p, h, site):
-        hn = common.rms_norm(h, p.ln1, cfg.norm_eps)
+        hn = _norm(h, p.ln1, cfg, pol)
         h = h + common.decode_attention_step(
             p.attn, cfg, hn, cache.attn_k[site], cache.attn_v[site], pos,
-            cos_sin=cos_sin)
-        z = common.rms_norm(h, p.ln2, cfg.norm_eps)
+            cos_sin=cos_sin, pol=pol)
+        z = _norm(h, p.ln2, cfg, pol)
         if isinstance(p, MoEBlock):
-            return h + moe.moe_ffn(p.moe, cfg, z, n_groups=1)
-        return h + common.mlp(p.mlp, cfg, z)
+            return h + moe.moe_ffn(p.moe, cfg, z, n_groups=1, pol=pol)
+        return h + common.mlp(p.mlp, cfg, z, pol=pol)
 
     def mamba_layer(p, h, mc):
-        out, _ = ssm.mamba_step(p.mamba, cfg,
-                                common.rms_norm(h, p.ln1, cfg.norm_eps), mc)
+        out, _ = ssm.mamba_step(p.mamba, cfg, _norm(h, p.ln1, cfg, pol), mc,
+                                pol=pol)
         return h + out
 
     def cross_layer(p, h, i):
-        hn = common.rms_norm(h, p.ln1, cfg.norm_eps)
+        hn = _norm(h, p.ln1, cfg, pol)
         h = h + common.cross_attention_step(p.xattn, cfg, hn,
                                             cache.cross_k[i],
-                                            cache.cross_v[i])
-        return h + common.mlp(p.mlp, cfg,
-                              common.rms_norm(h, p.ln2, cfg.norm_eps))
+                                            cache.cross_v[i], pol=pol)
+        return h + common.mlp(p.mlp, cfg, _norm(h, p.ln2, cfg, pol),
+                              pol=pol)
 
     if fam in ("dense", "moe"):
         for i, p in enumerate(params.blocks):
@@ -570,13 +593,17 @@ def decode_step(params: LM, cfg, cache: Cache, token):
                 x = attn_site(p, x, site)
                 site += 1
             x = cross_layer(xp, x, g)
-    logits = common.unembed(params.embed, cfg, x)
+    logits = common.unembed(params.embed, cfg, x, pol=pol)
     return logits[:, 0, :], cache._replace(pos=pos + 1)
 
 
-def serve_step(params: LM, cache: Cache, token, cfg):
-    """One batched greedy decode step: (B,) token ids -> (B,) next ids."""
-    logits, cache = decode_step(params, cfg, cache, token)
+def serve_step(params: LM, cache: Cache, token, cfg, *, pol=NO_SHARDING):
+    """One batched greedy decode step: (B,) token ids -> (B,) next ids, a
+    plain tensor (sharded: the whole logits gathered on every rank, so
+    every rank reads the same ids)."""
+    logits, cache = decode_step(params, cfg, cache, token, pol=pol)
+    if isinstance(logits, DTensor):
+        logits = logits.full_tensor()
     return torch.argmax(logits, dim=-1), cache
 
 

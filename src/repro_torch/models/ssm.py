@@ -238,29 +238,125 @@ def init_mamba_cache(cfg, batch: int, device="cpu") -> MambaCache:
         ssm=torch.zeros((batch, H, P, S), dtype=f32, device=device))
 
 
-@torch.no_grad()
-def mamba_step(p: Mamba, cfg, x, cache: MambaCache):
-    """One-token Mamba2 step.  x: (B, 1, D) -> (B, 1, D) and the cache,
-    whose tensors are updated in place."""
-    B = x.shape[0]
+def _step_core(cfg, xbc, dt, conv_w, conv_b, dt_bias, A_log, D, conv, ssm,
+               ch_off=0, heads=slice(None), gather=None):
+    """The Mamba2 step's arithmetic on one rank's part of the cache (the
+    whole cache unsharded), writing that part in place: the conv over the
+    tail ``conv`` (B, W - 1, C_l) and channels ``[ch_off, ch_off + C_l)``
+    of this step's ``xbc`` (B, C), silu, ``gather`` of the convolved
+    channels (whole ones needed for the split into x, B and C), then the
+    decay and state update of the heads ``heads`` of state ``ssm`` (B,
+    H_l, P, S).  ``conv_w`` / ``conv_b`` are this part's columns; the
+    float32 tail promotes the rest of the step.  Returns y (B, H_l, P)
+    float32 with its D·x skip."""
     d_inner, H, P, S = dims(cfg)
-    z, xbc, dt = _split_proj(cfg, x[:, 0] @ common.cast(p.in_proj, cfg))
-    # Causal conv over (stored tail + current input); the float32 tail
-    # promotes the rest of the step.
-    hist = torch.cat([cache.conv, xbc[:, None, :]], dim=1)
-    xbc_c = F.silu((hist * common.cast(p.conv_w, cfg)).sum(dim=1)
-                   + common.cast(p.conv_b, cfg))
+    f32 = torch.float32
+    ch = conv.shape[2]
+    hist = torch.cat([conv, xbc[:, None, ch_off:ch_off + ch]], dim=1)
+    xbc_c = F.silu((hist * conv_w).sum(dim=1) + conv_b)
+    conv.copy_(hist[:, 1:])
+    if gather is not None:
+        xbc_c = gather(xbc_c)
     xs, Bm, Cm = torch.split(xbc_c, [d_inner, S, S], dim=-1)
-    dt = F.softplus(dt.to(torch.float32) + p.dt_bias)
-    a = torch.exp(dt * -torch.exp(p.A_log))                   # (B, H)
-    xh = xs.reshape(B, H, P).to(torch.float32)
+    dt = F.softplus(dt.to(f32) + dt_bias)[:, heads]
+    a = torch.exp(dt * -torch.exp(A_log[heads]))               # (B, H_l)
+    xh = xs.reshape(-1, H, P)[:, heads].to(f32)
     dBx = ((dt[:, :, None] * xh)[..., None]
-           * Bm.to(torch.float32)[:, None, None, :])          # (B, H, P, S)
-    ssm = cache.ssm * a[:, :, None, None] + dBx
-    y = (ssm @ Cm.to(torch.float32)[:, None, :, None])[..., 0]  # (B, H, P)
-    y = y + p.D[None, :, None] * xh
+           * Bm.to(f32)[:, None, None, :])                     # (B,H_l,P,S)
+    new = ssm * a[:, :, None, None] + dBx
+    y = (new @ Cm.to(f32)[:, None, :, None])[..., 0]            # (B,H_l,P)
+    ssm.copy_(new)
+    return y + D[heads][None, :, None] * xh
+
+
+@torch.no_grad()
+def mamba_step(p: Mamba, cfg, x, cache: MambaCache, *,
+               pol=common.NO_SHARDING):
+    """One-token Mamba2 step.  x: (B, 1, D) -> (B, 1, D) and the cache,
+    whose tensors are updated in place.  A DTensor cache (the decode
+    layout of ``sharding.cache_shardings``) takes :func:`_step_sharded`."""
+    if isinstance(cache.ssm, DTensor):
+        return _step_sharded(p, cfg, x, cache, pol)
+    B = x.shape[0]
+    d_inner = dims(cfg)[0]
+    z, xbc, dt = _split_proj(cfg, x[:, 0] @ common.cast(p.in_proj, cfg))
+    y = _step_core(cfg, xbc, dt, common.cast(p.conv_w, cfg),
+                   common.cast(p.conv_b, cfg), p.dt_bias, p.A_log, p.D,
+                   cache.conv, cache.ssm)
     y = y.reshape(B, d_inner).to(x.dtype)
     y = common.rms_norm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
-    cache.conv.copy_(hist[:, 1:])
-    cache.ssm.copy_(ssm)
     return (y @ common.cast(p.out_proj, cfg))[:, None, :], cache
+
+
+def _split_dim(x, dim):
+    """The one mesh dim of DTensor ``x`` that splits tensor dim ``dim``
+    (None if none does)."""
+    dims_ = [i for i, pl in enumerate(x.placements) if pl.is_shard(dim)]
+    if len(dims_) > 1:
+        raise ValueError(f"dim {dim} split over several mesh dims: "
+                         f"{x.placements}")
+    return dims_[0] if dims_ else None
+
+
+def _step_sharded(p: Mamba, cfg, x, cache: MambaCache, pol):
+    """:func:`mamba_step` on a sharded cache: conv tail (B, W - 1, C) with
+    its channels split on one mesh dim, state (B, H, P, S) with its heads
+    split on one (``model`` in the decode layout), both with B split as
+    the cache says.
+
+    The in-projection's output is made whole on every rank of a batch
+    shard (its parts are not multiples of a shard), and the rest runs in
+    ``local_map``: each rank convolves its channels of the tail with its
+    columns of ``conv_w`` / ``conv_b`` and writes its tail shard, the
+    convolved channels are gathered (the split into x, B and C crosses
+    the shards), and the rank advances the state of its heads in place.
+    The output y (B, H, P) comes back split on H as the state is; the
+    gate, its norm and ``out_proj`` run on DTensors."""
+    B = x.shape[0]
+    d_inner = dims(cfg)[0]
+    c = lambda w: common.cast(w, cfg, pol)
+    zxbcdt = _batch_only(common._dense(x[:, 0], c(p.in_proj)))
+    z, xbc, dt = _split_proj(cfg, zxbcdt)
+    mesh = cache.ssm.device_mesh
+    bat = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                for pl in cache.ssm.placements)
+    if tuple(pl for pl in cache.conv.placements if pl.is_shard(0)) != tuple(
+            pl for pl in bat if pl.is_shard(0)):
+        raise ValueError("the Mamba conv tail and state split the batch "
+                         "differently")
+    cdim, hdim = _split_dim(cache.conv, 2), _split_dim(cache.ssm, 1)
+    if _split_dim(cache.conv, 1) is not None or any(
+            pl.is_shard() and pl.dim > 1 for pl in cache.ssm.placements):
+        raise ValueError("a Mamba cache splits its batch, channels and "
+                         "heads only")
+    rep = (Replicate(),) * mesh.ndim
+    on = lambda d, tdim: tuple(Shard(tdim) if i == d else Replicate()
+                               for i in range(mesh.ndim))
+    cw_pl, cb_pl = on(cdim, 1), on(cdim, 0)
+    y_pl = tuple(Shard(1) if i == hdim else pl for i, pl in enumerate(bat))
+    rc = mesh.get_local_rank(cdim) if cdim is not None else 0
+    rh = mesh.get_local_rank(hdim) if hdim is not None else 0
+    gather = (functools.partial(common.all_gather, mesh=mesh, mesh_dim=cdim,
+                                dim=1)
+              if cdim is not None and mesh.size(cdim) > 1 else None)
+
+    def local(xbc_l, dt_l, cw, cb, dt_bias, A_log, Dp, conv, ssm_state):
+        Hl = ssm_state.shape[1]
+        return _step_core(cfg, xbc_l, dt_l, cw, cb, dt_bias, A_log, Dp,
+                          conv, ssm_state, ch_off=rc * conv.shape[2],
+                          heads=slice(rh * Hl, (rh + 1) * Hl),
+                          gather=gather)
+
+    fn = local_map(
+        local, out_placements=list(y_pl),
+        in_placements=(bat, bat, cw_pl, cb_pl, rep, rep, rep,
+                       tuple(cache.conv.placements),
+                       tuple(cache.ssm.placements)),
+        device_mesh=mesh, redistribute_inputs=True)
+    y = fn(xbc, dt, c(p.conv_w), c(p.conv_b), pol.weight(p.dt_bias),
+           pol.weight(p.A_log), pol.weight(p.D), cache.conv, cache.ssm)
+    y = y.reshape(B, d_inner).to(x.dtype)
+    y = common.rms_norm(y * F.silu(z), pol.weight(p.gate_norm),
+                        cfg.norm_eps)
+    out = common._dense(y, c(p.out_proj))[:, None, :]
+    return pol.resid(out), cache

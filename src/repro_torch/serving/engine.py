@@ -24,6 +24,13 @@ serves every family of ``models/lm.py``:
 
 The engine runs on the device its parameters live on.  ``decode_steps``
 counts the ``decode_step`` calls it has made (prefill and decode).
+
+Sharded (``pol`` from ``sharding.make_policy(mesh, ..., kind="decode")``
+and parameters placed by ``sharding.distribute_model``), every rank of
+the mesh runs the same engine on the same requests: each fresh cache is
+placed by ``sharding.cache_shardings`` (``place_cache``), the cross K/V
+in its layout, and every step's next tokens come back whole on every
+rank, so all ranks append the same outputs.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import common, lm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +65,11 @@ class Engine:
     """Batched greedy-decode engine over a fixed parameter set."""
 
     def __init__(self, cfg, params: lm.LM, scfg: ServeConfig = ServeConfig(),
-                 *, cross_feats=None):
+                 *, pol=None, cross_feats=None):
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
+        self.pol = pol or common.NO_SHARDING
         self.device = params.embed.tok.device
         self.cross_feats = (None if cross_feats is None else
                             torch.as_tensor(cross_feats).to(self.device))
@@ -70,6 +78,9 @@ class Engine:
     def _fresh_cache(self, batch: int):
         cache = lm.init_cache(self.cfg, batch, self.scfg.max_len,
                               device=self.device)
+        if self.pol.mesh is not None:
+            from repro_torch.distributed import sharding
+            cache = sharding.place_cache(cache, self.pol.mesh, batch=batch)
         if lm.cross_sites(self.cfg):
             if self.cross_feats is None:
                 raise ValueError(f"family {self.cfg.family!r} serves "
@@ -77,13 +88,15 @@ class Engine:
                                  "cross_feats")
             feats = self.cross_feats[:1].expand(
                 batch, *self.cross_feats.shape[1:])
-            k, v = lm.precompute_cross_kv(self.params, self.cfg, feats)
+            k, v = lm.precompute_cross_kv(self.params, self.cfg, feats,
+                                          pol=self.pol)
             cache = cache._replace(cross_k=k, cross_v=v)
         return cache
 
     def _step(self, cache, token):
         self.decode_steps += 1
-        return lm.serve_step(self.params, cache, token, self.cfg)
+        return lm.serve_step(self.params, cache, token, self.cfg,
+                             pol=self.pol)
 
     def run_batch(self, requests: Sequence[Request]) -> None:
         """Prefill + decode one equal-prompt-length batch, in place."""

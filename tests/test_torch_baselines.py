@@ -27,6 +27,7 @@ from repro_torch.core import baselines as tbase
 from repro_torch.core import env as tenv
 from repro_torch.costmodel import dataflows as tdfl
 from repro_torch.costmodel import workloads as tworkloads
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 KW = dict(platform="cloud")
 

@@ -36,6 +36,7 @@ from repro_torch.serving import batcher as batcher_lib
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_optimizer_conformance import CASES as REF_CASES  # noqa: E402
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ECFG = env_lib.EnvConfig(platform="cloud")
@@ -178,7 +179,8 @@ def test_local_ga_counts_its_hard_evals():
 # Launchers.
 # ---------------------------------------------------------------------------
 def _run(args, timeout=240):
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               **ONE_THREAD)
     return subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=timeout)
 

@@ -668,6 +668,81 @@ def test_flash_decode_wrapper_rejects_bad_inputs(dev):
         ops.decode_attention(q, k.cpu(), v)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,D,T,width", [
+    (8, 16, 2, 128, 512, 16), (8, 16, 2, 128, 1, 4), (2, 8, 2, 128, 37, 1),
+    (2, 8, 2, 64, 700, 8), (1, 32, 2, 256, 129, 64), (3, 8, 2, 128, 0, 2),
+])
+def test_flash_decode_partials_and_combine_match_plain(dev, dt, B, Hq, Hkv,
+                                                       D, T, width):
+    """The split kernel alone (partials of at most ``width`` splits, one
+    launch; none for T = 0, the neutral partial) against the plain
+    partials of the same split plan, and the combine kernel alone against
+    the plain combine; padded with neutral partials, the combine's bits
+    do not move, and two calls give the same bits."""
+    q, k, v = _attn_inputs(B, Hq, Hkv, D, max(T, 1), dt, dev, seed=T)
+    k, v = k[:, :T], v[:, :T]
+    ops.reset_launch_counts()
+    parts = flash_decode.flash_decode_partials(q, k, v, width)
+    assert ops.launch_counts()["flash_decode_partials"] == int(T > 0)
+    S = parts.shape[2]
+    assert parts.shape == (B, Hq, S, D + 2) and 1 <= S <= width
+    if T == 0:
+        assert torch.equal(parts, ref.neutral_partials(B, Hq, 1, D, dev))
+        return
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan, per = flash_decode.plan_splits(B, Hkv, T, sms, width)
+    assert S == plan
+    want = ref.flash_decode_partials_ref(q, k, v, per * flash_decode.TILE)
+    torch.testing.assert_close(parts, want, rtol=0, atol=1e-4)
+    out = flash_decode.flash_decode_combine(parts)
+    assert ops.launch_counts()["flash_decode_combine"] == 1
+    torch.testing.assert_close(out, ref.flash_decode_combine_ref(parts),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, ref.flash_decode_ref(q, k, v), rtol=0,
+                               atol=1e-4)
+    padded = ops.decode_attention_partials(q, k, v, 1,
+                                           width * flash_decode.TILE)
+    assert padded.shape[2] == width and torch.equal(padded[:, :, :S], parts)
+    assert torch.equal(padded[:, :, S:], ref.neutral_partials(
+        B, Hq, width - S, D, dev))
+    assert torch.equal(flash_decode.flash_decode_combine(padded), out)
+    assert torch.equal(flash_decode.flash_decode_combine(parts), out)
+    if S == flash_decode.plan_splits(B, Hkv, T, sms)[0]:
+        # The split plan of flash_decode: the same bits.
+        assert torch.equal(out, flash_decode.flash_decode(q, k, v))
+
+
+def test_sharded_decode_attention_over_virtual_shards(dev):
+    """A bf16 cache (8, 1024, 2, 128) cut into m in {2, 4, 8} contiguous
+    shards at positions 0, 100, 511 and 1023: each shard's partials (the
+    neutral one where it holds no valid row), side by side in shard order
+    and combined, agree with ``flash_decode`` and the plain version on the
+    valid rows within 1e-5, with the same bits on a second call."""
+    B, Hq, Hkv, D, T = 8, 16, 2, 128, 1024
+    q, k, v = _attn_inputs(B, Hq, Hkv, D, T, torch.bfloat16, dev, seed=3)
+
+    def combined(pos, m):
+        Tl = T // m
+        parts = [ops.decode_attention_partials(
+            q, k[:, r * Tl:r * Tl + n], v[:, r * Tl:r * Tl + n], m, Tl)
+            for r in range(m)
+            for n in (min(Tl, max(0, pos + 1 - r * Tl)),)]
+        return ops.decode_attention_combine(torch.cat(parts, dim=2))
+
+    for m in (2, 4, 8):
+        for pos in (0, 100, 511, 1023):
+            got = combined(pos, m)
+            torch.testing.assert_close(
+                got, flash_decode.flash_decode(q, k[:, :pos + 1],
+                                               v[:, :pos + 1]),
+                rtol=0, atol=1e-5)
+            torch.testing.assert_close(
+                got, ref.flash_decode_ref(q, k[:, :pos + 1], v[:, :pos + 1]),
+                rtol=0, atol=1e-5)
+            assert torch.equal(got, combined(pos, m))
+
+
 def test_decode_step_on_card_matches_cpu(dev):
     """Six f32 decode steps of the qwen2.5 smoke model on the card (every
     attention through the kernel) against the same steps on the CPU (the

@@ -26,6 +26,7 @@ from repro_torch.distributed import dist_search
 from repro_torch.launch import search as search_cli
 from repro_torch.serving import (HttpConfig, SearchClient, SearchHTTPService,
                                  ServiceConfig)
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUALITY_REF = os.path.join(REPO, "results", "search_quality_ref.json")

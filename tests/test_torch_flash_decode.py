@@ -198,3 +198,80 @@ def test_partials_hold_each_splits_max_and_sum():
                                atol=1e-6)
     assert torch.equal(tref.flash_decode_combine_ref(parts),
                        tref.flash_decode_combine_ref(parts.clone()))
+
+
+def _ref_step_attention(q, k, v, pos):
+    """The attention of the reference's ``decode_attention_step``: scores
+    of all Tmax rows, rows past ``pos`` masked with -1e30, softmax in
+    float32 (``repro.models.common``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import common as jcommon
+
+    B, H, D = q.shape
+    s = jcommon._gqa_scores(jnp.asarray(q)[:, None], jnp.asarray(k),
+                            1.0 / np.sqrt(D)).astype(jnp.float32)
+    valid = (jnp.arange(k.shape[1]) <= pos)[None, None, None, None, :]
+    w = jax.nn.softmax(jnp.where(valid, s, -1e30), axis=-1)
+    return np.asarray(jnp.einsum("bkgts,bskd->btkgd", w, jnp.asarray(v))
+                      ).reshape(B, H, D)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, 300])
+@pytest.mark.parametrize("rows", [1, 32, 33, 1024, 32768])
+def test_shard_width_fits_every_ranks_partials_in_one_combine(shards, rows):
+    """Each rank's width: at least one partial, at most one split a tile
+    of its slice, and all the ranks' partials within one combine (one a
+    rank where there are more ranks than the combine takes)."""
+    w = flash_decode.shard_width(shards, rows)
+    assert 1 <= w <= -(-rows // flash_decode.TILE)
+    assert shards * w <= max(flash_decode.MAX_SPLITS, shards)
+    if shards * -(-rows // flash_decode.TILE) <= flash_decode.MAX_SPLITS:
+        assert w == -(-rows // flash_decode.TILE)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("pos", [0, 5, 7, 8, 30, 31])
+def test_shard_partials_with_empty_shards_then_combine(m, pos):
+    """A cache of 32 rows cut into m contiguous shards, as a sequence-
+    sharded cache lies on m ranks: each shard's partials over its valid
+    rows (a shard past ``pos`` has none and gives the neutral partial),
+    laid side by side in shard order and combined, equal the attention
+    over rows [0, pos] -- the plain version's and the reference decode
+    step's masked softmax -- and neutral partials, as a rank on the card
+    pads its splits with, add exact zeros."""
+    B, Hq, Hkv, D, T = 2, 8, 2, 64, 32
+    q, k, v = _inputs(B, Hq, Hkv, D, T, seed=9)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    Tl = T // m
+    parts = []
+    for r in range(m):
+        n = min(Tl, max(0, pos + 1 - r * Tl))
+        p = tops.decode_attention_partials(qt, kt[:, r * Tl:r * Tl + n],
+                                           vt[:, r * Tl:r * Tl + n], m, Tl)
+        assert p.shape == (B, Hq, 1, D + 2)
+        if n == 0:
+            assert torch.equal(p, tref.neutral_partials(B, Hq, 1, D, "cpu"))
+        parts.append(p)
+    got = tops.decode_attention_combine(torch.cat(parts, dim=2))
+    assert torch.isfinite(got).all()
+    want = tref.flash_decode_ref(qt, kt[:, :pos + 1], vt[:, :pos + 1])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.flash_decode_ref(
+            q, k[:, :pos + 1], v[:, :pos + 1])), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(),
+                               _ref_step_attention(q, k, v, pos), atol=1e-5)
+    # Each shard padded with neutral partials gives the same bits, and so
+    # do the non-neutral partials alone.
+    pad = tref.neutral_partials(B, Hq, 2, D, "cpu")
+    padded = torch.cat([torch.cat([p, pad], dim=2) for p in parts], dim=2)
+    assert torch.equal(tops.decode_attention_combine(padded), got)
+    live = torch.cat([p for p in parts if torch.isfinite(p[:, :, 0, D]).all()],
+                     dim=2)
+    assert torch.equal(tref.flash_decode_combine_ref(live), got)
+    # T = 0 of the plain version, and an all-neutral row is NaN (the
+    # combine relies on a shard holding row 0).
+    empty = tref.flash_decode_partials_ref(qt, kt[:, :0], vt[:, :0])
+    assert torch.equal(empty, tref.neutral_partials(B, Hq, 1, D, "cpu"))
+    assert torch.isnan(tref.flash_decode_combine_ref(empty)).all()

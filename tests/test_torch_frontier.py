@@ -36,6 +36,7 @@ from repro_torch.core import search as tsearch
 from repro_torch.costmodel import arch_workloads as tarch
 from repro_torch.costmodel import layers as tlayers
 from repro_torch.costmodel import workloads as tworkloads
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BEYOND_DENSE = ["llama3p2_vision_90b", "mamba2_130m", "phi3p5_moe_42b",
@@ -139,7 +140,7 @@ def test_configs_beyond_dense_are_the_references(arch):
 
 def _run(module, *args):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
+               JAX_PLATFORMS="cpu", **ONE_THREAD)
     return subprocess.run([sys.executable, "-m", module, *args], env=env,
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300)

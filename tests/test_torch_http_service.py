@@ -28,6 +28,7 @@ from repro_torch.obs import instrument
 from repro_torch.serving import (HttpConfig, QueueFull, SearchClient,
                                  SearchHTTPService, ServiceConfig,
                                  outcome_to_json, request_from_spec)
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 ECFG = env_lib.EnvConfig(platform="cloud")
 TIMEOUT = 60.0          # every socket call and result wait

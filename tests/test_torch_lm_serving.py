@@ -174,12 +174,14 @@ def test_serve_cli_serves_other_families_on_cpu(arch):
 
 
 @pytest.mark.parametrize("args,msg", [
-    (("--mesh", "1x1"), "not ported yet"),
+    pytest.param(("--mesh", "2x2"), "needs a torchrun-style world of 4",
+                 id="args0-not ported yet"),
     pytest.param(("--arch", "no_such_arch"), "unknown architecture",
                  id="args1-not ported yet"),
 ])
 def test_serve_cli_rejects_what_is_not_ported(args, msg):
-    """``--mesh`` (sharded decode) is refused; so is an unknown --arch."""
+    """``--mesh 2x2`` outside a world of four ranks is refused (sharded
+    serving runs under ``torchrun``); so is an unknown --arch."""
     proc = _cli("--smoke", "--device", "cpu", *args)
     assert proc.returncode == 2
     assert msg in proc.stderr

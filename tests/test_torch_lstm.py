@@ -151,12 +151,15 @@ def test_cpu_path_uses_plain_versions_and_counts_no_launch():
     assert tops.launch_counts() == {"cost_eval": 0, "cost_eval_multi": 0,
                                     "lstm_cell": 0, "lstm_cell_bwd": 0,
                                     "flash_decode": 0,
-                                    "flash_decode_combine": 0}
+                                    "flash_decode_combine": 0,
+                                    "flash_decode_partials": 0}
     assert tref.cuda_calls == {"cost_eval_ref": 0, "cost_eval_multi_ref": 0,
                                "lstm_cell_ref": 0, "lstm_cell_saved_ref": 0,
                                "lstm_cell_bwd_ref": 0,
                                "lstm_cell_bwd_saved_ref": 0,
-                               "flash_decode_ref": 0}
+                               "flash_decode_ref": 0,
+                               "flash_decode_partials_ref": 0,
+                               "flash_decode_combine_ref": 0}
 
 
 def test_lstm_step_cpu_gradient_route_counts_no_launch():

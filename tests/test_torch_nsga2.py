@@ -42,6 +42,7 @@ from repro_torch.core import env as tenv
 from repro_torch.core import nsga2 as tnsga2
 from repro_torch.costmodel import workloads as tworkloads
 from repro_torch.serving import batcher as tbatcher
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 ECFG_KW = dict(platform="cloud")
 CFG = tnsga2.NSGA2Config(population=14, generations=9, seed=5)

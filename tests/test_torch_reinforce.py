@@ -34,6 +34,7 @@ from repro_torch.core import policy as tpolicy
 from repro_torch.core import reinforce as treinforce
 from repro_torch.costmodel import workloads as tworkloads
 from repro_torch.training import optim as toptim
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 E = 2
 

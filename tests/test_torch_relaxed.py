@@ -41,6 +41,7 @@ from repro_torch.core import env as tenv
 from repro_torch.core import relaxed as trelaxed
 from repro_torch.costmodel import dataflows as tdfl
 from repro_torch.costmodel import workloads as tworkloads
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 CFG = dict(steps_per_eval=5, restarts=2, seed=7)
 SHORT_STEPS = 1

@@ -42,6 +42,7 @@ from repro_torch.core import reinforce as treinforce
 from repro_torch.core import rl_baselines as trl
 from repro_torch.costmodel import workloads as tworkloads
 from repro_torch.training import optim as toptim
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 E, HIDDEN = 2, 16
 

@@ -27,6 +27,7 @@ from repro_torch.core import env as tenv
 from repro_torch.core import ga as tga
 from repro_torch.core import search as tsearch
 from repro_torch.costmodel import workloads as tworkloads
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAST_LINE_KEYS = ["method", "best_value", "stage1_value",
@@ -165,7 +166,7 @@ def test_request_on_cuda_without_card_raises():
 
 def _cli(module, *args):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
+               JAX_PLATFORMS="cpu", **ONE_THREAD)
     proc = subprocess.run([sys.executable, "-m", module, *args], env=env,
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300)
@@ -198,7 +199,8 @@ def test_cli_rejects_arch_as_not_ported():
                                   jlayers.layers_to_array(want.workload))
     assert ([l.name for l in got.workload]
             == [l.name for l in want.workload])
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               **ONE_THREAD)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.search", *flags,
          "--device", "cpu", "--epochs", "60", "--ga-population", "10",

@@ -28,6 +28,7 @@ from repro_torch.serving import (CostEvalBatcher, CostMemoCache,
                                  SearchService, ServiceConfig)
 from repro_torch.serving.batcher import (ROW_WIDTH, eval_point_rows,
                                         pack_point_rows)
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ECFG = env_lib.EnvConfig(platform="cloud")
@@ -621,7 +622,7 @@ def test_point_rows_cover_all_fields_and_never_collide():
 # ---------------------------------------------------------------------------
 def _cli_summary(module, *args):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
+               JAX_PLATFORMS="cpu", **ONE_THREAD)
     proc = subprocess.run([sys.executable, "-m", module, *args], env=env,
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300)

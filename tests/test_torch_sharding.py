@@ -137,14 +137,205 @@ def test_input_shapes_match_reference():
         configs.get_shape("train_8k")
 
 
-def test_decode_kind_and_cache_shardings_wait_for_sharded_serving():
-    mesh = MESHES[1]
-    with pytest.raises(ValueError, match="sharded serving"):
-        sharding.make_policy(mesh, batch=8, kind="decode")
-    with pytest.raises(ValueError, match="sharded serving"):
-        sharding.cache_shardings(mesh, None, batch=8)
+# ---------------------------------------------------------------------------
+# The decode side: cache layouts, the decode-kind hooks, tree paths.
+# ---------------------------------------------------------------------------
+def _abstract(mesh):
+    return jax.sharding.AbstractMesh(tuple(mesh.shape.values()),
+                                     mesh.axis_names)
+
+
+def _ref_cache(jcfg, batch, max_len):
+    """The reference's decode cache as shapes, cross K/V included."""
+    cache = jax.eval_shape(lambda: jlm.init_cache(jcfg, batch, max_len))
+    n_cross = lm.cross_sites(jcfg)
+    if n_cross:
+        S = jcfg.encoder_seq if jcfg.family == "audio" else jcfg.vision_seq
+        kv = jax.ShapeDtypeStruct(
+            (n_cross, batch, S, jcfg.num_kv_heads, jcfg.hd()), np.float32)
+        cache = cache._replace(cross_k=kv, cross_v=kv)
+    return cache
+
+
+def _port_cache(cfg, batch, max_len):
+    cache = lm.init_cache(cfg, batch, max_len, device="meta")
+    n_cross = lm.cross_sites(cfg)
+    if n_cross:
+        S = cfg.encoder_seq if cfg.family == "audio" else cfg.vision_seq
+        kv = torch.empty((n_cross, batch, S, cfg.num_kv_heads, cfg.hd()),
+                         device="meta")
+        cache = cache._replace(cross_k=kv, cross_v=kv)
+    return cache
+
+
+def _ref_mamba_leaf(path, cfg):
+    """The reference's cache path of the port's ``mamba/<i>/<leaf>``."""
+    _, i, leaf = path.split("/")
+    if cfg.family == "ssm":
+        return f"mamba/{leaf}"
+    n_groups = cfg.num_layers // cfg.shared_attn_period
+    grouped = int(i) < n_groups * cfg.shared_attn_period
+    return f"mamba/{'groups' if grouped else 'tail'}/{leaf}"
+
+
+def _pad(spec, ndim):
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def _flat_shardings(tree):
+    return {sharding.norm_path(kp): sh for kp, sh in
+            torch.utils._pytree.tree_flatten_with_path(
+                tree, is_leaf=lambda x: isinstance(x, sharding.Sharding))[0]
+            if sh is not None}
+
+
+@pytest.mark.parametrize("batch,max_len", [(8, 1024), (1, 1000),
+                                           (128, 4096)])
+def test_cache_shardings_match_reference_at_full_width(batch, max_len):
+    """Every leaf of every config's decode cache, on five meshes (the
+    reference's on an ``AbstractMesh`` of the same shape): attention and
+    cross K/V and ``pos`` as the reference's; each per-layer Mamba tensor
+    the trailing part of its stacked reference leaf's spec."""
+    n = 0
+    for arch in configs.ARCH_IDS:
+        jcfg, cfg = jconfigs.get(arch), configs.get(arch)
+        jc = _ref_cache(jcfg, batch, max_len)
+        shapes = {jsharding.norm_path(kp): leaf.shape for kp, leaf in
+                  jax.tree_util.tree_flatten_with_path(jc)[0]}
+        port = _port_cache(cfg, batch, max_len)
+        port_shapes = {sharding.norm_path(kp): tuple(getattr(t, "shape", ()))
+                       for kp, t in
+                       torch.utils._pytree.tree_flatten_with_path(port)[0]
+                       if t is not None}
+        for mesh in MESHES:
+            want = {jsharding.norm_path(kp): tuple(s.spec) for kp, s in
+                    jax.tree_util.tree_flatten_with_path(
+                        jsharding.cache_shardings(_abstract(mesh), jc,
+                                                  batch=batch))[0]}
+            got = _flat_shardings(sharding.cache_shardings(mesh, port,
+                                                           batch=batch))
+            assert set(got) == set(port_shapes)
+            for path, sh in got.items():
+                ref_path = (_ref_mamba_leaf(path, cfg)
+                            if path.startswith("mamba/") else path)
+                ref_ndim, ndim = len(shapes[ref_path]), len(port_shapes[path])
+                assert port_shapes[path] == shapes[ref_path][ref_ndim - ndim:]
+                spec = _pad(want[ref_path], ref_ndim)
+                assert all(a is None for a in spec[:ref_ndim - ndim])
+                assert _pad(sh.spec, ndim) == spec[ref_ndim - ndim:], (
+                    arch, path, mesh.shape)
+                assert sh.placements == sharding.placements(mesh, sh.spec,
+                                                            ndim)
+                n += 1
+            mapped = {_ref_mamba_leaf(p, cfg) if p.startswith("mamba/")
+                      else p for p in got}
+            assert mapped == set(want), arch
+    assert n > 300
+
+
+class _Spy:
+    """Records the specs the hooks constrain to (the port's redistribute,
+    the reference's ``with_sharding_constraint``)."""
+
+    def __init__(self, monkeypatch):
+        self.port, self.ref = [], []
+        monkeypatch.setattr(sharding, "_redistribute",
+                            lambda x, mesh, spec: self.port.append(
+                                _pad(sharding._canonical(spec), x.ndim))
+                            or x)
+        monkeypatch.setattr(jax.lax, "with_sharding_constraint",
+                            lambda x, s: self.ref.append(
+                                _pad(tuple(s.spec), x.ndim)) or x)
+
+
+def _hook_inputs(cfg, batch, max_len):
+    """(hook, shape) of every decode-kind hook's site for ``cfg``."""
+    hd, H, Kv = cfg.hd(), cfg.num_heads, cfg.num_kv_heads
+    out = [("resid", (batch, 1, cfg.d_model)),
+           ("heads", (batch, 1, H, hd)), ("kv_full", (batch, 1, Kv, hd)),
+           ("ffn", (batch, 1, cfg.d_ff)),
+           ("logits", (batch, 1, cfg.vocab_size)),
+           ("cache", (batch, max_len, Kv, hd)),
+           ("cache", (batch, 3, Kv, hd))]
+    if cfg.family in ("ssm", "hybrid"):
+        P = cfg.ssm_head_dim
+        out.append(("ssm_x", (batch, 1, cfg.ssm_expand * cfg.d_model // P,
+                               P)))
+    if cfg.family == "moe":
+        E = cfg.num_experts
+        out += [("experts", (1, E, 4, cfg.d_model)),
+                ("dispatch", (1, batch, E * 4)),
+                ("experts_flat", (1, E * 4, cfg.d_ff))]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["tp", "tp_serve"])
+def test_decode_hooks_match_reference_at_full_width(mode, monkeypatch):
+    """The decode-kind policy's hooks constrain every site to the
+    reference's spec, for all ten configs on the five meshes: the
+    residual not sequence-parallel, heads on ``model`` where they divide,
+    ``kv_full`` no constraint, the cache's sequence on ``model``."""
+    spy = _Spy(monkeypatch)
+    n = 0
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get(arch)
+        for mesh in MESHES:
+            for batch, max_len in ((8, 1024), (3, 100)):
+                pol = sharding.make_policy(mesh, batch=batch, kind="decode",
+                                           mode=mode)
+                jpol = jsharding.make_policy(_abstract(mesh), batch=batch,
+                                             kind="decode", mode=mode)
+                for hook, shape in _hook_inputs(cfg, batch, max_len):
+                    spy.port.clear()
+                    spy.ref.clear()
+                    getattr(pol, hook)(torch.empty(shape, device="meta"))
+                    getattr(jpol, hook)(jax.ShapeDtypeStruct(shape,
+                                                             np.float32))
+                    assert spy.port == spy.ref, (arch, hook, shape,
+                                                 mesh.shape)
+                    n += bool(spy.ref)
+    assert n > 500
+
+
+def test_tree_shardings_and_norm_path_match_reference():
+    """The reference's parameter tree of every config, at full width, on
+    five meshes and in every mode: the port's ``tree_shardings`` (over a
+    nested dict of meta tensors) gives each path the reference's spec;
+    ``norm_path`` makes the reference's path strings of the port's key
+    paths (dicts, NamedTuple fields, list indices); the modes'
+    validation stays."""
+    for arch in configs.ARCH_IDS:
+        ref, _ = _shapes(arch)
+        tree = {}
+        for path, shape in ref.items():
+            node = tree
+            *keys, leaf = path.split("/")
+            for k in keys:
+                node = node.setdefault(k, {})
+            node[leaf] = torch.empty(shape, device="meta")
+        for mesh in MESHES[1:]:
+            for mode in MODES:
+                got = _flat_shardings(sharding.tree_shardings(mesh, tree,
+                                                              mode))
+                assert set(got) == set(ref)
+                for path, sh in got.items():
+                    want = tuple(jsharding.param_spec(mesh, path, ref[path],
+                                                      mode))
+                    assert sh.spec == want, (arch, path, mode)
+    t = torch.zeros(1)
+    cache = lm.Cache(t, t, [lm.ssm.MambaCache(t, t)], t, t, 3)
+    paths = [sharding.norm_path(kp) for kp, _ in
+             torch.utils._pytree.tree_flatten_with_path(cache)[0]]
+    assert paths == ["attn_k", "attn_v", "mamba/0/conv", "mamba/0/ssm",
+                     "cross_k", "cross_v", "pos"]
+    jpaths = [jsharding.norm_path(kp) for kp, _ in
+              jax.tree_util.tree_flatten_with_path(jlm.Cache(
+                  0, 0, [jlm.ssm.MambaCache(0, 0)], 0, 0, 3))[0]]
+    assert paths == jpaths
     with pytest.raises(ValueError, match="mode"):
-        sharding.param_spec(mesh, "blocks/attn/wq", (8, 8), "zero")
+        sharding.param_spec(MESHES[1], "blocks/attn/wq", (8, 8), "zero")
+    with pytest.raises(ValueError, match="kind"):
+        sharding.make_policy(MESHES[1], batch=8, kind="serve")
 
 
 # ---------------------------------------------------------------------------
