@@ -345,6 +345,23 @@ and no result line:
    whether the world comes up (NCCL may refuse two ranks on one device;
    the outcome is printed), and if it does, the (1, 2) tp step against
    the unsharded one.  This path launches no kernel of the port.
+10c. The dry run (``repro_torch.launch.dryrun``), each cell in a process
+   of its own, all started together.  (a) qwen2.5-3b decode_32k
+   (``tp_serve``) and qwen1.5-0.5b train_4k (``auto``) on the 16x16 mesh
+   of a fake 256-rank world with the ``cuda`` device type: both records
+   ``ok``, the decode cell tracing flash decode's partials and combine
+   operators (fake kernels) once a layer; each record's roofline line
+   printed (predictions for the card, not measurements).  (b) The dry
+   run's 1x1 cells at phase 8d (a)'s shape (qwen2.5-3b decode, B = 8, a
+   1,024-row cache at its last row, float32) and phase 10b's (qwen1.5-0.5b
+   tp train, B = 8, T = 1,024), each against one real step of the same
+   cell (``dryrun.build_cell``) on a one-rank NCCL world: counted FLOPs
+   equal to ``FlopCounterMode``'s on the step; the decode's operator
+   calls equal to its kernel launches a step, in this step and in 8d (a);
+   the peak within 10% of ``torch.cuda.max_memory_allocated`` over the
+   step (inputs in place, the peak reset before it, both counted from
+   before the build); the bound on the card's constants at or below the
+   step's measured seconds, this phase's and 8d's / 10b's.
 9. Kernel timings at the paths' shapes: CUDA-event ms per call, and
    device µs per launch from a profiler trace of back-to-back calls
    (``search_kernel_times`` for the search path's calls: the cost kernel
@@ -614,6 +631,19 @@ TRAIN_SMOKE_BATCH, TRAIN_SMOKE_T = 2, 64
 # TWO_RANK_TIMEOUT_S.
 SHARDED_MODES, SHARDED_TIMED, SHARDED_REL_TOL = ("tp", "fsdp", "dp"), 2, 1e-2
 PP_MICRO, TWO_RANK_TIMEOUT_S = 2, 120
+# Phase 10c: the dry run (``repro_torch.launch.dryrun``), each cell in a
+# process of its own, all started together (the dry run makes a fake world,
+# which must not meet this process's NCCL worlds).  (a) production cells
+# on a fake 256-rank world: (arch, shape, mode); (b) the dry run's cells
+# on a 1x1 mesh at phase 8d (a)'s and phase 10b's shapes, each held to one
+# real step of the same cell on a one-rank NCCL world: (kind, arch, shape,
+# batch, length, float32).  The dry run's peak must lie within
+# DRYRUN_PEAK_RTOL of the step's.
+DRYRUN_PRODUCTION = (("qwen2p5_3b", "decode_32k", "tp_serve"),
+                     ("qwen1p5_0p5b", "train_4k", "auto"))
+DRYRUN_STEPS = (("decode", LM_ARCH, "decode_32k", 8, 1024, True),
+                ("train", TRAIN_ARCH, "train_4k", 8, 1024, False))
+DRYRUN_PEAK_RTOL, DRYRUN_TIMEOUT_S = 0.10, 300
 # The service path: (method, workload, eps, seed, options), all at
 # latency / area / iot / dla, LP.  Requests 1 and 2 are the same query
 # from two users.
@@ -5003,6 +5033,180 @@ def phase_train_sharded(dev):
     return out
 
 
+def _dryrun_proc(args, out):
+    """``python -m repro_torch.launch.dryrun ARGS --out OUT``, started."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+         str(out)], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_record(proc, out, what):
+    """The one record a dry-run process wrote, once it ended ``ok``."""
+    try:
+        so, se = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        so, se = proc.communicate()
+    check(proc.returncode == 0 and Path(out).is_file(),
+          f"dry run {what}: exit {proc.returncode}: {se.strip()[-1500:]}")
+    recs = [json.loads(ln) for ln in Path(out).read_text().splitlines()]
+    check(len(recs) == 1 and recs[0]["status"] == "ok",
+          f"dry run {what}: {[r.get('status') for r in recs]} "
+          f"{[r.get('error') for r in recs]}")
+    return recs[0]
+
+
+def _real_step(dev, arch, shape_name, B, T, f32):
+    """One step of the dry run's 1x1 cell run for real on the card (the
+    current world): FLOPs by ``FlopCounterMode``, the kernel launches, the
+    peak allocated over the step (inputs in place) above what was
+    allocated before the build, and the seconds of a second, uncounted
+    step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg = dryrun.cell_config(arch, f32)
+    shape = dryrun.cell_shape(shape_name, B, T)
+    mesh = mesh_lib.make_debug_mesh(1, 1, device_type="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cell = dryrun.build_cell(cfg, shape, mesh, "tp", generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        cell.step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    after = ops.launch_counts()
+    t0 = time.perf_counter()
+    cell.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del cell
+    torch.cuda.empty_cache()
+    return {"flops": fc.get_total_flops(), "peak_bytes": peak,
+            "seconds": secs,
+            "launches": {k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)}}
+
+
+def phase_dryrun(dev, serve_counts, serve_sharded, train_sharded):
+    """Phase 10c: the dry run's production cells on the card's fake world,
+    and its 1x1 cells against the steps the card runs (module docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+
+    sites = lambda arch: lm.attention_sites(configs.get(arch))
+    out = {"production": {}, "steps": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        procs = {}
+        for arch, shape, mode in DRYRUN_PRODUCTION:
+            path = Path(tmp) / f"{arch}_{shape}.jsonl"
+            procs[(arch, shape)] = (_dryrun_proc(
+                ["--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--mode", mode], path), path)
+        for kind, arch, shape, B, T, f32 in DRYRUN_STEPS:
+            path = Path(tmp) / f"{kind}_1x1.jsonl"
+            procs[kind] = (_dryrun_proc(
+                ["--arch", arch, "--shape", shape, "--mesh", "1x1",
+                 "--batch", str(B), "--seq", str(T)]
+                + (["--f32"] if f32 else []), path), path)
+        real = {}
+        try:
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                    world_size=1, device_id=dev)
+            try:
+                for kind, arch, shape, B, T, f32 in DRYRUN_STEPS:
+                    real[kind] = _real_step(dev, arch, shape, B, T, f32)
+            finally:
+                dist.destroy_process_group()
+            recs = {key: _dryrun_record(p, path, str(key))
+                    for key, (p, path) in procs.items()}
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for arch, shape, mode in DRYRUN_PRODUCTION:
+        rec = recs[(arch, shape)]
+        check(rec["device_type"] == "cuda" and rec["devices"] == 256,
+              f"dry run {arch} {shape}: {rec['devices']} {rec['device_type']}"
+              " ranks, expected a 256-rank cuda world")
+        if rec["kind"] == "decode":
+            calls = rec["op_calls"]
+            check(calls.get("flash_decode_partials") == sites(arch)
+                  and calls.get("flash_decode_combine") == sites(arch),
+                  f"dry run {arch} {shape}: operator calls {calls}, "
+                  f"expected partials and combine once each of "
+                  f"{sites(arch)} sites")
+        out["production"][f"{arch} {shape}"] = rec
+        log(f"[dryrun] (a) {json.dumps(dryrun.roofline_line(rec))}")
+    steps_8d = serve_sharded["qwen_f32"]["steps"]
+    measured = {
+        "decode": serve_sharded["qwen_f32"]["ms_per_step_sharded"] / 1e3,
+        "train": train_sharded["cases"]["tp"]["ms_per_step"] / 1e3}
+    for kind, arch, shape, B, T, f32 in DRYRUN_STEPS:
+        rec, step = recs[kind], real[kind]
+        row = {"counted_flops": rec["counted_flops_per_device"],
+               "flop_counter_mode": step["flops"],
+               "peak_bytes_dry": rec["peak_bytes_per_device"],
+               "peak_bytes_real": step["peak_bytes"],
+               "bound_seconds": rec["bound_seconds"],
+               "bottleneck": rec["bottleneck"],
+               "step_seconds": step["seconds"],
+               "phase_step_seconds": measured[kind],
+               "op_calls": rec["op_calls"], "launches": step["launches"],
+               "trace_s": rec["trace_s"]}
+        row["peak_rel_diff"] = (abs(row["peak_bytes_dry"]
+                                    - row["peak_bytes_real"])
+                                / row["peak_bytes_real"])
+        check(row["counted_flops"] == row["flop_counter_mode"],
+              f"dry run {kind} 1x1: counted FLOPs {row['counted_flops']}, "
+              f"FlopCounterMode on the step {row['flop_counter_mode']}")
+        check(row["peak_rel_diff"] <= DRYRUN_PEAK_RTOL,
+              f"dry run {kind} 1x1: peak {row['peak_bytes_dry']} against "
+              f"the step's {row['peak_bytes_real']} "
+              f"({row['peak_rel_diff']:.3g}, limit {DRYRUN_PEAK_RTOL})")
+        check(row["bound_seconds"] <= min(row["step_seconds"],
+                                          row["phase_step_seconds"]),
+              f"dry run {kind} 1x1: bound {row['bound_seconds']} s above a "
+              f"measured step ({row['step_seconds']} s here, "
+              f"{row['phase_step_seconds']} s in 8d / 10b)")
+        if kind == "decode":
+            per_8d = {k: serve_counts[k] / steps_8d
+                      for k in ("flash_decode_partials",
+                                "flash_decode_combine")}
+            for k, n in per_8d.items():
+                check(rec["op_calls"].get(k) == n == sites(arch)
+                      == step["launches"].get(k),
+                      f"dry run decode 1x1: {k} called "
+                      f"{rec['op_calls'].get(k)} times, launched "
+                      f"{step['launches'].get(k)} in the step and {n} a "
+                      f"step in 8d (a); {sites(arch)} sites")
+            row["launches_per_step_8d"] = per_8d
+        out["steps"][kind] = row
+        log(f"[dryrun] (b) {kind} {arch} B = {B}, T = {T}"
+            f"{' f32' if f32 else ''}, 1x1: {json.dumps(row)}")
+    return out
+
+
 def _flash_entry(dev, counts_by_path, flash_err):
     """The flash-decode kernel's line: ms, plain and library ms and the
     bound at each timed shape, cycling through enough input copies that
@@ -5305,13 +5509,15 @@ def phase_timings(dev, counts, cost_err, lstm_err, multi_counts, multi_err,
 PHASES = ("build", "cost", "cost_multi", "lstm", "flash", "main", "engines",
           "frontier", "fanout", "dist", "service", "http", "lm",
           "lm_families", "prefill", "serve_sharded", "train",
-          "train_sharded", "timings", "flash_timings", "shard_timings")
+          "train_sharded", "dryrun", "timings", "flash_timings",
+          "shard_timings")
 PHASE_NEEDS = {
     "http": ("service",),
     "timings": ("cost", "cost_multi", "lstm", "main", "engines", "frontier",
                 "fanout", "dist", "service", "http"),
     "flash_timings": ("flash", "lm", "lm_families"),
     "shard_timings": ("serve_sharded",),
+    "dryrun": ("serve_sharded", "train_sharded"),
 }
 
 
@@ -5416,6 +5622,8 @@ def main(argv=None):
             "serve_sharded", phase_serve_sharded, dev))
         training = timed("train", phase_train, dev)
         training_sharded = timed("train_sharded", phase_train_sharded, dev)
+        dry = timed("dryrun", phase_dryrun, dev, serve_counts,
+                    serve_sharded, training_sharded)
         kernels = timed("timings", phase_timings, dev, counts, cost_err,
                         lstm_err, service_counts, multi_err,
                         {f"{phase}_{k}": v
@@ -5455,7 +5663,7 @@ def main(argv=None):
              "prefill_path": prefill, "serve_sharded_path": serve_sharded,
              "serve_sharded_launches": serve_counts,
              "train_path": training,
-             "train_sharded_path": training_sharded,
+             "train_sharded_path": training_sharded, "dryrun_path": dry,
              "phase_s": phase_s, "phases": sorted(run),
              "kernels": kernels, **result}, indent=1))
     log(json.dumps(result))

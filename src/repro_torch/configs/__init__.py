@@ -7,8 +7,8 @@ smoke() (reduced same-family config for CPU tests).  An unknown id raises
 ``get_shape`` raises ``KeyError`` on an unknown name.
 """
 from repro_torch.configs.base import (ALIASES, ARCH_IDS, SHAPES,
-                                      ArchConfig, InputShape, canonical, get,
-                                      get_shape, get_smoke)
+                                      ArchConfig, InputShape, all_configs,
+                                      canonical, get, get_shape, get_smoke)
 
 __all__ = ["ALIASES", "ARCH_IDS", "SHAPES", "ArchConfig", "InputShape",
-           "canonical", "get", "get_shape", "get_smoke"]
+           "all_configs", "canonical", "get", "get_shape", "get_smoke"]

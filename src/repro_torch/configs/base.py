@@ -175,3 +175,7 @@ def get(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _module(name).smoke()
+
+
+def all_configs() -> List[ArchConfig]:
+    return [get(a) for a in ARCH_IDS]

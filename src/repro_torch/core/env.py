@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.costmodel import dataflows as dfl
+from repro_torch.costmodel import maestro
 from repro_torch.costmodel.layers import NUM_FIELDS, layers_to_array
 from repro_torch.kernels import ops
 
@@ -158,6 +159,26 @@ def make_env(workload, cfg: EnvConfig, device="cuda") -> EnvArrays:
         kt_table=f32(dfl.kt_levels(cfg.levels)),
         budget=f32(budget),
     )
+
+
+def layer_cost(env: EnvArrays, cfg: EnvConfig, t, pe, kt, df):
+    """Per-layer (objective value, constraint consumption) at step t, by
+    the model (``maestro.evaluate``) on layer t's row."""
+    if cfg.objective == "blend":
+        raise ValueError(
+            "objective='blend' is a whole-model scalarization; the per-layer"
+            " RL reward path cannot decompose it per step -- use a"
+            " population/sampling method (random/grid/sa/ga/bo/relaxed) or"
+            " the native multi-objective engine (nsga2) instead")
+    out = maestro.evaluate(env.layers[t], pe, kt, df)
+    perf = out.latency if cfg.objective == "latency" else out.energy
+    cons = out.area if cfg.constraint == "area" else out.power
+    return perf, cons
+
+
+def action_tables(cfg: EnvConfig):
+    """The (PE, tile) level tables of ``cfg.levels`` levels, as numpy."""
+    return dfl.pe_levels(cfg.levels), dfl.kt_levels(cfg.levels)
 
 
 def select_objective(total_lat, total_en, cfg: EnvConfig):

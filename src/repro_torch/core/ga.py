@@ -297,6 +297,28 @@ class GenerationRunner:
             self.graph.replay()
 
 
+class GAResult(NamedTuple):
+    """A finished GA run (:func:`baseline_ga`, :func:`local_ga`)."""
+
+    best_value: torch.Tensor      # () objective; inf if nothing feasible
+    best_pe: torch.Tensor         # (N,) raw PE counts
+    best_kt: torch.Tensor         # (N,) raw tile counts
+    best_df: torch.Tensor         # (N,) dataflow ids
+    history: torch.Tensor         # (generations,) best-so-far trace
+    evals: int
+
+
+def baseline_ga(workload, ecfg: env_lib.EnvConfig,
+                cfg: GAConfig = GAConfig(), device="cuda") -> GAResult:
+    """A whole baseline-GA run (:func:`run_ga_search`) and its best
+    design, decoded to raw values."""
+    env = env_lib.make_env(workload, ecfg, device)
+    state, hist = run_ga_search(workload, ecfg, cfg, env=env)
+    pe, kt, df = ga_solution(env, ecfg, state)
+    return GAResult(state.best_val, pe, kt, df, hist,
+                    cfg.population * cfg.generations)
+
+
 def ga_solution(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
                 state: GAState):
     """Decode a baseline-GA state's best genome to raw (pe, kt, df)."""
@@ -400,3 +422,17 @@ def run_local_ga(workload, ecfg: env_lib.EnvConfig,
     return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk,
                               eval_fn, fixed_df=fixed_df,
                               engine_name="local_ga")
+
+
+def local_ga(workload, ecfg: env_lib.EnvConfig, init_pe, init_kt, init_df,
+             cfg: LocalGAConfig = LocalGAConfig(), device="cuda") -> GAResult:
+    """A whole stage-2 fine-tune (:func:`run_local_ga`) from the given
+    design, and its best one (the dataflows stay ``init_df``)."""
+    env = env_lib.make_env(workload, ecfg, device)
+    state, hist = run_local_ga(workload, ecfg, init_pe, init_kt, init_df, cfg,
+                               env=env)
+    df = torch.as_tensor(init_df, dtype=torch.int64, device=env.device)
+    return GAResult(state.best_val,
+                    state.best_genome[..., 0].to(torch.float32),
+                    state.best_genome[..., 1].to(torch.float32),
+                    df, hist, cfg.population * cfg.generations)

@@ -21,7 +21,7 @@ uninterrupted one.  The epochs run eagerly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -67,6 +67,28 @@ def _check_critic(pcfg: policy_lib.PolicyConfig):
             f"a2c/ppo2 with kind={pcfg.kind!r}: the critic (hidden, 1) reads "
             f"the {pcfg.obs_dim}-dim observation; the reference fails there "
             "too (use kind='rnn')")
+
+
+class ACRollout(NamedTuple):
+    """One episode of an actor-critic rollout as the reference records
+    it, (N, ...) a step.  The port's rollout (:func:`make_ac_rollout`)
+    gives E episodes at once as a ``reinforce.RolloutOut`` with ``obs``
+    and ``values``; :meth:`from_rollout` takes episode ``e`` of it."""
+
+    obs: torch.Tensor           # (N, obs_dim)
+    actions: torch.Tensor       # (N, 3)
+    rewards: torch.Tensor       # (N,)
+    mask: torch.Tensor          # (N,)
+    logps: torch.Tensor         # (N,)
+    values: torch.Tensor        # (N,)
+    perf: torch.Tensor          # (N,)
+    feasible: torch.Tensor
+    model_value: torch.Tensor
+    pmin: torch.Tensor
+
+    @classmethod
+    def from_rollout(cls, roll: reinforce.RolloutOut, e: int = 0):
+        return cls(*(getattr(roll, f)[e] for f in cls._fields))
 
 
 def make_ac_rollout(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,

@@ -265,6 +265,12 @@ def evaluate(layers, pe, kt, dataflow):
         _f32(pe, dev), _f32(kt, dev), _f32(dataflow, dev))
 
 
+def evaluate_point(layer_row, pe, kt, dataflow):
+    """Single layer x single design point: :func:`evaluate` of one
+    (NUM_FIELDS,) row."""
+    return evaluate(layer_row, pe, kt, dataflow)
+
+
 def aggregate(out: CostOut, scenario: str) -> CostOut:
     """Whole-model reduction over the last (layer) axis; see model_cost."""
     lat = torch.sum(out.latency, dim=-1)

@@ -33,8 +33,10 @@ slice of the cache and the slices' partials are combined across
 ``model`` (``models/common.py``).  :func:`place_cache` places a fresh
 decode cache, :func:`tree_shardings` gives a tree of tensors (the
 reference's parameter tree) its layouts by the reference's paths
-(:func:`norm_path`).  A layout is a :class:`Sharding`: the reference's
-spec and the DTensor placements it makes.
+(:func:`norm_path`), and :func:`sds_with_sharding` makes a fake DTensor of
+each leaf of a tree of shapes in its layout (the dry run's stand-ins).  A
+layout is a :class:`Sharding`: the reference's spec and the DTensor
+placements it makes.
 """
 from __future__ import annotations
 
@@ -264,6 +266,47 @@ def tree_shardings(mesh, tree, mode: str = "tp"):
     return _map_with_path(
         lambda path, leaf: _sharding(
             mesh, param_spec(mesh, path, _shape(leaf), mode), leaf), tree)
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    """A torch dtype from a torch, numpy or JAX dtype (or its name)."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    return getattr(torch, getattr(dt, "name", None) or str(dt))
+
+
+def sds_with_sharding(mesh, tree, mode: str = "tp"):
+    """A fake DTensor for each leaf of ``tree`` (anything with a ``shape``
+    and a ``dtype``: the reference's ``ShapeDtypeStruct`` s, meta or fake
+    tensors), placed by :func:`param_spec` on its path in ``mode``, on
+    ``mesh``'s device type: the counterpart of the reference's
+    ``ShapeDtypeStruct`` s that carry their shardings.  The leaves are made
+    under the active ``FakeTensorMode`` (a new one if none is active), so
+    nothing is allocated; each rank's local tensor is its shard."""
+    from torch._guards import active_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake = active_fake_mode() or FakeTensorMode()
+    sizes = [mesh.size(i) for i in range(mesh.ndim)]
+
+    def leaf(path, x):
+        shape = tuple(x.shape)
+        pl = placements(mesh, param_spec(mesh, path, shape, mode),
+                        len(shape))
+        local = list(shape)
+        for size, p in zip(sizes, pl):
+            if p.is_shard():
+                local[p.dim] //= size
+        with fake:
+            t = torch.empty(local, dtype=_torch_dtype(x.dtype),
+                            device=mesh.device_type)
+            return DTensor.from_local(t, mesh, pl, run_check=False,
+                                      shape=torch.Size(shape),
+                                      stride=torch.empty(shape,
+                                                         device="meta")
+                                      .stride())
+
+    return _map_with_path(leaf, tree)
 
 
 def placements(mesh, spec: Spec, ndim: int):

@@ -18,6 +18,17 @@ combine kernel on the partials of every slice, gathered in sequence
 order.  A slice with no valid key gives the neutral partial (acc = 0,
 m = -inf, l = 0) without a launch, which the combine weighs by 0.
 
+Each entry launches through a ``torch.library`` operator of the
+``repro_torch`` namespace (``torch.ops.repro_torch.flash_decode``,
+``flash_decode_partials``, ``flash_decode_combine``): the operator's CUDA
+kernel is the launch; its fake kernel allocates what the launch
+allocates, from the same split plan and the card's SM count
+(:func:`sm_count`), so that a step traces under ``FakeTensorMode`` (the
+dry run, ``repro_torch.launch.dryrun``); and its FLOP formula lets
+``torch.utils.flop_counter`` count it.  ``flash_decode``'s operator
+returns its split workspace beside the output, so that a memory tracker
+sees that allocation too; the wrapper drops it, as the launch frees it.
+
 ``build.launches["flash_decode"]`` counts the calls of
 :func:`flash_decode` that launched the kernel (one per attention);
 ``build.launches["flash_decode_combine"]`` counts the combine kernel's
@@ -31,6 +42,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
@@ -179,17 +191,23 @@ def _plan(q, k, v, max_splits=MAX_SPLITS):
     plan = _plans.get(key)
     if plan is None:
         B, T, Hq, Hkv, D, strides = _check(q, k, v)
-        dev = q.device
-        sms = _sm_counts.get(dev.index)
-        if sms is None:
-            sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        S, per = plan_splits(B, Hkv, T, sms, max_splits) if B else (1, 1)
+        S, per = (plan_splits(B, Hkv, T, sm_count(q.device), max_splits)
+                  if B else (1, 1))
         plan = (B, T, Hq, Hkv, D, strides, S, per * TILE)
         if len(_plans) > 4096:
             _plans.clear()
         _plans[key] = plan
     return plan
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev``, read once a device (the fake
+    kernels read it too; a test without a card sets ``_sm_counts``)."""
+    sms = _sm_counts.get(dev.index)
+    if sms is None:
+        sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
 
 
 def _check_aligned(*tensors):
@@ -198,30 +216,19 @@ def _check_aligned(*tensors):
             raise ValueError(f"flash_decode: {name} is not 16-byte aligned")
 
 
+def _require_cuda(what, **tensors):
+    for name, t in tensors.items():
+        if not torch.is_tensor(t) or not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor")
+
+
 def flash_decode(q, k, v):
     """Launch the kernel.  q (B, Hq, D); k, v (B, T, Hkv, D), rows
     contiguous (a view ``cache[:, :T]`` of a longer cache is read in
     place); all float32 or all bfloat16, on one CUDA device.
     Returns (B, Hq, D) float32."""
-    B, T, Hq, Hkv, D, (k_bstride, v_bstride), S, keys = _plan(q, k, v)
-    _check_aligned(q, k, v)
-    dev = q.device
-    out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
-    if B == 0:
-        return out
-    ws = (torch.empty((B, Hq, S, D + 2), dtype=torch.float32, device=dev)
-          if S > 1 else None)
-    stream = build.stream(dev.index)
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     None if ws is None else ws.data_ptr(),
-                     B, T, Hq, Hkv, D, k_bstride, v_bstride, S, keys,
-                     _DTYPES[q.dtype], dev.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: error {rc}")
-    build.count("flash_decode", stream)
-    if S > 1:
-        build.count("flash_decode_combine", stream)
-    return out
+    _require_cuda("flash_decode", q=q)
+    return _FLASH_DECODE(q, k, v)[0]
 
 
 def flash_decode_partials(q, k, v, max_splits=MAX_SPLITS):
@@ -235,11 +242,73 @@ def flash_decode_partials(q, k, v, max_splits=MAX_SPLITS):
         if not (torch.is_tensor(q) and q.is_cuda and q.dim() == 3):
             raise ValueError("flash_decode_partials: q must be a (B, Hq, D) "
                              "CUDA tensor")
-        return ref.neutral_partials(q.shape[0], q.shape[1], 1, q.shape[2],
-                                    q.device)
+    else:
+        _require_cuda("flash_decode_partials", q=q)
     if not 1 <= max_splits <= MAX_SPLITS:
         raise ValueError(f"flash_decode_partials: max_splits {max_splits} "
                          f"outside [1, {MAX_SPLITS}]")
+    return _PARTIALS(q, k, v, max_splits)
+
+
+def flash_decode_combine(parts):
+    """The combine kernel on partials (B, Hq, S, D + 2) float32 (S <=
+    ``MAX_SPLITS``), contiguous on one CUDA device, summed in the order
+    s = 0, 1, ...: returns (B, Hq, D) float32.  Neutral partials add
+    nothing; each row needs one partial that is not neutral."""
+    _require_cuda("flash_decode_combine", parts=parts)
+    return _COMBINE(parts)
+
+
+def _check_parts(parts):
+    if parts.dtype != torch.float32 or parts.dim() != 4:
+        raise ValueError(f"flash_decode_combine: expected (B, Hq, S, D + 2) "
+                         f"float32, got {parts.dtype} "
+                         f"{tuple(parts.shape)}")
+    B, Hq, S, D2 = parts.shape
+    if not 1 <= S <= MAX_SPLITS or D2 < 3:
+        raise ValueError(f"flash_decode_combine: S={S} outside [1, "
+                         f"{MAX_SPLITS}] or D + 2 = {D2} < 3")
+    if not parts.is_contiguous():
+        raise ValueError("flash_decode_combine: parts is not contiguous")
+
+
+# ---------------------------------------------------------------------------
+# The operators: CUDA kernels (the launches), fake kernels (shapes only, for
+# FakeTensorMode) and FLOP formulas (torch.utils.flop_counter).
+# ---------------------------------------------------------------------------
+def _flash_decode_cuda(q, k, v):
+    B, T, Hq, Hkv, D, (k_bstride, v_bstride), S, keys = _plan(q, k, v)
+    _check_aligned(q, k, v)
+    dev = q.device
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
+    ws = torch.empty((B, Hq, S, D + 2) if S > 1 and B else (0,),
+                     dtype=torch.float32, device=dev)
+    if B == 0:
+        return out, ws
+    stream = build.stream(dev.index)
+    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     ws.data_ptr() if S > 1 else None,
+                     B, T, Hq, Hkv, D, k_bstride, v_bstride, S, keys,
+                     _DTYPES[q.dtype], dev.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: error {rc}")
+    build.count("flash_decode", stream)
+    if S > 1:
+        build.count("flash_decode_combine", stream)
+    return out, ws
+
+
+def _flash_decode_fake(q, k, v):
+    B, T, Hq, Hkv, D, _, S, _ = _plan(q, k, v)
+    return (q.new_empty((B, Hq, D), dtype=torch.float32),
+            q.new_empty((B, Hq, S, D + 2) if S > 1 and B else (0,),
+                        dtype=torch.float32))
+
+
+def _partials_cuda(q, k, v, max_splits):
+    if k.dim() == 4 and k.shape[1] == 0:
+        return ref.neutral_partials(q.shape[0], q.shape[1], 1, q.shape[2],
+                                    q.device)
     B, T, Hq, Hkv, D, (k_bstride, v_bstride), S, keys = _plan(
         q, k, v, max_splits)
     _check_aligned(q, k, v)
@@ -259,23 +328,18 @@ def flash_decode_partials(q, k, v, max_splits=MAX_SPLITS):
     return ws
 
 
-def flash_decode_combine(parts):
-    """The combine kernel on partials (B, Hq, S, D + 2) float32 (S <=
-    ``MAX_SPLITS``), contiguous on one CUDA device, summed in the order
-    s = 0, 1, ...: returns (B, Hq, D) float32.  Neutral partials add
-    nothing; each row needs one partial that is not neutral."""
-    if not torch.is_tensor(parts) or not parts.is_cuda:
-        raise ValueError("flash_decode_combine: parts must be a CUDA tensor")
-    if parts.dtype != torch.float32 or parts.dim() != 4:
-        raise ValueError(f"flash_decode_combine: expected (B, Hq, S, D + 2) "
-                         f"float32, got {parts.dtype} "
-                         f"{tuple(parts.shape)}")
+def _partials_fake(q, k, v, max_splits):
+    if k.dim() == 4 and k.shape[1] == 0:
+        S = 1
+    else:
+        S = _plan(q, k, v, max_splits)[6]
+    B, Hq, D = q.shape
+    return q.new_empty((B, Hq, S, D + 2), dtype=torch.float32)
+
+
+def _combine_cuda(parts):
+    _check_parts(parts)
     B, Hq, S, D2 = parts.shape
-    if not 1 <= S <= MAX_SPLITS or D2 < 3:
-        raise ValueError(f"flash_decode_combine: S={S} outside [1, "
-                         f"{MAX_SPLITS}] or D + 2 = {D2} < 3")
-    if not parts.is_contiguous():
-        raise ValueError("flash_decode_combine: parts is not contiguous")
     dev = parts.device
     out = torch.empty((B, Hq, D2 - 2), dtype=torch.float32, device=dev)
     if B * Hq == 0:
@@ -288,3 +352,41 @@ def flash_decode_combine(parts):
                            f"error {rc}")
     build.count("flash_decode_combine", stream)
     return out
+
+
+def _combine_fake(parts):
+    _check_parts(parts)
+    B, Hq, _, D2 = parts.shape
+    return parts.new_empty((B, Hq, D2 - 2))
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_decode(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)")
+_LIB.define("flash_decode_partials(Tensor q, Tensor k, Tensor v, "
+            "int max_splits) -> Tensor")
+_LIB.define("flash_decode_combine(Tensor parts) -> Tensor")
+for _name, _cuda, _fake in (
+        ("flash_decode", _flash_decode_cuda, _flash_decode_fake),
+        ("flash_decode_partials", _partials_cuda, _partials_fake),
+        ("flash_decode_combine", _combine_cuda, _combine_fake)):
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
+_FLASH_DECODE = torch.ops.repro_torch.flash_decode.default
+_PARTIALS = torch.ops.repro_torch.flash_decode_partials.default
+_COMBINE = torch.ops.repro_torch.flash_decode_combine.default
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_decode,
+                        torch.ops.repro_torch.flash_decode_partials])
+def _attention_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """Q.K^T and P.V over T keys: 4 B Hq T D, the dry run's and
+    ``analytic``'s count of one query token's attention."""
+    B, Hq, D = q_shape
+    return 4 * B * Hq * k_shape[1] * D
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_combine)
+def _combine_flops(parts_shape, *args, **kwargs) -> int:
+    """A weight and an add per partial's acc element: 2 B Hq S D."""
+    B, Hq, S, D2 = parts_shape
+    return 2 * B * Hq * S * (D2 - 2)

@@ -273,11 +273,30 @@ def _heads(x, shape):
 
 def _gqa_scores(q, k, scale):
     """q (B, T, H, hd), k (B, S, Kv, hd) -> scores (B, Kv, G, T, S) in q's
-    dtype, scaled after the product as the reference scales them."""
+    dtype, scaled after the product as the reference scales them.
+
+    The product keeps T ahead of G (``bktgs``), so that its matmul merges
+    (T, G) with T outermost: a DTensor q split on T (sequence parallel)
+    then merges without a redistribution, which DTensor would refuse
+    (merging (G, T) split on the inner T); the view after it is free."""
     B, T, H, hd = q.shape
     Kv = k.shape[2]
     qg = q.reshape(B, T, Kv, H // Kv, hd)
-    return torch.einsum("btkgd,bskd->bkgts", qg, k) * scale
+    return (torch.einsum("btkgd,bskd->bktgs", qg, k)
+            * scale).permute(0, 1, 3, 2, 4)
+
+
+def zero_pad(x, dim, before=0, after=0):
+    """``x`` with ``before`` and ``after`` rows of zeros on ``dim``, by
+    concatenation: DTensor (PyTorch 2.11) has no working sharding strategy
+    for ``constant_pad_nd`` on a mesh of several dims."""
+    parts = [x]
+    for n, at in ((before, 0), (after, 1)):
+        if n:
+            shape = list(x.shape)
+            shape[dim] = n
+            parts.insert(at * len(parts), x.new_zeros(shape))
+    return torch.cat(parts, dim=dim) if len(parts) > 1 else x
 
 
 # Query lengths past FLASH_THRESHOLD take the blockwise path, an online
@@ -295,7 +314,9 @@ def blockwise_attention(q, k, v, *, causal=True, kv_chunk=KV_CHUNK):
     chunks of ``kv_chunk`` keys, with the running max, sum and output in
     float32; a ragged last chunk (1,500 audio frames, 1,601 vision
     patches) is zero-padded and its padding masked with -1e30.  Live
-    memory is one (B, Kv, G, T, ck) score tile.
+    memory is one (B, Kv, T, G, ck) score tile: the state keeps T ahead of
+    G, as :func:`_gqa_scores`'s product does, so a sequence-split q
+    merges in its products without a redistribution.
     """
     B, T, H, hd = q.shape
     S, Kv = k.shape[1], k.shape[2]
@@ -303,23 +324,24 @@ def blockwise_attention(q, k, v, *, causal=True, kv_chunk=KV_CHUNK):
     ck = min(kv_chunk, S)
     pad = (-S) % ck
     if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k = zero_pad(k, 1, after=pad)
+        v = zero_pad(v, 1, after=pad)
     nk = (S + pad) // ck
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
     qg = q.reshape(B, T, Kv, G, hd).to(f32)
     q_pos = torch.arange(T, device=q.device)
-    m = torch.full((B, Kv, G, T), -1e30, dtype=f32, device=q.device)
-    l = torch.zeros((B, Kv, G, T), dtype=f32, device=q.device)
-    acc = torch.zeros((B, Kv, G, T, hd), dtype=f32, device=q.device)
+    m = torch.full((B, Kv, T, G), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((B, Kv, T, G), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Kv, T, G, hd), dtype=f32, device=q.device)
     for ki in range(nk):
         kc = k[:, ki * ck:(ki + 1) * ck].to(f32)
         vc = v[:, ki * ck:(ki + 1) * ck].to(f32)
-        s = torch.einsum("btkgd,bskd->bkgts", qg, kc) * scale
+        s = torch.einsum("btkgd,bskd->bktgs", qg, kc) * scale
         k_pos = ki * ck + torch.arange(ck, device=q.device)
         if causal:
-            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, -1e30)
+            s = torch.where(q_pos[:, None, None] >= k_pos[None, None, :], s,
+                            -1e30)
         if pad:
             s = torch.where(k_pos[None, :] < S, s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -327,10 +349,10 @@ def blockwise_attention(q, k, v, *, causal=True, kv_chunk=KV_CHUNK):
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = (acc * corr[..., None]
-               + torch.einsum("bkgts,bskd->bkgtd", p, vc))
+               + torch.einsum("bktgs,bskd->bktgd", p, vc))
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]      # (B,Kv,G,T,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd).to(q.dtype)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]      # (B,Kv,T,G,hd)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, T, H * hd).to(q.dtype)
 
 
 def _direct_attention(q, k, v, x_dtype, causal):

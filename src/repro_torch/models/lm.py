@@ -418,12 +418,17 @@ def forward(params: LM, cfg, tokens, aux=None, *, remat=True,
 
 
 @torch.no_grad()
-def prefill(params: LM, cfg, tokens, aux=None, *, moe_groups=None):
+def prefill(params: LM, cfg, tokens, aux=None, *, moe_groups=None,
+            pol=NO_SHARDING):
     """Prefill: the whole prompt, and the logits of its LAST position only
-    (B, V); the (B, T, V) tensor is never made."""
-    x = forward_hidden(params, cfg, tokens, aux, remat=False,
-                       moe_groups=moe_groups)
-    return common.unembed(params.embed, cfg, x[:, -1:, :])[:, 0]
+    (B, V); the (B, T, V) tensor is never made.  Sharded (``pol`` of
+    ``sharding.make_policy(..., kind="prefill")``, DTensor parameters and
+    tokens), the logits are a DTensor."""
+    with sharded(pol):
+        x = forward_hidden(params, cfg, tokens, aux, remat=False,
+                           moe_groups=moe_groups, pol=pol)
+        return common.unembed(params.embed, cfg, x[:, -1:, :],
+                              pol=pol)[:, 0]
 
 
 # ---------------------------------------------------------------------------

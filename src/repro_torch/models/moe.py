@@ -26,8 +26,10 @@ The same function serves decode (``n_groups=1``) and the full-sequence
 forward at (B, T) under autograd: the routing weights of the kept rows
 carry the router's gradient, as the reference's dispatch matrix does.
 Each call reads the per-expert row counts back to the host once (one
-sync a layer).  :func:`aux_load_balance_loss` is the reference's
-Switch-style auxiliary loss.
+sync a layer); a fake trace, which has no counts to read, gives each
+expert the reference's static dispatch's rows (:func:`_static_rows`).
+:func:`aux_load_balance_loss` is the reference's Switch-style auxiliary
+loss.
 
 Sharded (DTensor activations), the dispatch is data-dependent and reads
 row counts on the host, which no DTensor strategy covers, so it runs in
@@ -49,6 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -167,26 +170,45 @@ def _expert_sums(cfg, x, router, w_gate, w_up, w_down, *, n_groups,
         mine = mine & (tok_id >= tokens[0]) & (tok_id < tokens[1])
     ids = torch.where(mine, r.experts, E).reshape(-1)
     order = torch.argsort(ids, stable=True)
-    counts = torch.bincount(ids, minlength=E + 1).tolist()
     rows = order // k
     wts = r.weight.reshape(-1)[order].to(x.dtype)[:, None]
     xf = x.reshape(-1, D)
     out = torch.zeros((B * T, D), dtype=torch.float32, device=x.device)
-    start = 0
-    for e, c in enumerate(counts[:E]):
-        if c:
-            tok, w = rows[start:start + c], wts[start:start + c]
-            xe = xf[tok] * w
-            up = common.cast(w_up[e - e0], cfg)
-            if cfg.mlp_act == "swiglu":
-                h = F.silu(xe @ common.cast(w_gate[e - e0], cfg)) * (xe @ up)
-            else:
-                h = F.gelu(xe @ up, approximate="tanh")
-            ye = h @ common.cast(w_down[e - e0], cfg)
-            out.index_put_((tok,), ye.to(torch.float32)
-                           * w.to(torch.float32), accumulate=True)
-        start += c
+    if is_fake(ids):
+        n_rows = _static_rows(cfg, B * T, n_groups, tokens)
+        picks = [(e, rows.new_zeros(n_rows), wts.new_zeros((n_rows, 1)))
+                 for e in range(e0, e0 + w_up.shape[0])]
+    else:
+        counts = torch.bincount(ids, minlength=E + 1).tolist()
+        picks, start = [], 0
+        for e, c in enumerate(counts[:E]):
+            if c:
+                picks.append((e, rows[start:start + c], wts[start:start + c]))
+            start += c
+    for e, tok, w in picks:
+        xe = xf[tok] * w
+        up = common.cast(w_up[e - e0], cfg)
+        if cfg.mlp_act == "swiglu":
+            h = F.silu(xe @ common.cast(w_gate[e - e0], cfg)) * (xe @ up)
+        else:
+            h = F.gelu(xe @ up, approximate="tanh")
+        ye = h @ common.cast(w_down[e - e0], cfg)
+        out.index_put_((tok,), ye.to(torch.float32)
+                       * w.to(torch.float32), accumulate=True)
     return out
+
+
+def _static_rows(cfg, n_tokens: int, n_groups, tokens) -> int:
+    """Rows each expert takes in a fake trace (``FakeTensorMode``, the dry
+    run), where the routed counts are data and cannot be read: the
+    reference's static dispatch, ``capacity(g)`` slots a group times the
+    groups (no more than the tokens: an expert takes a token once), of
+    which the ``tokens`` range holds its share.  ``analytic._moe_flops``
+    counts the same slots."""
+    n = group_count(n_tokens, n_groups)
+    slots = min(capacity(n_tokens // n, cfg) * n, n_tokens)
+    share = n_tokens if tokens is None else tokens[1] - tokens[0]
+    return -(-slots * share // n_tokens)
 
 
 def _moe_sharded(p: MoE, cfg, x, n_groups, pol):

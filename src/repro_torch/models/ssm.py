@@ -94,7 +94,7 @@ def init_fixed(name: str, p: torch.Tensor) -> bool:
 def _causal_conv(x, w, b):
     """Depth-wise causal conv.  x: (B, T, C); w: (W, C); b: (C,)."""
     W, T = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = common.zero_pad(x, 1, before=W - 1)
     out = sum(xp[:, i:i + T, :] * w[i][None, None, :] for i in range(W))
     return out + b[None, None, :]
 

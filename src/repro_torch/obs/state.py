@@ -20,3 +20,7 @@ enabled: bool = False
 # The active Tracer (``repro_torch.obs.trace.Tracer``) or None.  Spans are
 # only recorded when BOTH ``enabled`` is True and a tracer is installed.
 tracer: Optional[object] = None
+
+
+def is_enabled() -> bool:
+    return enabled

@@ -19,6 +19,7 @@ returns one shared null context manager -- no allocation, no clock read.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -189,3 +190,14 @@ def span(name: str, **attrs):
     if tracer is None or not _state.enabled:
         return NULL_SPAN
     return tracer.span(name, **attrs)
+
+
+@contextlib.contextmanager
+def timed(out: dict, key: str):
+    """Tiny helper: time a block into ``out[key]`` (seconds) -- used where a
+    duration is needed even without a tracer installed."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        out[key] = time.perf_counter() - t0

@@ -30,6 +30,11 @@ its device µs per launch of its kernel (the epoch: of the LSTM backward)
 from two profiler traces a tree, also taken in turns (other, this, this,
 other).
 
+With ``--flash --compare OTHER_SRC`` it times flash decode's three
+wrappers instead (:func:`flash_decode_calls`: ``flash_decode`` at phase
+9's shapes, ``flash_decode_partials`` and ``flash_decode_combine`` at phase
+8d's), the same way.
+
 With ``--service`` it runs phase 7's service requests instead (serially
 once per tree, as a warm-up; then through the service, once unprobed and
 once under ``chip_smoke.DispatchProbe``), ``--rounds`` times, and prints
@@ -174,32 +179,77 @@ def service_kernel_calls(dev):
     return out
 
 
+def flash_decode_calls(dev):
+    """Flash decode's wrappers (name -> (fn, kernel name, CUDA-event
+    iterations)): ``flash_decode`` at ``chip_smoke.FLASH_TIMED``'s bf16
+    shapes, and at each of ``chip_smoke.SHARD_TIMED`` a rank's
+    ``flash_decode_partials`` of its valid rows at the shard width and
+    ``flash_decode_combine`` of the partials padded to it, m ranks' side
+    by side (phase 8d's calls)."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels import flash_decode, ref
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for shape, dt_name in chip_smoke.FLASH_TIMED:
+        if dt_name != "bfloat16":
+            continue
+        q, k, v = chip_smoke._attn_inputs(shape, torch.bfloat16, dev, 41)
+        out[f"flash_decode {list(shape)} bf16"] = (
+            lambda q=q, k=k, v=v: flash_decode.flash_decode(q, k, v),
+            "flash_decode_split_kernel", 500)
+    for (B, Hq, Hkv, D, T), m, n, dt_name in chip_smoke.SHARD_TIMED:
+        dt = getattr(torch, dt_name)
+        width = flash_decode.shard_width(m, T // m)
+        S = flash_decode.plan_splits(B, Hkv, n, sms, width)[0]
+        q, k, v = chip_smoke._attn_inputs((B, Hq, Hkv, D, n), dt, dev, 43)
+        key = f"{[B, Hq, Hkv, D, n]} m={m} {dt_name}"
+        out[f"flash_decode_partials {key}"] = (
+            lambda q=q, k=k, v=v, w=width:
+            flash_decode.flash_decode_partials(q, k, v, w),
+            "flash_decode_split_kernel", 2000)
+        parts = torch.cat([flash_decode.flash_decode_partials(
+            q, k, v, width), ref.neutral_partials(B, Hq, width - S, D,
+                                                  dev)] * m, dim=2)
+        out[f"flash_decode_combine {list(parts.shape)}"] = (
+            lambda p=parts: flash_decode.flash_decode_combine(p),
+            "flash_decode_combine_kernel", 2000)
+    return out
+
+
 def _purge_port_modules():
     for name in [m for m in sys.modules
                  if m == "repro_torch" or m.startswith("repro_torch.")]:
         del sys.modules[name]
 
 
-def compare(dev, other_src, src, rounds=2):
+def compare(dev, other_src, src, rounds=2, flash=False):
     """The search path's and the service's calls of two trees of the port
     in one process, timed in turns (other, this, this, other, ...
     ``rounds`` times): mean CUDA-event ms and perf_counter ns per call of
     each, and each tree's device µs per launch of the named kernel, the
     mean of two profiler traces taken in turns.
     ``other_src`` is imported first; its modules stay alive in the calls'
-    closures after ``src`` replaces them in ``sys.modules``."""
+    closures after ``src`` replaces them in ``sys.modules``.  With
+    ``flash``, flash decode's wrappers instead (:func:`flash_decode_calls`).
+    """
     import chip_smoke
 
     trees = {}
     for label, path in (("other", other_src), ("this", src)):
         _purge_port_modules()
         sys.path.insert(0, str(Path(path).resolve()))
-        trees[label] = {**chip_smoke.search_kernel_calls(dev),
-                        **service_kernel_calls(dev)}
-        epoch = chip_smoke.stage1_epoch_calls(dev)[0]
-        trees[label]["stage1 epoch"] = (
-            epoch.get("graphed", epoch["eager"]),
-            chip_smoke.LSTM_BWD_KERNEL, 20)
+        if flash:
+            trees[label] = flash_decode_calls(dev)
+        else:
+            trees[label] = {**chip_smoke.search_kernel_calls(dev),
+                            **service_kernel_calls(dev)}
+            epoch = chip_smoke.stage1_epoch_calls(dev)[0]
+            trees[label]["stage1 epoch"] = (
+                epoch.get("graphed", epoch["eager"]),
+                chip_smoke.LSTM_BWD_KERNEL, 20)
         sys.path.pop(0)
     out = {}
     for name in trees["this"]:
@@ -306,6 +356,8 @@ def main(argv=None):
     ap.add_argument("--service", action="store_true",
                     help="run phase 7's service requests, unprobed and "
                     "under the dispatch probe, instead")
+    ap.add_argument("--flash", action="store_true",
+                    help="with --compare: flash decode's wrappers instead")
     ap.add_argument("--rounds", type=int, default=1,
                     help="service runs per tree (with --service)")
     args = ap.parse_args(argv)
@@ -333,7 +385,8 @@ def main(argv=None):
     elif args.compare:
         sys.path.remove(str(ROOT / "src"))
         print(json.dumps({"compare": args.compare, "calls": compare(
-            dev, args.compare, ROOT / "src")}), flush=True)
+            dev, args.compare, ROOT / "src", flash=args.flash)}),
+            flush=True)
     else:
         print(json.dumps({"host_ns": host_profile(dev)}), flush=True)
     return 0
