@@ -353,7 +353,12 @@ class ReinforceOptimizer:
 
 @register("two_stage", aliases=("conx", "confuciux"))
 class TwoStageOptimizer:
-    """The full ConfuciuX pipeline: RL global search -> local-GA fine-tune."""
+    """The full ConfuciuX pipeline: RL global search -> local-GA fine-tune.
+
+    ``extras`` adds stage 1's value, its first feasible value, its epoch
+    history, the GA's trace, and stage 1's assignment (``stage1_pe``,
+    ``stage1_kt``, ``stage1_df``), where the GA starts.
+    """
 
     name = "two_stage"
 
@@ -407,7 +412,9 @@ class TwoStageOptimizer:
             extras={"stage1_value": float(res.stage1_value),
                     "initial_valid_value": float(res.initial_valid_value),
                     "ga_history": np.asarray(res.ga_history),
-                    "history": res.history, "epochs": rcfg.epochs},
+                    "history": res.history, "epochs": rcfg.epochs,
+                    "stage1_pe": res.stage1_pe, "stage1_kt": res.stage1_kt,
+                    "stage1_df": res.stage1_df},
             streamed=request.on_progress is not None)
 
 

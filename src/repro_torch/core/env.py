@@ -23,6 +23,7 @@ from repro_torch.costmodel import dataflows as dfl
 from repro_torch.costmodel import maestro
 from repro_torch.costmodel.layers import NUM_FIELDS, layers_to_array
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 
 PLATFORM_FRACTIONS = {
     "unlimited": float("inf"),
@@ -143,22 +144,26 @@ def max_constraint(layers, cfg: EnvConfig) -> float:
 
 
 def make_env(workload, cfg: EnvConfig, device="cuda") -> EnvArrays:
-    """Build the Env from a workload (list of LayerSpec or (N, 8) array)."""
-    dev = resolve_device(device)
-    arr = _layers_array(workload)
-    layers = torch.as_tensor(arr, dtype=torch.float32, device=dev)
-    frac = PLATFORM_FRACTIONS[cfg.platform]
-    budget = (np.float32(np.inf) if np.isinf(frac)
-              else np.float32(frac * max_constraint(layers, cfg)))
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    return EnvArrays(
-        layers=layers,
-        layers_t=layers.T.contiguous(),
-        static_obs=f32(_normalize_obs(arr)),
-        pe_table=f32(dfl.pe_levels(cfg.levels)),
-        kt_table=f32(dfl.kt_levels(cfg.levels)),
-        budget=f32(budget),
-    )
+    """Build the Env from a workload (list of LayerSpec or (N, 8) array).
+
+    With telemetry on, one ``search.prepare`` span (``part="env"``)."""
+    with obs_trace.span("search.prepare", part="env"):
+        dev = resolve_device(device)
+        arr = _layers_array(workload)
+        layers = torch.as_tensor(arr, dtype=torch.float32, device=dev)
+        frac = PLATFORM_FRACTIONS[cfg.platform]
+        budget = (np.float32(np.inf) if np.isinf(frac)
+                  else np.float32(frac * max_constraint(layers, cfg)))
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=dev)
+        return EnvArrays(
+            layers=layers,
+            layers_t=layers.T.contiguous(),
+            static_obs=f32(_normalize_obs(arr)),
+            pe_table=f32(dfl.pe_levels(cfg.levels)),
+            kt_table=f32(dfl.kt_levels(cfg.levels)),
+            budget=f32(budget),
+        )
 
 
 def layer_cost(env: EnvArrays, cfg: EnvConfig, t, pe, kt, df):

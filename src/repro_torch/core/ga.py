@@ -26,6 +26,7 @@ fitness values are the same.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -36,6 +37,7 @@ from repro_torch.core import env as env_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.costmodel import dataflows as dfl
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,16 +195,45 @@ def run_chunked_engine(engine: GAEngine, state: GAState, generations: int,
     ``eval_fn`` the fitness goes through :func:`host_fitness`, and nothing
     else changes.  ``engine_name`` tags each chunk's telemetry: one hard
     eval per population member per generation.
+
+    With telemetry on, each chunk's span also gets the host time of its
+    generations by phase, in microseconds: ``fitness_us`` (the ``fitness``
+    calls: decoding and the cost-kernel launch, or the host round trip of
+    ``eval_fn``) and ``evolve_us`` (the ``evolve`` calls: selection,
+    crossover, mutation).  The launches are asynchronous, so each phase
+    holds the host's cost of issuing its work; a phase that syncs with
+    the device holds that wait too.  The choice between the timed loop
+    and the plain one is made once a chunk; with telemetry off the plain
+    one runs.
     """
     fitness = (engine.fitness if eval_fn is None
                else host_fitness(engine.decode, eval_fn, fixed_df))
     pop_size = int(state.pop.shape[0])
 
     def run_chunk(state, n):
+        span = obs_trace.current()
+        if span is not obs_trace.NULL_SPAN:
+            return timed_chunk(state, n, span)
         hist = []
         for _ in range(n):
             state, bv = engine.evolve(state, fitness(state.pop))
             hist.append(bv)
+        return state, torch.stack(hist).cpu().numpy()
+
+    def timed_chunk(state, n, span):
+        """``run_chunk`` with its phases timed onto ``span``."""
+        clock = time.perf_counter_ns
+        hist, fit_ns, evolve_ns = [], 0, 0
+        for _ in range(n):
+            t0 = clock()
+            fit = fitness(state.pop)
+            t1 = clock()
+            state, bv = engine.evolve(state, fit)
+            evolve_ns += clock() - t1
+            fit_ns += t1 - t0
+            hist.append(bv)
+        span.set(fitness_us=round(fit_ns / 1e3, 3),
+                 evolve_us=round(evolve_ns / 1e3, 3))
         return state, torch.stack(hist).cpu().numpy()
 
     state, hist = chunk_lib.drive(state, generations, chunk, run_chunk,
@@ -414,9 +445,11 @@ def run_local_ga(workload, ecfg: env_lib.EnvConfig,
     """
     if env is None:
         env = env_lib.make_env(workload, ecfg, device)
-    engine = make_local_ga_engine(env, ecfg, init_pe, init_kt, init_df, cfg)
-    if state is None:
-        state = engine.init_carry(cfg.seed)
+    with obs_trace.span("search.prepare", part="ga"):
+        engine = make_local_ga_engine(env, ecfg, init_pe, init_kt, init_df,
+                                      cfg)
+        if state is None:
+            state = engine.init_carry(cfg.seed)
     fixed_df = (np.asarray(torch.as_tensor(init_df).cpu(), np.float32)
                 if eval_fn is not None else None)
     return run_chunked_engine(engine, state, cfg.generations, chunk, on_chunk,

@@ -12,15 +12,22 @@ Launches made while warming up or capturing are recorded on the side
 stream instead of counted; each replay then counts the launches its
 capture recorded.  A capture that fails raises: nothing falls back to
 running the step eagerly.
+
+With telemetry on, each capture is one ``graph.capture`` span: its
+warm-up calls (their host time ``warmup_us``), the capture itself and
+the graph's instantiation, and the port-kernel launches the capture
+recorded (``launches``).
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, Sequence
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import trace as obs_trace
 
 # Calls of the warm-up before a capture.
 WARMUPS = 3
@@ -65,25 +72,32 @@ class CapturedStep:
         device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
         self.launches: Dict[str, int] = {}
-        stream = _capture_stream(device)   # the warm-up's launches: dropped
-        stream.wait_stream(torch.cuda.current_stream(device))
-        key = stream.cuda_stream
-        try:
-            with torch.cuda.stream(stream):
-                for _ in range(WARMUPS):
-                    warmup()
-            torch.cuda.current_stream(device).wait_stream(stream)
-            build.recording[key] = self.launches
-            for gen in generators:
-                self.graph.register_generator_state(gen)
-            # Other threads (the search service's workers) may use the card
-            # during the capture; only this thread is held to its rules.
-            with _capture_lock, torch.cuda.graph(
-                    self.graph, stream=stream,
-                    capture_error_mode="thread_local"):
-                fn()
-        finally:
-            build.recording.pop(key, None)
+        with obs_trace.span("graph.capture") as sp:
+            # The warm-up's launches go to this stream's record: dropped.
+            stream = _capture_stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            key = stream.cuda_stream
+            try:
+                t0 = time.perf_counter_ns()
+                with torch.cuda.stream(stream):
+                    for _ in range(WARMUPS):
+                        warmup()
+                sp.set(warmup_us=round((time.perf_counter_ns() - t0) / 1e3,
+                                       3))
+                torch.cuda.current_stream(device).wait_stream(stream)
+                build.recording[key] = self.launches
+                for gen in generators:
+                    self.graph.register_generator_state(gen)
+                # Other threads (the search service's workers) may use the
+                # card during the capture; only this thread is held to its
+                # rules.
+                with _capture_lock, torch.cuda.graph(
+                        self.graph, stream=stream,
+                        capture_error_mode="thread_local"):
+                    fn()
+            finally:
+                build.recording.pop(key, None)
+            sp.set(launches=sum(self.launches.values()))
 
     def replay(self) -> None:
         self.graph.replay()

@@ -38,6 +38,7 @@ from repro_torch.core import env as env_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.training import optim
 
 
@@ -330,22 +331,27 @@ def make_epoch_fn(ecfg: env_lib.EnvConfig, pcfg: policy_lib.PolicyConfig,
 def init_search(env: env_lib.EnvArrays, ecfg: env_lib.EnvConfig,
                 pcfg: policy_lib.PolicyConfig, rcfg: ReinforceConfig,
                 opt: optim.Adam) -> SearchState:
-    dev = env.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(rcfg.seed)
-    params = policy_lib.init_params(pcfg, gen, dev)
-    N = env.num_layers
-    return SearchState(
-        params=params,
-        opt_state=opt.init({k: p.detach()
-                            for k, p in params.named_parameters()}),
-        pmin=torch.tensor(torch.inf, device=dev),
-        best_value=torch.tensor(torch.inf, device=dev),
-        best_pe_lvl=torch.zeros((N,), dtype=torch.int64, device=dev),
-        best_kt_lvl=torch.zeros((N,), dtype=torch.int64, device=dev),
-        best_df=torch.full((N,), ecfg.dataflow, dtype=torch.int64,
-                           device=dev),
-        generator=gen, epoch=torch.zeros((), dtype=torch.int64, device=dev))
+    """A fresh stage-1 state: the policy seeded from ``rcfg.seed``, Adam's
+    state, no best yet.  With telemetry on, one ``search.prepare`` span
+    (``part="policy"``)."""
+    with obs_trace.span("search.prepare", part="policy"):
+        dev = env.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(rcfg.seed)
+        params = policy_lib.init_params(pcfg, gen, dev)
+        N = env.num_layers
+        return SearchState(
+            params=params,
+            opt_state=opt.init({k: p.detach()
+                                for k, p in params.named_parameters()}),
+            pmin=torch.tensor(torch.inf, device=dev),
+            best_value=torch.tensor(torch.inf, device=dev),
+            best_pe_lvl=torch.zeros((N,), dtype=torch.int64, device=dev),
+            best_kt_lvl=torch.zeros((N,), dtype=torch.int64, device=dev),
+            best_df=torch.full((N,), ecfg.dataflow, dtype=torch.int64,
+                               device=dev),
+            generator=gen,
+            epoch=torch.zeros((), dtype=torch.int64, device=dev))
 
 
 # The metrics of an epoch, in the order of the in-place epoch's buffer.
@@ -425,6 +431,7 @@ class EpochRunner:
                                 device=dev)
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.graph = None
+        self._events = []
         if dev.type == "cuda":
             scratch = clone_state(state)
             scratch_metrics = torch.zeros_like(self.metrics)
@@ -446,12 +453,46 @@ class EpochRunner:
 
     def run(self, n: int):
         """``n`` epochs (at most the capacity); their history, read back to
-        the host in one sync, as a dict of (n,) float32 arrays."""
+        the host in one sync, as a dict of (n,) float32 arrays.
+
+        On the card with telemetry on, a pair of CUDA events brackets each
+        replay, and two counters go on the innermost open span (the
+        ``search.chunk`` around this call) once the history's readback has
+        waited for the events: ``device_us``, the sum of the replays' own
+        times, and ``stream_us``, from the first replay's start to the last
+        one's end.  ``stream_us - device_us`` is the time the stream spent
+        between replays.  A start event is stamped when it reaches the
+        device, so where the device was already waiting for the host a
+        replay's time holds the graph launch's own latency: ``device_us``
+        bounds the busy time from above, the difference the idle time
+        from below."""
         self.slot.zero_()
-        for _ in range(n):
-            self.step()
+        span = obs_trace.current()
+        marks = (self._marks(n) if self.graph is not None
+                 and span is not obs_trace.NULL_SPAN else None)
+        if marks is None:
+            for _ in range(n):
+                self.step()
+        else:
+            for start, end in marks:
+                start.record()
+                self.graph.replay()
+                end.record()
         h = self.hist[:, :n].to("cpu", copy=True).numpy()
+        if marks:
+            span.set(
+                device_us=round(sum(s.elapsed_time(e) for s, e in marks)
+                                * 1e3, 3),
+                stream_us=round(marks[0][0].elapsed_time(marks[-1][1])
+                                * 1e3, 3))
         return {k: h[i] for i, k in enumerate(self.names)}
+
+    def _marks(self, n: int):
+        """``n`` (start, end) pairs of timing events, made once and kept."""
+        while len(self._events) < n:
+            self._events.append(tuple(torch.cuda.Event(enable_timing=True)
+                                      for _ in range(2)))
+        return self._events[:n]
 
 
 def run_search(workload, ecfg: env_lib.EnvConfig,

@@ -34,6 +34,9 @@ class SearchResult:
     ga_history: np.ndarray            # stage-2 best-so-far trace
     wall_seconds: float
     epochs: int
+    stage1_pe: np.ndarray             # (N,) stage 1's assignment, where
+    stage1_kt: np.ndarray             # stage 2 starts
+    stage1_df: np.ndarray
 
 
 def _np(t):
@@ -85,7 +88,8 @@ def confuciux_search(workload, ecfg: env_lib.EnvConfig,
         best_value=best, stage1_value=stage1,
         initial_valid_value=initial_valid,
         pe=pe, kt=kt, df=df, history=hist, ga_history=np.asarray(ga_hist),
-        wall_seconds=time.time() - t0, epochs=rcfg.epochs)
+        wall_seconds=time.time() - t0, epochs=rcfg.epochs,
+        stage1_pe=pe1, stage1_kt=kt1, stage1_df=df1)
 
 
 def per_layer_optima(workload, ecfg: env_lib.EnvConfig, device="cuda"):

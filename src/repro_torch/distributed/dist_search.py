@@ -420,7 +420,7 @@ def _fanout_reinforce_device(subs) -> List[api_types.SearchOutcome]:
 
     _, chunks = chunk_lib.drive(
         None, epochs, chunk, lambda _, n: (None, fleet.run(n)), on_chunk,
-        engine="dist_reinforce", evals_per_step=E * n_shards)
+        engine="fanout_reinforce", evals_per_step=E * n_shards)
     hist = np.concatenate(chunks, axis=2)
 
     outcomes = []
@@ -516,7 +516,10 @@ class FanoutOptimizer:
     searching in parallel, so the merged trace is the wall-clock best-so-far
     of the ensemble and total samples are ``n_shards * eps`` (reported in
     extras).  Shards are merged in shard-index order, so every backend
-    returns identical outcomes for the same seeds.
+    returns identical outcomes for the same seeds.  Where every shard's
+    outcome has an epoch history (``extras["history"]``: reinforce,
+    two_stage, a2c, ppo2), ``extras["shard_histories"]`` holds them in
+    shard order, each metric a list of floats.
 
     Progress streams through ``request.on_progress`` as shard-tagged Trials
     (``Trial.shard``) whose ``best_value`` is the ensemble best-so-far; each
@@ -558,14 +561,18 @@ class FanoutOptimizer:
 
         best = min(shards, key=lambda o: o.best_value)
         trace = np.min(np.stack([o.history for o in shards]), axis=0)
+        extras = {"inner": inner_impl.name, "n_shards": n_shards,
+                  "backend": backend,
+                  "total_samples": n_shards * request.eps,
+                  "shard_best_values": [o.best_value for o in shards],
+                  "best_seed": best.seed}
+        if all("history" in o.extras for o in shards):
+            extras["shard_histories"] = [
+                {k: np.asarray(v).tolist()
+                 for k, v in o.extras["history"].items()} for o in shards]
         return api_types.build_outcome(
             request, self.name, best.best_value, best.pe, best.kt, best.df,
-            trace, t0,
-            extras={"inner": inner_impl.name, "n_shards": n_shards,
-                    "backend": backend,
-                    "total_samples": n_shards * request.eps,
-                    "shard_best_values": [o.best_value for o in shards],
-                    "best_seed": best.seed},
+            trace, t0, extras=extras,
             streamed=request.on_progress is not None)
 
 

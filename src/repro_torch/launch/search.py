@@ -267,7 +267,9 @@ def main(argv=None):
     summary = ["method", "best_value", "stage1_value", "initial_valid_value",
                "samples_to_convergence", "wall_seconds"]
     if out.method == "fanout":
-        rec["fanout"] = out.extras
+        # The shards' epoch histories stay in the outcome: a line each.
+        rec["fanout"] = {k: v for k, v in out.extras.items()
+                         if k != "shard_histories"}
         summary.append("fanout")
     print(json.dumps({k: rec[k] for k in summary}), flush=True)
     if args.out:

@@ -18,7 +18,8 @@ the whole optimizer registry in tests/test_torch_conformance.py), the
 disabled path costs one bool check per call site, and no instrumented
 site reads a tensor on the card or synchronizes it: spans time the host's
 wall clock and close after the synchronization the code already makes.
-Metric and span names are the reference's (docs/observability.md).
+Metric and span names are the reference's (docs/observability.md); the
+port's own spans and chunk counters are in docs/observability_torch.md.
 
 Typical use::
 
@@ -41,14 +42,14 @@ from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
                                write_prometheus)
 from repro_torch.obs.recorder import (FlightRecorder, current_recorder, record,
                                 observe, recording)
-from repro_torch.obs.trace import NULL_SPAN, Tracer, span
+from repro_torch.obs.trace import NULL_SPAN, Tracer, current, span
 from repro_torch.obs import instrument
 
 __all__ = [
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "counter", "gauge", "histogram", "write_prometheus",
     "FlightRecorder", "current_recorder", "record", "observe", "recording",
-    "NULL_SPAN", "Tracer", "span", "instrument",
+    "NULL_SPAN", "Tracer", "current", "span", "instrument",
     "enable", "disable", "enabled", "tracer", "save_trace", "reset",
 ]
 

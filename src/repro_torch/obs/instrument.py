@@ -2,9 +2,10 @@
 
 Port of ``repro.obs.instrument``.  Every instrumented module pulls its
 metric handles from here so the full catalog lives in one place; each
-metric name and span name is the reference's (docs/observability.md
+metric name and span name of the reference is kept (docs/observability.md
 documents them), so a dashboard or scraper built for the reference reads
-the port unchanged.  All handles are created at import of this module --
+the port unchanged; the port's own spans follow them
+(docs/observability_torch.md).  All handles are created at import of this module --
 creation is cheap and updates are no-ops while telemetry is disabled.
 
 Also home of the compile tracker.  On the card the names read so:
@@ -95,13 +96,16 @@ HTTP_QUEUE_DEPTH = _metrics.gauge(
 METRIC_NAMES = tuple(sorted(
     m.name for m in _metrics.REGISTRY.metrics()))
 
-# Span taxonomy (documented in docs/observability.md).
+# Span taxonomy: the reference's names (docs/observability.md), then the
+# port's own (docs/observability_torch.md).
 SPAN_NAMES = (
     "service.search",     # one ticket end-to-end (uid, method, status)
     "search.run",         # one api.run_search call (method, eps, seed)
     "search.chunk",       # one engine chunk (engine, start, steps, evals)
     "batcher.dispatch",   # one fused dispatch (items, points, unique, fresh)
     "xla.dispatch",       # one device program dispatch (program, compile)
+    "search.prepare",     # one piece of a search's set-up (part)
+    "graph.capture",      # one CUDA-graph capture (warmup_us, launches)
 )
 
 

@@ -16,6 +16,16 @@ tracks depth and parent) and land in:
 Recording is observational only: spans never touch RNG state, search state
 or any value the engines compute.  When tracing is disabled, ``span()``
 returns one shared null context manager -- no allocation, no clock read.
+
+Beyond the reference: :func:`current` hands an engine the innermost open
+span of its thread, so it can attach counters to the ``search.chunk``
+span the chunk loop opened around it; and while a ``torch.profiler``
+records, each span is mirrored into the profiler's trace as a
+``record_function`` range of the same name, so the profiler's host
+timeline shows the program's layers beside the aten ops.  A span's
+``ts_us`` is on the wall clock (a ``perf_counter_ns`` reading moved by an
+anchor the :class:`Tracer` takes when it is created), the clock the
+profiler's events are on.
 """
 from __future__ import annotations
 
@@ -27,12 +37,9 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
-from repro_torch.obs import state as _state
+from torch.autograd import profiler as _profiler
 
-# Offset perf_counter timestamps to an epoch-ish origin once per process so
-# trace files from one run share a common, comparable timebase.
-_T0_NS = time.perf_counter_ns()
-_EPOCH_US = time.time() * 1e6
+from repro_torch.obs import state as _state
 
 
 class _NullSpan:
@@ -56,7 +63,8 @@ NULL_SPAN = _NullSpan()
 class _Span:
     """One live span; finished records are plain dicts in the ring."""
 
-    __slots__ = ("tracer", "name", "attrs", "t0", "parent", "depth", "tid")
+    __slots__ = ("tracer", "name", "attrs", "t0", "parent", "depth", "tid",
+                 "_mirror")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict):
         self.tracer = tracer
@@ -77,11 +85,19 @@ class _Span:
         self.depth = len(stack)
         self.tid = threading.get_ident()
         stack.append(self)
+        # The profiler's flag is a module attribute it sets on start and
+        # clears on stop: one test while no profiler records.
+        self._mirror = None
+        if _profiler._is_profiler_enabled:
+            self._mirror = _profiler.record_function(self.name)
+            self._mirror.__enter__()
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         dur = time.perf_counter_ns() - self.t0
+        if self._mirror is not None:
+            self._mirror.__exit__(*exc)
         stack = self.tracer._tls.stack
         if stack and stack[-1] is self:
             stack.pop()
@@ -100,6 +116,11 @@ class Tracer:
         self._jsonl_path = jsonl_path
         self._jsonl_file = None
         self.dropped = 0
+        # The wall-clock anchor of this tracer's timestamps, taken now
+        # (not at import), so a long-lived process still agrees with the
+        # profiler's clock after the wall clock was stepped.
+        self._t0_ns = time.perf_counter_ns()
+        self._epoch_us = time.time_ns() / 1e3
         if jsonl_path:
             os.makedirs(os.path.dirname(os.path.abspath(jsonl_path)),
                         exist_ok=True)
@@ -111,7 +132,8 @@ class Tracer:
     def _record(self, span: _Span, dur_ns: int) -> None:
         rec = {
             "name": span.name,
-            "ts_us": round((span.t0 - _T0_NS) / 1e3 + _EPOCH_US, 3),
+            "ts_us": round((span.t0 - self._t0_ns) / 1e3 + self._epoch_us,
+                           3),
             "dur_us": round(dur_ns / 1e3, 3),
             "tid": span.tid,
             "depth": span.depth,
@@ -127,6 +149,11 @@ class Tracer:
             if self._jsonl_file is not None:
                 self._jsonl_file.write(json.dumps(rec) + "\n")
                 self._jsonl_file.flush()
+
+    def current(self):
+        """The innermost span open on this thread, or :data:`NULL_SPAN`."""
+        stack = getattr(self._tls, "stack", None)
+        return stack[-1] if stack else NULL_SPAN
 
     def spans(self) -> List[dict]:
         with self._lock:
@@ -190,6 +217,16 @@ def span(name: str, **attrs):
     if tracer is None or not _state.enabled:
         return NULL_SPAN
     return tracer.span(name, **attrs)
+
+
+def current():
+    """The innermost span open on this thread, to attach counters to
+    (``current().set(k=v)``); the shared :data:`NULL_SPAN`, whose ``set``
+    does nothing, when telemetry is off or no span is open."""
+    tracer = _state.tracer
+    if tracer is None or not _state.enabled:
+        return NULL_SPAN
+    return tracer.current()
 
 
 @contextlib.contextmanager

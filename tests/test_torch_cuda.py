@@ -876,6 +876,48 @@ def test_graph_replays_count_launches(dev):
     assert all(v == 0 for v in ref.cuda_calls.values())
 
 
+def test_captured_two_stage_records_its_capture_and_device_time(dev):
+    """A traced two_stage search on the card: one ``graph.capture`` span a
+    search (stage 1's epoch graph, inside ``search.run``), with the
+    capture's launches; every ``reinforce`` chunk carries its replays'
+    summed device time from CUDA events, above 0 and within the stream's
+    time from the first replay to the last, which is within the chunk's
+    wall time; and the outcome equals the untraced one."""
+    from repro_torch import obs
+
+    req = lambda: api.SearchRequest(
+        workload="ncf", env=api.EnvConfig(platform="cloud"), eps=12, seed=3,
+        method="two_stage", options={"ga": {"generations": 10}},
+        device="cuda", progress_every=5, on_progress=lambda t: None)
+    plain = api.run_search(req())
+    obs.enable(trace=True)
+    obs.reset()
+    try:
+        traced = api.run_search(req())
+        api.run_search(req())
+        spans = obs.tracer().spans()
+    finally:
+        obs.disable()
+        obs.reset()
+    assert plain.history.tobytes() == traced.history.tobytes()
+    assert plain.extras["ga_history"].tobytes() == \
+        traced.extras["ga_history"].tobytes()
+    captures = [s for s in spans if s["name"] == "graph.capture"]
+    assert len(captures) == 2
+    N = len(workloads.get_workload("ncf"))
+    for s in captures:
+        assert s["parent"] == "search.run"
+        assert 0 < s["attrs"]["warmup_us"] < s["dur_us"]
+        # One cost, one LSTM forward and one backward launch a layer.
+        assert s["attrs"]["launches"] == 3 * N
+    chunks = [s for s in spans if s["name"] == "search.chunk"
+              and s["attrs"]["engine"] == "reinforce"]
+    assert len(chunks) == 2 * 3            # 12 epochs in chunks of 5
+    for c in chunks:
+        a = c["attrs"]
+        assert 0 < a["device_us"] <= a["stream_us"] <= c["dur_us"]
+
+
 @pytest.mark.parametrize("compress", [False, True])
 def test_graphed_dist_reinforce_gives_the_bits_of_eager_epochs(dev,
                                                                compress):

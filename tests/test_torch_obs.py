@@ -190,11 +190,19 @@ def test_recorder_summary_equals_the_reference():
     assert json.dumps(mine.summary()) == json.dumps(ref.summary())
 
 
+# The spans the port records beyond the reference's
+# (docs/observability_torch.md).
+PORT_SPAN_NAMES = ("search.prepare", "graph.capture")
+
+
 def test_catalog_names_equal_the_reference():
     from repro.obs import instrument as ref_instrument
 
     assert instrument.METRIC_NAMES == ref_instrument.METRIC_NAMES
-    assert instrument.SPAN_NAMES == ref_instrument.SPAN_NAMES
+    # The reference's span names first, then exactly the port's own.
+    n = len(ref_instrument.SPAN_NAMES)
+    assert instrument.SPAN_NAMES[:n] == ref_instrument.SPAN_NAMES
+    assert instrument.SPAN_NAMES[n:] == PORT_SPAN_NAMES
     mine = {m.name: m for m in metrics.REGISTRY.metrics()}
     ref = {m.name: m for m in ref_metrics.REGISTRY.metrics()}
     for name in instrument.METRIC_NAMES:
@@ -672,15 +680,20 @@ def test_outcome_summary_renders_telemetry():
     traced = api.run_search(req)
     text = traced.summary()
     assert "telemetry: " in text and "hard_evals=20" in text
-    names = [s["name"] for s in obs.tracer().spans()]
-    assert names == ["search.run"]
-    assert obs.tracer().spans()[0]["attrs"] == {
+    spans = obs.tracer().spans()
+    assert [s["name"] for s in spans] == ["search.prepare", "search.run"]
+    assert spans[0]["attrs"] == {"part": "env"}
+    assert spans[1]["attrs"] == {
         "method": "random", "eps": 20, "seed": 3}
 
 
 def test_docs_document_every_metric_and_span():
+    """The reference's names in docs/observability.md, the port's own
+    spans in docs/observability_torch.md."""
     doc = open(os.path.join(REPO, "docs", "observability.md")).read()
+    own = open(os.path.join(REPO, "docs", "observability_torch.md")).read()
     for name in instrument.METRIC_NAMES:
         assert f"`{name}`" in doc, f"{name} missing from docs/observability.md"
     for name in instrument.SPAN_NAMES:
-        assert f"`{name}`" in doc, f"{name} missing from docs/observability.md"
+        where = own if name in PORT_SPAN_NAMES else doc
+        assert f"`{name}`" in where, f"{name} missing from its doc"
